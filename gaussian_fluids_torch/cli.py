@@ -1,0 +1,59 @@
+"""Command-line flags of the 2D entry points — the JAX package's
+``cli.parse_args_2d`` flag surface. Figures are not part of this port yet:
+it always runs as the JAX CLI does under ``--no_viz``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Gaussian Fluids 2D in PyTorch on one NVIDIA GPU. "
+                    "Runs without figures, as the JAX CLI does under "
+                    "--no_viz.")
+    p.add_argument("--device", type=str, default="0",
+                   help="'cpu' runs on the CPU; an index K runs on "
+                        "cuda:K (default: the first GPU)")
+    p.add_argument("--dir", type=str, default="output_fast")
+    p.add_argument("--start_frame", type=int, default=0)
+    p.add_argument("--init_cond", type=str, default="leapfrog",
+                   help="scene: leapfrog or taylor_green")
+    p.add_argument("--dt", type=float, default=0.01)
+    p.add_argument("--last_time", type=float, default=10.0)
+    p.add_argument("--target_grid", type=int, default=0,
+                   help="cached covector-target grid; only 0 (exact "
+                        "per-epoch targets) is ported")
+    p.add_argument("--max_epoch", type=int, default=None,
+                   help="override the per-phase epoch budget")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="multi-device runs are not ported; must be unset")
+    p.add_argument("--no_viz", action="store_true",
+                   help="accepted for compatibility: figures are never "
+                        "drawn by this port")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--profile", type=str, default=None,
+                   help="tracing is not ported; must be unset")
+    return p
+
+
+def device_of(flag: str) -> str:
+    if flag == "cpu":
+        return "cpu"
+    return f"cuda:{int(flag)}" if flag.isdigit() else "cuda"
+
+
+def parse_args_2d(argv=None, default_max_epoch=20000):
+    p = _parser()
+    args = p.parse_args(argv)
+    if args.max_epoch is None:
+        args.max_epoch = default_max_epoch
+    if args.target_grid:
+        p.error("--target_grid is not ported yet")
+    if args.mesh:
+        p.error("--mesh is not ported yet")
+    if args.profile:
+        p.error("--profile is not ported yet")
+    args.device = device_of(args.device)
+    return args

@@ -1,0 +1,125 @@
+"""Where a training epoch's time goes, at Leapfrog-2D width.
+
+    python -m gaussian_fluids_torch.epoch_profile [--epochs 20]
+
+For one fit, clone re-fit and projection epoch each (the three epoch
+kinds of the 2D path), on a seeded Leapfrog-2D state (71x71 = 5041
+Gaussians, B = 512): the host wall time per epoch, and from
+``torch.profiler`` the device time per epoch, the device's busy share
+(device time over wall time; kernels run on one stream, so this is their
+union), the operators the host dispatches and the device launches per
+epoch, and the device time by kernel name.
+Prints one JSON line per epoch kind, then the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from gaussian_fluids_torch.scenes import get_scene_2d
+from gaussian_fluids_torch.solver import clone, fit, optim, project
+from gaussian_fluids_torch.utils.seeded_state import leapfrog_state
+
+
+def _epochs(mix, spec, device):
+    """{kind: step()} — each call runs one epoch of that kind on fresh
+    samples, carrying its own state."""
+    scene = get_scene_2d("leapfrog")
+    gen = torch.Generator(device=device).manual_seed(0)
+    lo = torch.full((2,), -5.0, device=device)
+    hi = torch.full((2,), 5.0, device=device)
+    p = mix.params()
+
+    fit_epoch = fit.make_fit_epoch(spec, scene.target_velocity,
+                                   scene.target_velocity_jac)
+    fit_c = [(p, optim.init(p, dict(fit.FIT_LRS_2D)), mix.alive)]
+
+    clone_epoch = clone._clone_runner(spec)[0]
+    stop = torch.rand(mix.capacity, generator=gen, device=device) > 0.1
+    clone_c = [(p, optim.init(p, clone.DEFAULT_LRS_CLONE_2D), mix.alive,
+                stop, mix)]
+
+    proj_epoch, sample = project._runner_2d(
+        spec, "leapfrog", project.ProjectWeights(), 1.0, 512)[:2]
+    adv = torch.tensor(scene.advance_domain, device=device)
+    proj_c = [(p, optim.init(p, project.DEFAULT_LRS_2D), mix.alive,
+               mix.positions, mix, adv, 0.025)]
+
+    def run(epoch, carry, make_input):
+        def step():
+            carry[0] = epoch(carry[0], make_input())[0]
+        return step
+
+    return {
+        "fit": run(fit_epoch, fit_c,
+                   lambda: fit.uniform_batch(gen, 512, lo, hi)),
+        "clone": run(clone_epoch, clone_c,
+                     lambda: fit.uniform_batch(gen, 512, lo, hi)),
+        "project": run(proj_epoch, proj_c, lambda: sample(gen, adv)),
+    }
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_epoch(step, epochs: int) -> dict:
+    for _ in range(3):                       # warm-up: allocator, caches
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(epochs):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    # operators the host dispatched itself (not nested inside another)
+    host_ops = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.name.startswith("aten::") and e.cpu_parent is None)
+    dev_us = sum(_device_us(e) for e in dev)
+    launches = sum(e.count for e in dev)
+    top = sorted(dev, key=_device_us, reverse=True)[:8]
+    return {
+        "epochs": epochs,
+        "ms_per_epoch": 1e3 * wall / epochs,
+        "device_ms_per_epoch": dev_us / 1e3 / epochs,
+        "device_busy_share": dev_us / 1e6 / wall,
+        "host_ops_per_epoch": host_ops / epochs,
+        "device_launches_per_epoch": launches / epochs,
+        "top_kernels_ms_per_epoch": [[e.key[:80], _device_us(e) / 1e3 / epochs]
+                                     for e in top],
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--epochs", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("epoch_profile: needs a CUDA GPU")
+    device = torch.device("cuda")
+    mix, spec, _ = leapfrog_state(device)
+    for kind, step in _epochs(mix, spec, device).items():
+        print(json.dumps({"epoch": kind, **profile_epoch(step, args.epochs)}),
+              flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

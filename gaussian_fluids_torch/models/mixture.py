@@ -1,0 +1,195 @@
+"""The Gaussian mixture state: four parameter tensors plus an alive mask.
+
+Dynamic particle counts (splitting adds Gaussians, leaving the domain
+removes them) are handled as in the JAX package, with **padding + an alive
+mask**: tensors are padded to a capacity from a geometric ladder of
+multiples of 512, so the tile mask and the kernels see few distinct
+shapes. Padded (dead) entries have ``values = 0``, sit at the padded
+domain corner, and are masked out of every field evaluation and loss.
+
+Training differentiates with respect to the 4-tensor parameter dict
+(``params()`` / ``with_params``), one optimizer group each.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from gaussian_fluids_torch.config import FieldSpec
+from gaussian_fluids_torch.ops.rotations import precision_matrix
+
+PAD_BUCKET = 512  # capacities are multiples of this (kernel tile divisors)
+
+# Capacity ladder growth factor, the JAX package's default: each crossing
+# adds ~25% headroom, so a run re-buckets O(log N) times.
+_PAD_GROWTH = 1.25
+
+PARAM_KEYS = ("positions", "scalings", "rotations", "values")
+
+
+def _bucket(n: int) -> int:
+    cap = PAD_BUCKET
+    while cap < n:
+        step = max(cap * (_PAD_GROWTH - 1.0), PAD_BUCKET)
+        cap = ((cap + int(step) + PAD_BUCKET - 1) // PAD_BUCKET) * PAD_BUCKET
+    return cap
+
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32) if not
+                           isinstance(a, torch.Tensor) else a,
+                           dtype=torch.float32, device=device)
+
+
+@dataclasses.dataclass
+class GaussianMixture:
+    """N anisotropic 2D Gaussians carrying a ``vdim``-dimensional value.
+
+    positions: (N, d) centres mu_i.
+    scalings:  (N, d) log *inverse* scales s_i.
+    rotations: (N,) angle.
+    values:    (N, vdim) splatted coefficients v_i.
+    alive:     (N,) bool — False for padding entries.
+    """
+
+    positions: torch.Tensor
+    scalings: torch.Tensor
+    rotations: torch.Tensor
+    values: torch.Tensor
+    alive: torch.Tensor
+
+    # ---- basic properties ----
+
+    @property
+    def capacity(self) -> int:
+        return self.positions.shape[0]
+
+    @property
+    def d(self) -> int:
+        return self.positions.shape[1]
+
+    @property
+    def vdim(self) -> int:
+        return self.values.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.positions.device
+
+    def n_alive(self) -> int:
+        return int(self.alive.sum())
+
+    # ---- construction ----
+
+    @staticmethod
+    def create(positions, spec: FieldSpec,
+               device="cuda") -> "GaussianMixture":
+        """Initial state at the given centres: scalings =
+        spec.initial_scaling, zero rotations, zero values."""
+        positions = _f32(positions, device)
+        n, d = positions.shape
+        if d != 2:
+            raise NotImplementedError("only 2D mixtures are ported so far")
+        cap = _bucket(n)
+        pos = torch.empty((cap, d), dtype=torch.float32, device=device)
+        pos[:n] = positions
+        # park padding at the padded-domain corner (values 0, alive False)
+        pos[n:] = torch.tensor(spec.lo, dtype=torch.float32, device=device)
+        scalings = torch.full((cap, d), spec.initial_scaling,
+                              dtype=torch.float32, device=device)
+        rotations = torch.zeros((cap,), dtype=torch.float32, device=device)
+        values = torch.zeros((cap, spec.vdim), dtype=torch.float32,
+                             device=device)
+        alive = torch.zeros((cap,), dtype=torch.bool, device=device)
+        alive[:n] = True
+        return GaussianMixture(pos, scalings, rotations, values, alive)
+
+    @staticmethod
+    def from_arrays(positions, scalings, rotations, values,
+                    spec: FieldSpec, min_capacity: int = 0,
+                    device="cuda") -> "GaussianMixture":
+        """Wrap unpadded parameter arrays, re-padding to a bucket.
+        ``min_capacity`` keeps a previous, larger bucket when N shrinks."""
+        positions = _f32(positions, device)
+        n, d = positions.shape
+        cap = max(_bucket(n), min_capacity)
+
+        def _pad(a):
+            a = _f32(a, device)
+            out = torch.zeros((cap,) + tuple(a.shape[1:]),
+                              dtype=torch.float32, device=device)
+            out[:n] = a
+            return out
+
+        pos = _pad(positions)
+        pos[n:] = torch.tensor(spec.lo, dtype=torch.float32, device=device)
+        alive = torch.zeros((cap,), dtype=torch.bool, device=device)
+        alive[:n] = True
+        return GaussianMixture(pos, _pad(scalings), _pad(rotations),
+                               _pad(values), alive)
+
+    def _reordered(self, order: torch.Tensor) -> "GaussianMixture":
+        return GaussianMixture(self.positions[order], self.scalings[order],
+                               self.rotations[order], self.values[order],
+                               self.alive[order])
+
+    def spatially_sorted(self) -> "GaussianMixture":
+        """Reorder by coordinate 0, dead rows last. Order is semantically
+        irrelevant, but the tile mask only culls well when Gaussian tiles
+        are thin x-slabs."""
+        key = torch.where(self.alive, self.positions[:, 0], float("inf"))
+        return self._reordered(torch.argsort(key, stable=True))
+
+    def compact(self) -> "GaussianMixture":
+        """Drop padding."""
+        keep = self.alive
+        return GaussianMixture(self.positions[keep], self.scalings[keep],
+                               self.rotations[keep], self.values[keep],
+                               torch.ones((int(keep.sum()),),
+                                          dtype=torch.bool,
+                                          device=self.device))
+
+    # ---- differentiable-parameter view ----
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {k: getattr(self, k) for k in PARAM_KEYS}
+
+    def with_params(self, p: Dict[str, torch.Tensor]) -> "GaussianMixture":
+        return GaussianMixture(p["positions"], p["scalings"],
+                               p["rotations"], p["values"], self.alive)
+
+    # ---- covariance ----
+
+    def precisions(self) -> torch.Tensor:
+        """Sigma^{-1} per Gaussian, (N, d, d)."""
+        return precision_matrix(self.scalings, self.rotations, self.d)
+
+    def to_param_dict(self) -> Dict[str, np.ndarray]:
+        m = self.compact()
+        return {k: getattr(m, k).detach().cpu().numpy() for k in PARAM_KEYS}
+
+    def min_scaling(self) -> torch.Tensor:
+        """min over alive entries (drives the dynamic search radius)."""
+        return torch.where(self.alive[:, None], self.scalings,
+                           float("inf")).min()
+
+
+def mixture_of(params, alive) -> GaussianMixture:
+    """Mixture view over a param dict + alive mask."""
+    return GaussianMixture(params["positions"], params["scalings"],
+                           params["rotations"], params["values"], alive)
+
+
+def from_numpy_params(params: Dict[str, np.ndarray], alive: np.ndarray,
+                      device="cuda") -> GaussianMixture:
+    """The port's mixture over padded parameter arrays taken from the JAX
+    package (``np.asarray`` of its ``mix.params()`` and ``mix.alive``), so
+    both packages compute on the same state."""
+    t = {k: torch.as_tensor(np.array(params[k], np.float32), device=device)
+         for k in PARAM_KEYS}
+    return mixture_of(t, torch.as_tensor(np.array(alive, bool),
+                                         device=device))

@@ -1,0 +1,378 @@
+"""Field evaluation: value and spatial Jacobian of the Gaussian mixture.
+
+Semantics (the same as the JAX package's ``ops/field.py``):
+
+    g_i(x)   = exp(-1/2 (x - mu_i)^T Sigma_i^{-1} (x - mu_i))
+    u(x)     = sum_i  1[g_i >= c] * 1[mu_i in padded domain] * v_i (g_i - c)
+    du/dx    = sum_i  1[...] * v_i (-g_i) (Sigma_i^{-1} (x - mu_i))^T
+
+Two backends behind ``value`` / ``value_and_jac`` / ``two_head_grads``,
+chosen by the device of the query points:
+  * on the card, the centered block-sparse path: queries sorted along
+    coordinate 0, an exact bounding-box + support-radius tile mask at the
+    CUDA kernels' tiles, and the kernels of ``ops/gsr_centered.py``;
+  * on the CPU, the dense path: the quadratic form as one (B, F) @ (F, N)
+    matmul over polynomial features, as the JAX package's dense backend
+    computes it, so CPU runs of both packages agree closely.
+The centered functions also run on the CPU (through the kernels' plain
+twins), which is how the tests hold them against the JAX Pallas kernels.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from gaussian_fluids_torch.config import FieldSpec
+from gaussian_fluids_torch.models.mixture import (GaussianMixture,
+                                                  mixture_of)
+from gaussian_fluids_torch.ops import gsr_centered
+from gaussian_fluids_torch.ops import rotations as rotations_ops
+
+_INF = float("inf")
+
+
+def _use_kernel(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def _check_queries(mix: GaussianMixture, x: torch.Tensor):
+    if x.dim() != 2 or x.shape[1] != mix.d:
+        raise ValueError(
+            f"query points must have shape (B, {mix.d}); got "
+            f"{tuple(x.shape)}")
+
+
+def in_domain_mask(mix: GaussianMixture, spec: FieldSpec) -> torch.Tensor:
+    """(N,) bool: alive and centre inside the padded domain."""
+    inside = mix.alive
+    # per-coordinate Python bounds: no host-to-device copy (which would
+    # synchronise the stream) on the per-epoch path
+    for k in range(mix.d):
+        p = mix.positions[:, k]
+        inside = inside & (p >= spec.lo[k]) & (p <= spec.hi[k])
+    return inside
+
+
+# ---- dense path (CPU) ----
+
+def _quad_features(x: torch.Tensor, d: int) -> torch.Tensor:
+    """[x_i^2, 2 x_i x_j (i<j), -2 x_i, 1]: quad = x'Px - 2x.pm + c0 is
+    linear in them."""
+    cols = [x[:, i] * x[:, i] for i in range(d)]
+    for i in range(d):
+        for j in range(i + 1, d):
+            cols.append(2.0 * x[:, i] * x[:, j])
+    for i in range(d):
+        cols.append(-2.0 * x[:, i])
+    cols.append(torch.ones_like(x[:, 0]))
+    return torch.stack(cols, dim=-1)
+
+
+def _quad_weights(mix: GaussianMixture):
+    """(W (N, F), P (N, d, d), pm = P mu (N, d))."""
+    d = mix.d
+    P = mix.precisions()
+    pm = torch.einsum("nij,nj->ni", P, mix.positions)
+    c0 = torch.einsum("ni,ni->n", pm, mix.positions)
+    cols = [P[:, i, i] for i in range(d)]
+    for i in range(d):
+        for j in range(i + 1, d):
+            cols.append(P[:, i, j])
+    for i in range(d):
+        cols.append(pm[:, i])
+    cols.append(c0)
+    return torch.stack(cols, dim=-1), P, pm
+
+
+def masked_kernel(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor):
+    """(mg, mask, P, pm): the masked Gaussian kernel matrix (B, N)."""
+    _check_queries(mix, x)
+    W, P, pm = _quad_weights(mix)
+    quad = _quad_features(x, mix.d) @ W.T
+    g = torch.exp(-0.5 * quad)
+    mask = (g >= spec.clamp_threshold) & in_domain_mask(mix, spec)[None, :]
+    return torch.where(mask, g, torch.zeros_like(g)), mask, P, pm
+
+
+def value_dense(mix: GaussianMixture, spec: FieldSpec,
+                x: torch.Tensor) -> torch.Tensor:
+    mg, mask, _, _ = masked_kernel(mix, spec, x)
+    mg_val = torch.where(mask, mg - spec.clamp_threshold,
+                         torch.zeros_like(mg))
+    return mg_val @ mix.values
+
+
+def value_and_jac_dense(mix: GaussianMixture, spec: FieldSpec,
+                        x: torch.Tensor):
+    """jac[b,a,k] = -sum_n mg[b,n] v[n,a] (P[n] x[b] - pm[n])[k], as two
+    (B, N) @ (N, *) matmuls."""
+    d, vdim = mix.d, mix.vdim
+    mg, mask, P, pm = masked_kernel(mix, spec, x)
+    mg_val = torch.where(mask, mg - spec.clamp_threshold,
+                         torch.zeros_like(mg))
+    val = mg_val @ mix.values
+    vP = torch.einsum("na,nkj->nakj", mix.values, P).reshape(-1, vdim * d * d)
+    vpm = torch.einsum("na,nk->nak", mix.values, pm).reshape(-1, vdim * d)
+    t1 = (mg @ vP).reshape(-1, vdim, d, d)
+    t2 = (mg @ vpm).reshape(-1, vdim, d)
+    jac = -(torch.einsum("bakj,bj->bak", t1, x) - t2)
+    return val, jac
+
+
+def coverage(mix: GaussianMixture, spec: FieldSpec,
+             x: torch.Tensor) -> torch.Tensor:
+    """sum_i (g_i - c) over the support — density-of-coverage diagnostic."""
+    mg, mask, _, _ = masked_kernel(mix, spec, x)
+    return torch.where(mask, mg - spec.clamp_threshold,
+                       torch.zeros_like(mg)).sum(dim=-1)
+
+
+def neighbor_mark(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
+                  radius: float) -> torch.Tensor:
+    """(N,) bool: Gaussians within ``radius`` of any query point."""
+    d2 = ((x[:, None, :] - mix.positions[None, :, :]) ** 2).sum(dim=-1)
+    near = (d2 <= radius * radius).any(dim=0)
+    return near & in_domain_mask(mix, spec)
+
+
+# ---- centered block-sparse path (the CUDA kernels) ----
+
+def _pad_axis(a: torch.Tensor, mult: int, fill: float = 0.0) -> torch.Tensor:
+    """Pad axis 0 up to a multiple of ``mult``."""
+    pad = (-a.shape[0]) % mult
+    if pad == 0:
+        return a
+    tail = torch.full((pad,) + tuple(a.shape[1:]), fill, dtype=a.dtype,
+                      device=a.device)
+    return torch.cat([a, tail], dim=0)
+
+
+def support_radius(scalings: torch.Tensor, clamp: float) -> torch.Tensor:
+    """(N,) support radius: g >= clamp implies |x - mu| <= this."""
+    return math.sqrt(-2.0 * math.log(clamp)) \
+        * torch.exp(-scalings.min(dim=-1).values)
+
+
+def _packed_precisions(mix: GaussianMixture,
+                       dead: torch.Tensor) -> torch.Tensor:
+    """(N, d(d+1)/2 + 1): P diagonal, P off-diagonals, dead-row bias."""
+    pk = rotations_ops.packed_precision_entries(mix.scalings, mix.rotations,
+                                                mix.d)
+    bias = torch.where(dead, 1e9, 0.0).to(pk.dtype)
+    return torch.cat([pk, bias[:, None]], dim=-1)
+
+
+def _tile_mask(x_p, valid_b, mu_p, dead_n, scalings_p, spec: FieldSpec,
+               tb: int, tn: int) -> torch.Tensor:
+    """(B//tb, N//tn) int32: 1 where a query tile's bounding box meets a
+    Gaussian tile's bounding box, each row dilated by its own support
+    radius. Exact: skipped tiles cannot contribute."""
+    d = x_p.shape[1]
+    nbt, nnt = x_p.shape[0] // tb, mu_p.shape[0] // tn
+    xb = x_p.reshape(nbt, tb, d)
+    vb = valid_b.reshape(nbt, tb, 1)
+    blo = torch.where(vb, xb, _INF).amin(dim=1)
+    bhi = torch.where(vb, xb, -_INF).amax(dim=1)
+    mun = mu_p.reshape(nnt, tn, d)
+    dn = dead_n.reshape(nnt, tn, 1)
+    rr = support_radius(scalings_p, spec.clamp_threshold).reshape(nnt, tn, 1)
+    nlo = torch.where(dn, _INF, mun - rr).amin(dim=1)
+    nhi = torch.where(dn, -_INF, mun + rr).amax(dim=1)
+    ok = ((bhi[:, None, :] >= nlo[None, :, :])
+          & (blo[:, None, :] <= nhi[None, :, :])).all(dim=-1)
+    return ok.to(torch.int32)
+
+
+def _padded_param_rows(mix: GaussianMixture, spec: FieldSpec, tn: int):
+    """(mu_p, pp_p, v_p): tn-padded parameter rows with the dead/padded-row
+    +1e9 bias — the single differentiable source of the kernels' layout."""
+    dead = ~in_domain_mask(mix, spec)
+    pp = _packed_precisions(mix, dead)
+    mu_p = _pad_axis(mix.positions, tn)
+    pp_p = _pad_axis(pp, tn)
+    if pp_p.shape[0] > mix.capacity:
+        nb = mix.d * (mix.d + 1) // 2
+        pad_bias = torch.zeros_like(pp_p)
+        pad_bias[mix.capacity:, nb] = 1e9   # padded rows never fire
+        pp_p = pp_p + pad_bias
+    v_p = _pad_axis(mix.values, tn)
+    return mu_p, pp_p, v_p
+
+
+def _centered_prep(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
+                   tb: int, tn: int, presorted: bool):
+    """Sort (unless presorted), pad, pack, and build the tile mask.
+    Returns (x_p, b, inv | None, mu_p, pp_p, v_p, tmask)."""
+    _check_queries(mix, x)
+    b = x.shape[0]
+    inv = None
+    if not presorted:
+        order = torch.argsort(x[:, 0], stable=True)
+        inv = torch.argsort(order)
+        x = x[order]
+    dead = ~in_domain_mask(mix, spec)
+    x_p = _pad_axis(x, tb).contiguous()
+    bp = x_p.shape[0]
+    mu_p, pp_p, v_p = _padded_param_rows(mix, spec, tn)
+    valid_b = torch.arange(bp, device=x.device) < b
+    dead_n = _pad_axis(dead, tn, fill=True)
+    s_p = _pad_axis(mix.scalings, tn)
+    with torch.no_grad():
+        tmask = _tile_mask(x_p, valid_b, mu_p, dead_n, s_p, spec, tb, tn)
+    return x_p, b, inv, mu_p, pp_p, v_p, tmask
+
+
+def _split_out(out: torch.Tensor, b: int, d: int, vdim: int):
+    val = out[:, :vdim]
+    jac = out[:, vdim:].reshape(b, d, vdim).transpose(1, 2)
+    return val, jac
+
+
+def value_and_jac_centered(mix: GaussianMixture, spec: FieldSpec,
+                           x: torch.Tensor, presorted: bool = False):
+    """``value_and_jac`` through the centered kernels; differentiable in
+    the mixture parameters (the query points are constants)."""
+    d, vdim = mix.d, mix.vdim
+    x_p, b, inv, mu_p, pp_p, v_p, tmask = _centered_prep(
+        mix, spec, x, gsr_centered.TB, gsr_centered.TN, presorted)
+    out = gsr_centered.fused_gsr_centered(
+        tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+        v_p.contiguous(), spec.clamp_threshold, d)[:b]
+    val, jac = _split_out(out, b, d, vdim)
+    if inv is not None:
+        val, jac = val[inv], jac[inv]
+    return val, jac
+
+
+def value_centered(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
+                   presorted: bool = False) -> torch.Tensor:
+    """Value-only variant (no Jacobian columns) — the boundary-loss and
+    RK4-stage path."""
+    x_p, b, inv, mu_p, pp_p, v_p, tmask = _centered_prep(
+        mix, spec, x, gsr_centered.TB, gsr_centered.TN, presorted)
+    val = gsr_centered.fused_gsr_centered(
+        tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+        v_p.contiguous(), spec.clamp_threshold, 0)[:b]
+    return val[inv] if inv is not None else val
+
+
+# ---- dispatch ----
+
+def value(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
+          presorted: bool = False) -> torch.Tensor:
+    """u(x): (B, vdim). ``presorted`` promises x ascends in coordinate 0
+    (an untrue promise only loosens the tile mask, never correctness)."""
+    if _use_kernel(x):
+        return value_centered(mix, spec, x, presorted=presorted)
+    return value_dense(mix, spec, x)
+
+
+def value_and_jac(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
+                  presorted: bool = False):
+    """(u(x), du/dx): shapes (B, vdim) and (B, vdim, d)."""
+    if _use_kernel(x):
+        return value_and_jac_centered(mix, spec, x, presorted=presorted)
+    return value_and_jac_dense(mix, spec, x)
+
+
+def _grad_leaves(params):
+    return {k: p.detach().requires_grad_(True) for k, p in params.items()}
+
+
+def _grads(loss, leaves, retain):
+    g = torch.autograd.grad(loss, list(leaves.values()), retain_graph=retain,
+                            allow_unused=True, materialize_grads=True)
+    return dict(zip(leaves, g))
+
+
+def two_head_grads_centered(params, alive, spec: FieldSpec, x: torch.Tensor,
+                            head1, head2):
+    """((l1, l2), (g1, g2)): two scalar heads of (val, jac) and their
+    parameter gradients from ONE forward kernel and ONE dual-cotangent
+    backward kernel (the PCGrad heads need the gradients separately).
+    When neither head reads the value (autograd finds no path to it), the
+    backward kernel skips the value cotangents. ``x`` must be presorted in
+    coordinate 0; no gradient for x."""
+    d, vdim = spec.d, spec.vdim
+    b = x.shape[0]
+    tb, tn = gsr_centered.TB, gsr_centered.TN
+    clamp = spec.clamp_threshold
+    mix_sg = mixture_of({k: p.detach() for k, p in params.items()}, alive)
+    x_p, _, _, _, _, _, tmask = _centered_prep(mix_sg, spec, x, tb, tn,
+                                               presorted=True)
+    leaves = _grad_leaves(params)
+    with torch.enable_grad():
+        mu_p, pp_p, v_p = _padded_param_rows(mixture_of(leaves, alive), spec,
+                                             tn)
+        prep = (mu_p.T.contiguous(), pp_p.T.contiguous(), v_p.contiguous())
+    out = gsr_centered.gsr_fwd(tmask, x_p, *(t.detach() for t in prep),
+                               clamp, d)[:b]
+    cots, losses = [], []
+    for head in (head1, head2):
+        # value and Jacobian columns as separate leaves: an unread one gets
+        # no gradient (None), known on the host without a sync
+        o = [out[:, :vdim].detach().requires_grad_(True),
+             out[:, vdim:].detach().requires_grad_(True)]
+        with torch.enable_grad():
+            loss = head(o[0], o[1].reshape(b, d, vdim).transpose(1, 2))
+            cots.append(torch.autograd.grad(loss, o, allow_unused=True))
+        losses.append(loss.detach())
+    use_val = any(c[0] is not None for c in cots)
+    douts = [_pad_axis(torch.cat([torch.zeros_like(t) if g is None else g
+                                  for g, t in zip(c, (out[:, :vdim],
+                                                      out[:, vdim:]))], 1),
+                       tb).contiguous() for c in cots]
+    t1, t2 = gsr_centered.gsr_bwd_dn2(
+        tmask, x_p, *(t.detach() for t in prep), douts[0], douts[1], clamp,
+        d, use_val=use_val)
+    grads = []
+    for i, t in enumerate((t1, t2)):
+        gs = torch.autograd.grad(prep, list(leaves.values()), grad_outputs=t,
+                                 retain_graph=i == 0, allow_unused=True,
+                                 materialize_grads=True)
+        grads.append(dict(zip(leaves, gs)))
+    return tuple(losses), tuple(grads)
+
+
+def two_head_grads(params, alive, spec: FieldSpec, x: torch.Tensor,
+                   head1, head2):
+    """Backend-dispatching two-head gradients; ``x`` presorted in
+    coordinate 0 on the card. On the dense path the two gradients are two
+    autograd pullbacks of one forward."""
+    if _use_kernel(x):
+        return two_head_grads_centered(params, alive, spec, x, head1, head2)
+    leaves = _grad_leaves(params)
+    with torch.enable_grad():
+        val, jac = value_and_jac_dense(mixture_of(leaves, alive), spec, x)
+        l1, l2 = head1(val, jac), head2(val, jac)
+        g1 = _grads(l1, leaves, retain=True)
+        g2 = _grads(l2, leaves, retain=False)
+    return (l1.detach(), l2.detach()), (g1, g2)
+
+
+# ---- chunked evaluation ----
+
+def value_and_jac_chunked(mix: GaussianMixture, spec: FieldSpec,
+                          x: torch.Tensor, chunk: int = 4096,
+                          presorted: bool = False):
+    """(val, jac) on many points in chunks, no gradients: bounds the dense
+    path's (chunk, N) kernel matrix on the CPU."""
+    vals, jacs = [], []
+    with torch.no_grad():
+        for i in range(0, x.shape[0], chunk):
+            v, j = value_and_jac(mix, spec, x[i:i + chunk],
+                                 presorted=presorted)
+            vals.append(v)
+            jacs.append(j)
+    return torch.cat(vals), torch.cat(jacs)
+
+
+def eval_on_grid(mix: GaussianMixture, spec: FieldSpec, pts,
+                 chunk: int = 4096):
+    """(val, jac) as numpy arrays on arbitrarily many points."""
+    x = torch.as_tensor(np.asarray(pts, np.float32), device=mix.device)
+    v, j = value_and_jac_chunked(mix, spec, x, chunk)
+    return v.cpu().numpy(), j.cpu().numpy()

@@ -1,0 +1,400 @@
+"""Centered Gaussian field kernels: CUDA wrappers and their plain twins.
+
+Ports three Pallas TPU kernels of ``gaussian_fluids_tpu/ops/pallas/
+gsr_centered.py`` to CUDA C++ for Hopper (``csrc/gsr_centered.cu``):
+
+  ``gsr_fwd``      <- ``_fwd_kernel``      value + Jacobian forward
+  ``gsr_bwd_dn``   <- ``_bwd_dn_kernel``   per-Gaussian cotangents
+  ``gsr_bwd_dn2``  <- ``_bwd_dn2_kernel``  the same for two cotangent
+                                            blocks sharing one recompute
+
+Each wrapper takes the kernels' layout — x (B, d), muT (d, N), packed
+precisions ppT (np, N) with the dead-row bias last, values (N, vdim) and
+an int32 tile mask (B/tb, N/tn) — and dispatches on the device of ``x``:
+a CUDA tensor launches the kernel (after validation; any failure raises),
+a CPU tensor runs the plain PyTorch version below, which repeats the
+kernel's arithmetic on whole (B, N) planes with the tile mask expanded.
+There is no fallback from the kernel to the plain version.
+
+The shared library is built with ``nvcc`` at first use into
+``gaussian_fluids_torch/_build/``, keyed by a hash of the source and the
+flags, and loaded with ``ctypes``: no PyTorch headers, a build of seconds.
+
+``launches`` counts kernel launches per wrapper, so a run can show that
+its main path went through the kernels.
+
+Not ported yet: the ``dL/dx`` backward (``_bwd_dx_kernel``); every solver
+phase treats the query points as constants, and the autograd function
+raises if a gradient for them is requested.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+# The CUDA kernels' tiles: 8 queries x 64 Gaussians (csrc/gsr_centered.cu).
+# The field's tile mask is built at these sizes on the card.
+TB, TN = 8, 64
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "gsr_centered.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+launches: Dict[str, int] = {"gsr_fwd": 0, "gsr_bwd_dn": 0, "gsr_bwd_dn2": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# build and bind
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"gsr_centered_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Tuple[Path, str]:
+    """Compile the kernels if this source has not been built yet. Returns
+    (library path, compiler log — ptxas's register and spill report; empty
+    when the library was already built)."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(SOURCE)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)   # atomic: concurrent builds never see a torn file
+    return out, proc.stdout + proc.stderr
+
+
+_LIB = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()[0]))
+        lib.gsr_tile_sizes.argtypes = [ctypes.POINTER(_I)] * 2
+        lib.gsr_tile_sizes.restype = _I
+        lib.gsr_fwd.argtypes = [_P] * 6 + [_I] * 4 + [_F, _P]
+        lib.gsr_fwd.restype = _I
+        lib.gsr_bwd_dn.argtypes = [_P] * 8 + [_I] * 5 + [_F, _P]
+        lib.gsr_bwd_dn.restype = _I
+        lib.gsr_bwd_dn2.argtypes = [_P] * 11 + [_I] * 5 + [_F, _P]
+        lib.gsr_bwd_dn2.restype = _I
+        tb, tn = _I(), _I()
+        lib.gsr_tile_sizes(ctypes.byref(tb), ctypes.byref(tn))
+        if (tb.value, tn.value) != (TB, TN):
+            raise RuntimeError(f"library tiles {(tb.value, tn.value)} != "
+                               f"{(TB, TN)}")
+        _LIB = lib
+    return _LIB
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+# ---------------------------------------------------------------------------
+# validation
+# ---------------------------------------------------------------------------
+
+def _check(tmask, x, muT, ppT, values, njac, douts=()):
+    """Shapes common to both paths; on CUDA also device, dtype, layout and
+    the compiled tiles. Returns (d, vdim, B, N)."""
+    if x.dim() != 2 or muT.dim() != 2 or ppT.dim() != 2 \
+            or values.dim() != 2 or tmask.dim() != 2:
+        raise ValueError("x, muT, ppT, values and tmask must be 2-D")
+    B, d = x.shape
+    N = muT.shape[1]
+    vdim = values.shape[1]
+    np_ = d * (d + 1) // 2 + 1
+    if muT.shape[0] != d or ppT.shape != (np_, N) or values.shape[0] != N:
+        raise ValueError(f"shapes x {tuple(x.shape)}, muT {tuple(muT.shape)},"
+                         f" ppT {tuple(ppT.shape)}, values "
+                         f"{tuple(values.shape)} do not agree")
+    nbt, nnt = tmask.shape
+    if nbt == 0 or nnt == 0 or B % nbt or N % nnt:
+        raise ValueError(f"tile mask {tuple(tmask.shape)} does not tile "
+                         f"B={B}, N={N}")
+    if njac not in (0, d):
+        raise ValueError(f"njac must be 0 or d={d}, got {njac}")
+    cols = (1 + njac) * vdim
+    for t in douts:
+        if tuple(t.shape) != (B, cols):
+            raise ValueError(f"cotangent {tuple(t.shape)} != {(B, cols)}")
+    if x.is_cuda:
+        ts = (tmask, x, muT, ppT, values) + tuple(douts)
+        if any(t.device != x.device for t in ts):
+            raise ValueError("all kernel operands must be on one device")
+        if tmask.dtype != torch.int32 or any(
+                t.dtype != torch.float32 for t in ts[1:]):
+            raise ValueError("kernel operands: int32 tmask, float32 rest")
+        if not all(t.is_contiguous() for t in ts):
+            raise ValueError("kernel operands must be contiguous")
+        if d != 2 or vdim not in (1, 2):
+            raise ValueError(f"the CUDA kernels take d=2, vdim 1 or 2; got "
+                             f"d={d}, vdim={vdim}")
+        if (B // nbt, N // nnt) != (TB, TN):
+            raise ValueError(f"tile mask built for tiles {(B // nbt, N // nnt)}"
+                             f"; the CUDA kernels use {(TB, TN)}")
+    return d, vdim, B, N
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path and the card-side reference)
+# ---------------------------------------------------------------------------
+
+def _off_pairs(d: int):
+    return [(i, j) for i in range(d) for j in range(i + 1, d)]
+
+
+def _tile_quantities(tmask, x, muT, ppT, d, clamp):
+    """delta list, g, m, Pd list — all (B, N); ``m`` includes the expanded
+    tile mask, so skipped tile pairs contribute exactly nothing."""
+    B, N = x.shape[0], muT.shape[1]
+    nbt, nnt = tmask.shape
+    live = (tmask != 0).repeat_interleave(B // nbt, 0) \
+        .repeat_interleave(N // nnt, 1)
+    delta = [x[:, i:i + 1] - muT[i:i + 1, :] for i in range(d)]
+    pairs = _off_pairs(d)
+    pd = []
+    for k in range(d):
+        acc = ppT[k:k + 1, :] * delta[k]
+        for c, (i, j) in enumerate(pairs):
+            if i == k:
+                acc = acc + ppT[d + c:d + c + 1, :] * delta[j]
+            elif j == k:
+                acc = acc + ppT[d + c:d + c + 1, :] * delta[i]
+        pd.append(acc)
+    nb = d * (d + 1) // 2
+    quad = ppT[nb:nb + 1, :] + delta[0] * pd[0]
+    for k in range(1, d):
+        quad = quad + delta[k] * pd[k]
+    g = torch.exp(-0.5 * quad)
+    m = (g >= clamp) & live
+    return delta, g, m, pd
+
+
+def fwd_plain(tmask, x, muT, ppT, values, clamp: float, njac: int):
+    d = x.shape[1]
+    _, g, m, pd = _tile_quantities(tmask, x, muT, ppT, d, clamp)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    mg = torch.where(m, g, zero)
+    cols = [torch.where(m, g - clamp, zero) @ values]
+    for k in range(njac):
+        cols.append((-mg * pd[k]) @ values)
+    return torch.cat(cols, dim=1)
+
+
+def _dn_accumulate(q, ppT, dout, v, d, vdim, clamp, njac, use_val):
+    """(dmp (d + np, N), dv (N, vdim)) for one cotangent block — the TPU
+    kernels' _bwd_cotangents + _dn_accumulate on whole planes."""
+    delta, g, m, pd = q
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    s2 = [dout[:, (1 + k) * vdim:(2 + k) * vdim] @ v.T for k in range(njac)]
+    mg = torch.where(m, g, zero)
+    if use_val:
+        gg = dout[:, :vdim] @ v.T
+        for k in range(njac):
+            gg = gg - s2[k] * pd[k]
+    else:
+        gg = -s2[0] * pd[0]
+        for k in range(1, njac):
+            gg = gg - s2[k] * pd[k]
+    gquad = torch.where(m, -0.5 * g * gg, zero)
+    gpd = [-mg * s2[k] for k in range(njac)]
+
+    if use_val:
+        dv = torch.where(m, g - clamp, zero).T @ dout[:, :vdim]
+    else:
+        dv = (-mg * pd[0]).T @ dout[:, vdim:2 * vdim]
+    for k in range(0 if use_val else 1, njac):
+        dv = dv + (-mg * pd[k]).T @ dout[:, (1 + k) * vdim:(2 + k) * vdim]
+
+    pairs = _off_pairs(d)
+    rows = []
+    for jdim in range(d):                       # dmu_j = -sum_b dL/dx_j
+        t = gquad * (2.0 * pd[jdim])
+        if jdim < len(gpd):
+            t = t + gpd[jdim] * ppT[jdim:jdim + 1, :]
+        for c, (i, jj) in enumerate(pairs):
+            if i == jdim and jj < len(gpd):
+                t = t + gpd[jj] * ppT[d + c:d + c + 1, :]
+            elif jj == jdim and i < len(gpd):
+                t = t + gpd[i] * ppT[d + c:d + c + 1, :]
+        rows.append(-t.sum(0))
+    for k in range(d):                          # diagonal precisions
+        t = gquad * delta[k] * delta[k]
+        if k < njac:
+            t = t + gpd[k] * delta[k]
+        rows.append(t.sum(0))
+    for ii, jj in pairs:                        # off-diagonal precisions
+        t = 2.0 * gquad * delta[ii] * delta[jj]
+        if ii < njac:
+            t = t + gpd[ii] * delta[jj]
+        if jj < njac:
+            t = t + gpd[jj] * delta[ii]
+        rows.append(t.sum(0))
+    rows.append(gquad.sum(0))                   # dead-row bias
+    return torch.stack(rows), dv
+
+
+def bwd_dn_plain(tmask, x, muT, ppT, values, dout, clamp: float, njac: int,
+                 use_val: bool = True):
+    d, vdim = x.shape[1], values.shape[1]
+    q = _tile_quantities(tmask, x, muT, ppT, d, clamp)
+    dmp, dv = _dn_accumulate(q, ppT, dout, values, d, vdim, clamp, njac,
+                             use_val)
+    return dmp[:d], dmp[d:], dv
+
+
+def bwd_dn2_plain(tmask, x, muT, ppT, values, dout1, dout2, clamp: float,
+                  njac: int, use_val: bool = True):
+    d, vdim = x.shape[1], values.shape[1]
+    q = _tile_quantities(tmask, x, muT, ppT, d, clamp)
+    out = []
+    for dout in (dout1, dout2):
+        dmp, dv = _dn_accumulate(q, ppT, dout, values, d, vdim, clamp, njac,
+                                 use_val)
+        out.append((dmp[:d], dmp[d:], dv))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def gsr_fwd(tmask, x, muT, ppT, values, clamp: float, njac: int):
+    """(B, (1+njac)*vdim) = [val | jac_0 | ... ], jac_k[:, a] = du_a/dx_k."""
+    d, vdim, B, N = _check(tmask, x, muT, ppT, values, njac)
+    if not x.is_cuda:
+        return fwd_plain(tmask, x, muT, ppT, values, clamp, njac)
+    lib = _lib()
+    out = torch.empty((B, (1 + njac) * vdim), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.gsr_fwd(_ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
+                         _ptr(values), _ptr(out), B, N, vdim, njac,
+                         float(clamp), _stream(x))
+    _raise_on(rc, "gsr_fwd")
+    launches["gsr_fwd"] += 1
+    return out
+
+
+def gsr_bwd_dn(tmask, x, muT, ppT, values, dout, clamp: float, njac: int,
+               use_val: bool = True):
+    """(dmuT (d, N), dppT (np, N), dv (N, vdim)) for one cotangent."""
+    if not use_val and njac == 0:
+        raise ValueError("use_val=False needs Jacobian columns")
+    d, vdim, B, N = _check(tmask, x, muT, ppT, values, njac, (dout,))
+    if not x.is_cuda:
+        return bwd_dn_plain(tmask, x, muT, ppT, values, dout, clamp, njac,
+                            use_val)
+    lib = _lib()
+    dmp = torch.empty((d + ppT.shape[0], N), dtype=torch.float32,
+                      device=x.device)
+    dv = torch.empty((N, vdim), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.gsr_bwd_dn(_ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
+                            _ptr(values), _ptr(dout), _ptr(dmp), _ptr(dv),
+                            B, N, vdim, njac, int(use_val), float(clamp),
+                            _stream(x))
+    _raise_on(rc, "gsr_bwd_dn")
+    launches["gsr_bwd_dn"] += 1
+    return dmp[:d], dmp[d:], dv
+
+
+def gsr_bwd_dn2(tmask, x, muT, ppT, values, dout1, dout2, clamp: float,
+                njac: int, use_val: bool = True):
+    """((dmuT1, dppT1, dv1), (dmuT2, dppT2, dv2)) for two cotangent blocks
+    in one sweep. ``use_val=False`` promises zero value cotangents."""
+    if not use_val and njac == 0:
+        raise ValueError("use_val=False needs Jacobian columns")
+    d, vdim, B, N = _check(tmask, x, muT, ppT, values, njac, (dout1, dout2))
+    if not x.is_cuda:
+        return bwd_dn2_plain(tmask, x, muT, ppT, values, dout1, dout2,
+                             clamp, njac, use_val)
+    lib = _lib()
+    nmp = d + ppT.shape[0]
+    dmp1, dmp2 = (torch.empty((nmp, N), dtype=torch.float32, device=x.device)
+                  for _ in range(2))
+    dv1, dv2 = (torch.empty((N, vdim), dtype=torch.float32, device=x.device)
+                for _ in range(2))
+    with torch.cuda.device(x.device):
+        rc = lib.gsr_bwd_dn2(_ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
+                             _ptr(values), _ptr(dout1), _ptr(dout2),
+                             _ptr(dmp1), _ptr(dv1), _ptr(dmp2), _ptr(dv2),
+                             B, N, vdim, njac, int(use_val), float(clamp),
+                             _stream(x))
+    _raise_on(rc, "gsr_bwd_dn2")
+    launches["gsr_bwd_dn2"] += 1
+    return (dmp1[:d], dmp1[d:], dv1), (dmp2[:d], dmp2[d:], dv2)
+
+
+class _FusedGsrCentered(torch.autograd.Function):
+    """Forward kernel with the per-Gaussian backward kernel as its VJP —
+    the port of the reference's ``fused_gsr_centered`` custom VJP with
+    ``need_dx=False``."""
+
+    @staticmethod
+    def forward(ctx, tmask, x, muT, ppT, values, clamp, njac):
+        ctx.save_for_backward(tmask, x, muT, ppT, values)
+        ctx.clamp, ctx.njac = clamp, njac
+        return gsr_fwd(tmask, x, muT, ppT, values, clamp, njac)
+
+    @staticmethod
+    def backward(ctx, dout):
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError(
+                "dL/dx (the reference's _bwd_dx_kernel) is not ported")
+        tmask, x, muT, ppT, values = ctx.saved_tensors
+        dmuT, dppT, dv = gsr_bwd_dn(tmask, x, muT, ppT, values,
+                                    dout.contiguous(), ctx.clamp, ctx.njac)
+        return None, None, dmuT, dppT, dv, None, None
+
+
+def fused_gsr_centered(tmask, x, muT, ppT, values, clamp: float, njac: int):
+    """Differentiable in (muT, ppT, values); x is a constant."""
+    return _FusedGsrCentered.apply(tmask, x, muT, ppT, values, float(clamp),
+                                   int(njac))

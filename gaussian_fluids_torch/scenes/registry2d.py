@@ -1,0 +1,80 @@
+"""2D scene registry: domains, particle counts, physics constants, fields
+and boundary samplers. The data are the JAX package's (reference
+2D/init_cond.py); this slice ports ``leapfrog`` and ``taylor_green``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+from gaussian_fluids_torch.scenes import boundaries2d, fields2d
+
+PI = math.pi
+
+_INITIALIZE_DOMAIN = {
+    "taylor_green": (0.0, 2.0 * PI, 0.0, 2.0 * PI),
+    "leapfrog": (-5.0, 5.0, -5.0, 5.0),
+}
+_PARTICLE_COUNT = {"taylor_green": (24, 24), "leapfrog": (71, 71)}
+_VISUALIZE_RES = {"taylor_green": (200, 200), "leapfrog": (200, 200)}
+_OTHER_INFO = {
+    "taylor_green": {},
+    "leapfrog": {
+        "U": 0.5, "a": 0.3,
+        "vortex_pos1": (-3.0, -3.0), "vortex_pos2": (-1.0, -3.0),
+        "vortex_pos3": (1.0, -3.0), "vortex_pos4": (3.0, -3.0),
+    },
+}
+
+
+def _scaling_factor(domain) -> float:
+    """10 / min(initialize-domain extent): solving happens in this
+    target space."""
+    x0, x1, y0, y1 = domain
+    return 10.0 / min(x1 - x0, y1 - y0)
+
+
+@dataclasses.dataclass
+class Scene2D:
+    name: str
+    initialize_domain: Tuple[float, float, float, float]
+    # fixed for these scenes (Karman, not ported yet, grows it per frame)
+    advance_domain: Tuple[float, float, float, float]
+    particle_count: Tuple[int, int]
+    visualize_res: Tuple[int, int]
+    info: Dict
+    velocity: Callable       # original space (B,2) -> (B,2)
+    velocity_jac: Callable   # original space (B,2) -> (B,2,2)
+    boundary_sampler_1: Optional[Callable]
+    boundary_sampler_2: Optional[Callable]
+
+    @property
+    def scaling_factor(self) -> float:
+        return _scaling_factor(self.initialize_domain)
+
+    def target_velocity(self, x):
+        return self.scaling_factor * self.velocity(x / self.scaling_factor)
+
+    def target_velocity_jac(self, x):
+        return self.velocity_jac(x / self.scaling_factor)
+
+
+def get_scene_2d(name: str) -> Scene2D:
+    if name not in _INITIALIZE_DOMAIN:
+        raise KeyError(f"unknown or not yet ported 2D scene {name!r}; "
+                       f"valid: {sorted(_INITIALIZE_DOMAIN)}")
+    info = dict(_OTHER_INFO[name])
+    vel, jac = fields2d.make_field(name, info)
+    sf = _scaling_factor(_INITIALIZE_DOMAIN[name])
+    s1, s2 = boundaries2d.make_samplers(name, info, sf)
+    dom = _INITIALIZE_DOMAIN[name]
+    return Scene2D(name=name, initialize_domain=dom, advance_domain=dom,
+                   particle_count=_PARTICLE_COUNT[name],
+                   visualize_res=_VISUALIZE_RES[name], info=info,
+                   velocity=vel, velocity_jac=jac,
+                   boundary_sampler_1=s1, boundary_sampler_2=s2)
+
+
+SCENES_2D = tuple(sorted(_INITIALIZE_DOMAIN))

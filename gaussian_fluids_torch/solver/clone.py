@@ -1,0 +1,222 @@
+"""Clone + adaptive splitting and the re-fit that follows (2D).
+
+Per frame the solver copies the current field, splits over-stretched
+Gaussians into two children, freezes everything except the children and
+their neighbours, and re-fits to the old field — the JAX package's
+``solver/clone.py``. Splitting is host-side numpy (it changes N once per
+frame); the re-fit runs epochs on the device with a host check every
+``check_iter`` epochs.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gaussian_fluids_torch.config import FieldSpec
+from gaussian_fluids_torch.models.mixture import GaussianMixture, mixture_of
+from gaussian_fluids_torch.ops import field
+from gaussian_fluids_torch.ops.rotations import precision_matrix
+from gaussian_fluids_torch.solver import losses, optim
+from gaussian_fluids_torch.solver.fit import grads_of, uniform_batch
+from gaussian_fluids_torch.solver.loop import Patience, run_chunked
+
+PATIENCE_REL_CLONE = (1e-3, 1e-3)          # (val, grad)
+DEFAULT_LRS_CLONE_2D = {"positions": 1e-2, "scalings": 5e-2,
+                        "rotations": 5e-2, "values": 5e-3}
+TEST_CHUNK = 4096
+
+
+def _repad_like(mix: GaussianMixture, capacity: int,
+                spec: FieldSpec) -> GaussianMixture:
+    """Re-pad a mixture to a target capacity (>= its alive count)."""
+    if mix.capacity == capacity:
+        return mix
+    m = mix.compact()
+    return GaussianMixture.from_arrays(m.positions, m.scalings, m.rotations,
+                                       m.values, spec, min_capacity=capacity,
+                                       device=mix.device)
+
+
+def _sample_children(rng: np.random.RandomState, mu: np.ndarray,
+                     prec: np.ndarray, n_children: int = 2) -> np.ndarray:
+    """Sample children from N(mu, prec^{-1}); prec is symmetrised first."""
+    prec = 0.5 * (prec + np.swapaxes(prec, -1, -2))
+    L = np.linalg.cholesky(prec)          # prec = L L^T
+    z = rng.standard_normal((n_children,) + mu.shape).astype(np.float32)
+    # x = mu + L^{-T} z  has covariance (L L^T)^{-1}
+    delta = np.linalg.solve(np.swapaxes(L, -1, -2)[None], z[..., None])
+    return (mu[None] + delta[..., 0]).reshape(-1, mu.shape[-1])
+
+
+def split_gaussians_2d(mix: GaussianMixture, spec: FieldSpec,
+                       rng: np.random.RandomState
+                       ) -> Tuple[GaussianMixture, np.ndarray, int]:
+    """One splitting pass at ratio >= 1.5, shrinking the long axis by
+    log(1.5). Returns (new mixture, stop-gradient mask over the alive
+    entries, number of parents split)."""
+    p = mix.to_param_dict()
+    pos, sca, rot, val = (p["positions"], p["scalings"], p["rotations"],
+                          p["values"])
+    ratio = np.exp(sca.max(-1) - sca.min(-1))
+    need = ratio >= 1.5
+    n_split = int(need.sum())
+    if n_split == 0:
+        return mix, np.ones((pos.shape[0],), bool), 0
+
+    prec = precision_matrix(torch.from_numpy(sca[need]),
+                            torch.from_numpy(rot[need]), 2).numpy()
+    child_pos = _sample_children(rng, pos[need], prec)
+    child_rot = np.tile(rot[need], 2)
+    child_sca = np.tile(sca[need], (2, 1))
+    axis1 = child_sca[:, 1] < child_sca[:, 0]
+    child_sca[axis1, 1] += np.log(1.5)
+    child_sca[~axis1, 0] += np.log(1.5)
+    child_val = np.tile(val[need], (2, 1))
+
+    new_pos = np.concatenate([pos[~need], child_pos])
+    new_rot = np.concatenate([rot[~need], child_rot])
+    new_sca = np.concatenate([sca[~need], child_sca])
+    new_val = np.concatenate([val[~need], child_val])
+    stop = np.zeros((new_pos.shape[0],), bool)
+    stop[: int((~need).sum())] = True
+    order = np.argsort(new_pos[:, 0], kind="stable")
+    return (GaussianMixture.from_arrays(new_pos[order], new_sca[order],
+                                        new_rot[order], new_val[order],
+                                        spec, min_capacity=mix.capacity,
+                                        device=mix.device),
+            stop[order], n_split)
+
+
+def _unfreeze_neighbors(mix: GaussianMixture, spec: FieldSpec,
+                        stop: np.ndarray) -> torch.Tensor:
+    """(capacity,) bool: stop &= ~neighbours(new Gaussians)."""
+    n = mix.n_alive()
+    stop_full = np.zeros((mix.capacity,), bool)
+    stop_full[:n] = stop
+    stop_t = torch.as_tensor(stop_full, device=mix.device)
+    free_pos = mix.positions[:n][torch.as_tensor(~stop, device=mix.device)]
+    if free_pos.shape[0] == 0:
+        return stop_t
+    radius = spec.max_reach(float(mix.min_scaling()))
+    near = field.neighbor_mark(mix, spec, free_pos, radius)
+    return stop_t & ~near
+
+
+def _clone_runner(spec: FieldSpec):
+    """(epoch, test_ref_fn, test_fn) for the clone re-fit.
+
+    ``epoch(carry, x)`` runs one epoch on the sample batch ``x`` (the seam
+    the tests feed), against the old field's (val, jac) at x. carry =
+    (params, opt_state, alive, stop, old_mix)."""
+
+    def loss_fn(params, alive, stop, x, ref_val, ref_jac):
+        frozen = losses.freeze_params(params, stop)
+        val, jac = field.value_and_jac(mixture_of(frozen, alive), spec, x,
+                                       presorted=True)
+        l_val = losses.value_loss(val, ref_val)
+        l_grad = losses.grad_loss(jac, ref_jac)
+        l_aniso = losses.aniso_loss(params["scalings"], alive & ~stop)
+        l_vol = losses.volume_loss(params["scalings"], alive,
+                                   detach_mask=stop)
+        total = l_val + l_grad + l_aniso + l_vol
+        return total, torch.stack([l_val, l_grad, l_aniso, l_vol])
+
+    def epoch(carry, x):
+        params, opt_state, alive, stop, old_mix = carry
+        if field._use_kernel(x):
+            x = x[torch.argsort(x[:, 0])]
+        with torch.no_grad():
+            ref = field.value_and_jac(old_mix, spec, x, presorted=True)
+        total, aux, grads = grads_of(loss_fn, params, alive, stop, x, *ref)
+        params, opt_state = optim.step(opt_state, params, grads, total)
+        return (params, opt_state, alive, stop, old_mix), aux
+
+    def test_ref_fn(old_mix, test_x):
+        """Old-field (val, jac) on the test grid, constant over the fit."""
+        return field.value_and_jac_chunked(old_mix, spec, test_x,
+                                           TEST_CHUNK, presorted=True)
+
+    @torch.no_grad()
+    def test_fn(params, alive, stop, test_x, test_ref):
+        mix = mixture_of(params, alive)
+        v, j = field.value_and_jac_chunked(mix, spec, test_x, TEST_CHUNK,
+                                           presorted=True)
+        rv, rj = test_ref
+        b = test_x.shape[0]
+        lv = (v - rv).abs().mean(-1).sum() / b
+        lg = (j - rj).abs().mean((-1, -2)).sum() / b
+        la = losses.aniso_loss(params["scalings"], alive & ~stop)
+        lvl = losses.volume_loss(params["scalings"], alive)
+        return torch.stack([lv, lg, la, lvl])
+
+    return epoch, test_ref_fn, test_fn
+
+
+def clone_velocity_field(old_mix: GaussianMixture, spec: FieldSpec, *,
+                         lo, hi, test_x, gen: torch.Generator, seed: int = 0,
+                         lrs: Optional[Dict[str, float]] = None,
+                         batch_size: int = 512, max_epoch: int = 3000,
+                         patience: int = 500, check_iter: int = 100,
+                         verbose: int = 1):
+    """Split + freeze + re-fit to the old field. Returns (new mixture,
+    the last test metrics {loss, loss_grad, loss_aniso, loss_vol} — empty
+    when nothing was split)."""
+    rng = np.random.RandomState(seed)
+    dev = old_mix.device
+    test_x = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
+    test_x = test_x[torch.argsort(test_x[:, 0])]
+    new_mix, stop_np, n_split = split_gaussians_2d(old_mix, spec, rng)
+    if lrs is None:
+        lrs = dict(DEFAULT_LRS_CLONE_2D)
+    if n_split == 0:
+        return new_mix, {}
+    stop = _unfreeze_neighbors(new_mix, spec, stop_np)
+    if verbose:
+        print(f"[clone] Add {n_split} particles.")
+
+    epoch, test_ref_fn, test_fn = _clone_runner(spec)
+    old_padded = _repad_like(old_mix, new_mix.capacity, spec)
+    params = new_mix.params()
+    carry = (params, optim.init(params, lrs, patience=50), new_mix.alive,
+             stop, old_padded)
+    lo_t = torch.tensor(lo, dtype=torch.float32, device=dev)
+    hi_t = torch.tensor(hi, dtype=torch.float32, device=dev)
+    test_ref = test_ref_fn(old_padded, test_x)
+    names = ("loss", "loss_grad", "loss_aniso", "loss_vol")
+    last = {}
+
+    def metrics(c):
+        return test_fn(c[0], c[2], c[3], test_x, test_ref).tolist()
+
+    if verbose:
+        lv, lg, la, lvl = metrics(carry)
+        print(f"[clone] loss: {lv}, loss_grad: {lg}, loss_aniso: {la}, "
+              f"loss_vol: {lvl}")
+
+    pat_v, pat_g = (Patience(t) for t in PATIENCE_REL_CLONE)
+    st = time.time()
+
+    def dispatch(c, n):
+        for _ in range(n):
+            c, _ = epoch(c, uniform_batch(gen, batch_size, lo_t, hi_t))
+        return c, metrics(c)
+
+    def on_chunk(mh, n):
+        nonlocal st
+        last.update(zip(names, mh))
+        lv, lg, la, lvl = mh
+        if verbose:
+            print(f"[clone] loss: {lv}, loss_grad: {lg}, loss_aniso: {la}, "
+                  f"loss_vol: {lvl}, time: {time.time() - st}")
+            st = time.time()
+        pat_v.update(lv, n)
+        pat_g.update(lg, n)
+        return pat_v.iters >= patience and pat_g.iters >= patience
+
+    carry, _ = run_chunked(carry, dispatch, max_epoch, check_iter, on_chunk,
+                           "clone")
+    return new_mix.with_params(carry[0]), last

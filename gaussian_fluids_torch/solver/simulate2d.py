@@ -1,0 +1,112 @@
+"""2D end-to-end flows: initialization and the frame loop
+clone -> advect -> project -> save, as in the JAX package's
+``solver/simulate2d.py`` run with ``--no_viz`` (figures are not ported).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import torch
+
+from gaussian_fluids_torch.config import FieldSpec
+from gaussian_fluids_torch.io import checkpoint
+from gaussian_fluids_torch.models.mixture import GaussianMixture
+from gaussian_fluids_torch.scenes import get_scene_2d
+from gaussian_fluids_torch.solver.advect_field import advect_covector_field_2d
+from gaussian_fluids_torch.solver.clone import clone_velocity_field
+from gaussian_fluids_torch.solver.fit import (FIT_LRS_2D,
+                                             fit_velocity_with_gradient)
+from gaussian_fluids_torch.solver.project import ProjectWeights, project_2d
+from gaussian_fluids_torch.utils.grids import grid_points_2d
+
+def _generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def initialize_2d(init_cond: str, out_dir: str, max_epoch: int = 10000,
+                  batch_size: int = 512, seed: int = 42,
+                  particle_count=None, verbose: int = 1, device="cuda"):
+    """Fit the scene's analytic field; writes gaussian_velocity_0.pt.
+    Returns (mix, spec)."""
+    device = torch.device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    scene = get_scene_2d(init_cond)
+    sf = scene.scaling_factor
+    x0, x1, y0, y1 = scene.initialize_domain
+    lo, hi = (x0 * sf, y0 * sf), (x1 * sf, y1 * sf)
+    x_n, y_n = particle_count or scene.particle_count
+    pos = grid_points_2d(lo[0], hi[0], lo[1], hi[1], x_n, y_n)
+    spec = FieldSpec.create(lo, hi, pos.shape[0], d=2, vdim=2)
+    mix = GaussianMixture.create(pos, spec, device=device).spatially_sorted()
+    print(f"Particle count: {pos.shape[0]} ({x_n} x {y_n})")
+    mix = fit_velocity_with_gradient(
+        mix, spec, scene.target_velocity, scene.target_velocity_jac, lo, hi,
+        lrs=dict(FIT_LRS_2D), batch_size=batch_size, max_epoch=max_epoch,
+        gen=_generator(seed, device), verbose=verbose)
+    checkpoint.save_checkpoint(
+        os.path.join(out_dir, "gaussian_velocity_0.pt"), mix, spec)
+    return mix, spec
+
+
+def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
+               start_frame: int = 0, max_epoch: int = 20000,
+               batch_size: int = 512, seed: int = 42, verbose: int = 1,
+               test_res: Optional[tuple] = None, device="cuda"):
+    """Frame loop from gaussian_velocity_{start_frame}.pt; writes one
+    checkpoint per frame. Returns (mix, spec, frames), ``frames`` holding
+    per frame its number, alive count, seconds and the last test metrics
+    of the clone and projection phases."""
+    device = torch.device(device)
+    scene = get_scene_2d(init_cond)
+    sf = scene.scaling_factor
+    adv_domain = scene.advance_domain
+    mix, spec = checkpoint.load_checkpoint(
+        os.path.join(out_dir, f"gaussian_velocity_{start_frame}.pt"),
+        device=device)
+    gen = _generator(seed + start_frame, device)
+    xnv, ynv = test_res or scene.visualize_res
+
+    def test_grid(adv):
+        return grid_points_2d(adv[0] * sf, adv[1] * sf, adv[2] * sf,
+                              adv[3] * sf, xnv, ynv)
+
+    frames = []
+    t, cnt = 0.0, start_frame + 1
+    while t < last_time:
+        ft0 = time.perf_counter()
+        adv_lo = (adv_domain[0] * sf, adv_domain[2] * sf)
+        adv_hi = (adv_domain[1] * sf, adv_domain[3] * sf)
+        new_mix, clone_m = clone_velocity_field(
+            mix, spec, lo=adv_lo, hi=adv_hi, test_x=test_grid(adv_domain),
+            gen=gen, seed=cnt, max_epoch=max_epoch, batch_size=batch_size,
+            verbose=verbose)
+        ftc = time.perf_counter()
+        new_mix = advect_covector_field_2d(new_mix, spec, dt)
+        fta = time.perf_counter()
+        w = ProjectWeights(vor=1.0, div=1.0, aniso=10.0, vol=10.0,
+                           delta_pos=0.5)
+        new_mix, proj_m = project_2d(
+            new_mix, spec, mix, dt, scene=scene, adv_domain=adv_domain,
+            test_x=test_grid(adv_domain), gen=gen, weights=w,
+            boundary_lambda=1.0, batch_size=batch_size, max_epoch=max_epoch,
+            verbose=verbose)
+        mix = new_mix
+        ft1 = time.perf_counter()
+        checkpoint.save_checkpoint(
+            os.path.join(out_dir, f"gaussian_velocity_{cnt}.pt"), mix, spec)
+        ft2 = time.perf_counter()
+        n_alive = mix.n_alive()
+        if verbose:
+            print(f"[frame {cnt}] solve {ft1 - ft0:.1f}s (clone "
+                  f"{ftc - ft0:.1f} advect {fta - ftc:.1f} project "
+                  f"{ft1 - fta:.1f}) save {ft2 - ft1:.1f}s "
+                  f"(N={n_alive}/{mix.capacity})", flush=True)
+        frames.append({"frame": cnt, "n_alive": n_alive,
+                       "capacity": mix.capacity, "seconds": ft2 - ft0,
+                       "clone": clone_m, "project": proj_m})
+        cnt += 1
+        t += dt
+    return mix, spec, frames

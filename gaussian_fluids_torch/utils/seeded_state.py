@@ -1,0 +1,34 @@
+"""A seeded Leapfrog-2D-sized state: the inputs at which the smoke run
+checks each CUDA kernel against its plain version, the card tests repeat
+those checks, and the epoch profiler times a training epoch."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gaussian_fluids_torch.config import FieldSpec
+from gaussian_fluids_torch.models.mixture import GaussianMixture
+from gaussian_fluids_torch.utils.grids import grid_points_2d
+
+
+def leapfrog_state(device, seed: int = 0):
+    """A Leapfrog-2D-sized mixture (the scene's 71x71 grid in [-5, 5]^2,
+    capacity 6144, sorted along x as the solver keeps it) with seeded
+    random shapes and values, and 512 sorted query points."""
+    rng = np.random.RandomState(seed)
+    pos = grid_points_2d(-5, 5, -5, 5, 71, 71)
+    spec = FieldSpec.create((-5.0, -5.0), (5.0, 5.0), pos.shape[0], d=2,
+                            vdim=2)
+    mix = GaussianMixture.create(pos, spec, device=device).spatially_sorted()
+    cap = mix.capacity
+    mix.scalings += torch.as_tensor(
+        rng.uniform(-0.3, 0.3, (cap, 2)).astype(np.float32), device=device)
+    mix.rotations += torch.as_tensor(
+        rng.uniform(-1, 1, cap).astype(np.float32), device=device)
+    mix.values = torch.as_tensor(
+        (0.5 * rng.randn(cap, 2)).astype(np.float32),
+        device=device) * mix.alive[:, None]
+    x = rng.uniform(-5, 5, (512, 2)).astype(np.float32)
+    x = torch.as_tensor(x[np.argsort(x[:, 0])], device=device)
+    return mix, spec, x

@@ -1,0 +1,61 @@
+"""Import guard for the PyTorch port: every module of gaussian_fluids_torch
+and chip_smoke.py imports only the standard library, torch, numpy, scipy,
+einops and the port itself — never jax, the JAX package or matplotlib,
+none of which the card's machine has or the port may lean on."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "gaussian_fluids_torch")
+ALLOWED = {"torch", "numpy", "scipy", "einops", "gaussian_fluids_torch",
+           "__future__"}
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in sorted(files)
+                if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_imports_only_allowed_modules(path):
+    bad = sorted({m for m in _imported_roots(path)
+                  if m not in ALLOWED and m not in sys.stdlib_module_names})
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_guard_sees_the_whole_package():
+    rel = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {"chip_smoke.py", "gaussian_fluids_torch/ops/gsr_centered.py",
+            "gaussian_fluids_torch/solver/project.py"} <= rel
+    assert os.path.exists(os.path.join(PKG, "csrc", "gsr_centered.cu"))
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, gaussian_fluids_torch.solver.simulate2d, "
+            "gaussian_fluids_torch.advance2d, "
+            "gaussian_fluids_torch.initialize2d\n"
+            "bad = [m for m in ('jax', 'gaussian_fluids_tpu', 'matplotlib')"
+            " if m in sys.modules]\n"
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=ROOT, timeout=120)

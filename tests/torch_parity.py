@@ -1,0 +1,175 @@
+"""Shared helpers for the PyTorch-port parity tests: the same seeded numpy
+inputs go through the JAX package (on the CPU) and through the port."""
+
+import numpy as np
+import pytest
+import torch
+
+from gaussian_fluids_torch.config import FieldSpec as TSpec
+from gaussian_fluids_torch.models.mixture import from_numpy_params
+
+
+def jax_mixture(n, seed, lo=-5.0, hi=5.0, spread=4.0, center=0.0):
+    """A JAX-package mixture with seeded random shapes and values, and its
+    spec (the pattern of tests/test_pallas.py)."""
+    import jax.numpy as jnp
+    from gaussian_fluids_tpu import FieldSpec, GaussianMixture
+    rng = np.random.RandomState(seed)
+    spec = FieldSpec.create((lo, lo), (hi, hi), n, d=2, vdim=2)
+    mix = GaussianMixture.create(
+        rng.uniform(center - spread, center + spread, (n, 2)), spec)
+    sca = mix.scalings + rng.uniform(-0.3, 0.3,
+                                     mix.scalings.shape).astype(np.float32)
+    rot = mix.rotations + rng.uniform(-1, 1,
+                                      mix.rotations.shape).astype(np.float32)
+    val = (rng.randn(*mix.values.shape)
+           * np.asarray(mix.alive)[:, None]).astype(np.float32)
+    return GaussianMixture(mix.positions, jnp.asarray(sca), jnp.asarray(rot),
+                           jnp.asarray(val), mix.alive), spec
+
+
+def to_torch(mix, spec):
+    """(port mixture on the CPU, port spec) for a JAX mixture and spec."""
+    params = {k: np.asarray(v) for k, v in mix.params().items()}
+    return (from_numpy_params(params, np.asarray(mix.alive), "cpu"),
+            TSpec(**spec.__dict__))
+
+
+def t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def close(got, want, rtol_scale=1e-5, err_msg=""):
+    """f32 agreement: |got - want| <= rtol_scale * max(1, max|want|)."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max()) if want.size else 1.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol_scale * scale,
+                               err_msg=err_msg)
+
+
+EPOCH_KINDS = ["fit", "clone", "project", "project_ref"]
+
+
+def _to64(o):
+    """Floating tensors of a carry or batch (tuples, dicts, mixtures) in
+    float64."""
+    from gaussian_fluids_torch.models.mixture import (GaussianMixture,
+                                                      mixture_of)
+    if isinstance(o, torch.Tensor):
+        return o.double() if o.is_floating_point() else o
+    if isinstance(o, GaussianMixture):
+        return mixture_of(_to64(o.params()), o.alive)
+    if isinstance(o, dict):
+        return {k: _to64(v) for k, v in o.items()}
+    if isinstance(o, tuple):
+        vals = [_to64(v) for v in o]
+        return type(o)(*vals) if hasattr(o, "_fields") else tuple(vals)
+    return o
+
+
+def _sort_rows(*arrays):
+    o = torch.argsort(arrays[0][:, 0])
+    return tuple(a[o] for a in arrays)
+
+
+def one_epoch_runs(kind, device, monkeypatch, runs):
+    """One training epoch of ``kind`` at Leapfrog-2D width, from one seeded
+    state and one seeded sample batch, once per (route, presort) of
+    ``runs``. Route "centered" is the block-sparse path (the kernels on the
+    card, their plain twins on the CPU), which sorts the batch, the
+    covector target and the boundary batch along x; route "dense64" is the
+    dense path in float64, which never sorts and is free of the f32
+    cancellation of the dense form's expanded quadratic. ``presort`` hands the batch in already sorted, so that the
+    epoch's own sorts are identities. ``project_ref`` gives the projection
+    a precomputed covector target. Returns one (aux, gradients, kernel
+    launches) per run; the gradients are read back from Adam's first
+    moment, which starts at zero (the parameter update itself rounds to the
+    parameters' f32 spacing)."""
+    from gaussian_fluids_torch.ops import field, gsr_centered
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    from gaussian_fluids_torch.solver import (clone, covector, fit, optim,
+                                              project)
+    from gaussian_fluids_torch.utils.seeded_state import leapfrog_state
+
+    mix, spec, _ = leapfrog_state(device, seed=91)
+    old, _, _ = leapfrog_state(device, seed=92)
+    scene = get_scene_2d("leapfrog")
+    gen = torch.Generator(device=device).manual_seed(93)
+    lo = torch.full((2,), -5.0, device=device)
+    hi = torch.full((2,), 5.0, device=device)
+    adv = torch.tensor(scene.advance_domain, device=device)
+    p = mix.params()
+
+    if kind == "fit":
+        epoch = fit.make_fit_epoch(spec, scene.target_velocity,
+                                   scene.target_velocity_jac)
+        carry = (p, optim.init(p, fit.FIT_LRS_2D), mix.alive)
+        xs = fit.uniform_batch(gen, 512, lo, hi)
+        presorted = _sort_rows(xs)[0]
+    elif kind == "clone":
+        epoch = clone._clone_runner(spec)[0]
+        stop = torch.rand(mix.capacity, generator=gen, device=device) > 0.5
+        carry = (p, optim.init(p, clone.DEFAULT_LRS_CLONE_2D), mix.alive, stop, old)
+        xs = fit.uniform_batch(gen, 512, lo, hi)
+        presorted = _sort_rows(xs)[0]
+    else:
+        epoch, sample = project._runner_2d(
+            spec, "leapfrog", project.ProjectWeights(), 1.0, 512)[:2]
+        dt = 0.025
+        carry = (p, optim.init(p, project.DEFAULT_LRS_2D), mix.alive,
+                 mix.positions + 0.01, old, adv, dt)
+        data, _, b1, b2 = sample(gen, adv)
+        assert b1 is None and b2 is not None   # leapfrog: walls, flux
+        ref = None
+        if kind == "project_ref":
+            with monkeypatch.context() as mp:
+                mp.setattr(field, "_use_kernel", lambda x: False)
+                ref = covector.advected_vorticity_2d(
+                    old, spec, data, dt, *project._scaled_box(
+                        adv, scene.scaling_factor))
+        xs = (data, ref, b1, b2)
+        data_s, *ref_s = _sort_rows(data, *([] if ref is None else [ref]))
+        presorted = (data_s, ref_s[0] if ref_s else None, None,
+                     _sort_rows(*b2))
+
+    out = []
+    for route, presort in runs:
+        gsr_centered.reset_launches()
+        args = (carry, presorted if presort else xs)
+        if route == "dense64":
+            args = _to64(args)
+        with monkeypatch.context() as mp:
+            mp.setattr(field, "_use_kernel",
+                       lambda x, c=route == "centered": c)
+            new, aux = epoch(*args)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        grads = {k: g.m / (1.0 - optim.BETA1)
+                 for k, g in new[1].groups.items()}
+        out.append((aux, grads, dict(gsr_centered.launches)))
+    return out
+
+
+def assert_epochs_agree(a, b, tol):
+    """aux and each group's gradient agree within ``tol`` of the largest
+    reference entry (the reference is ``b``)."""
+    for got, want, what in [(a[0], b[0], "aux")] + [
+            (a[1][k], b[1][k], k) for k in b[1]]:
+        scale = float(want.abs().max())
+        err = float((got.double() - want.double()).abs().max())
+        assert torch.isfinite(got).all(), what
+        assert err <= tol * scale, (what, err, scale)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card)")
+    return torch.device("cuda")
+
+
+# The tier-1 run spreads test files over several worker processes on a few
+# cores; torch's default of one thread per core in every worker
+# oversubscribes them.
+torch.set_num_threads(min(2, torch.get_num_threads()))
