@@ -4,20 +4,38 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line with its wall seconds:
-  build       compile csrc/gsr_centered.cu with nvcc into
-              gaussian_fluids_torch/_build/ (skipped when already built)
-  kernels     each CUDA kernel at Leapfrog-2D shapes (B=512 queries,
-              N=6144 Gaussian rows, d=2, vdim=2) against its plain PyTorch
-              version on the card; median time over 30 launches
-  initialize  the leapfrog scene fitted at 71x71 = 5041 Gaussians through
-              the user entry point ``gaussian_fluids_torch.initialize2d``
-  advance     two frames (clone -> advect -> project) at dt .025 through
-              ``gaussian_fluids_torch.advance2d``; losses and the
-              divergence residual per frame
-  check       the final field through the kernels against the plain dense
-              field evaluation
-Then the per-kernel summary (with launch counts from initialize + advance),
-the card's name and power limit, and as the last line
+  build         compile csrc/gsr_centered.cu and csrc/gsr_cells.cu with
+                nvcc into gaussian_fluids_torch/_build/, one nvcc per source,
+                started together (skipped when already built)
+  kernels       each centered kernel at Leapfrog-2D shapes (B=512 queries,
+                N=6144 Gaussian rows, d=2, vdim=2) against its plain
+                PyTorch version on the card; median time over 30 launches
+  kernels_3d    the three centered kernels at d=3 and the three work-list
+                (cells) kernels at Ring-Collide shapes (B=8192, N=75,776,
+                d=vdim=3) against their plain versions, with the live-pair
+                count and the live tile fraction
+  initialize    the leapfrog scene fitted at 71x71 = 5041 Gaussians through
+                the entry point ``gaussian_fluids_torch.initialize2d``
+  advance       two frames (clone -> advect -> project) at dt .025 through
+                ``gaussian_fluids_torch.advance2d``; losses and the
+                divergence residual per frame
+  check         the final 2D field through the kernels against the plain
+                dense field evaluation in float64
+  initialize3d  3D scenes fitted through ``gaussian_fluids_torch.initialize3d``:
+                leapfrog (10^3 = 1000 Gaussians, the centered kernels at
+                d=3) and ring_collide (40^3 = 64,000 Gaussians, capacity
+                75,776, B=8192, the cells kernels)
+  advance3d     one frame each (clone -> advect -> project) at dt .02
+                through ``gaussian_fluids_torch.advance3d`` on the scene's
+                128^3 test grid; losses and the divergence residual
+  check3d       the final Ring-Collide field through the kernels against
+                the dense plain evaluation in float64 on 4096 points
+Launches are counted per path: each path's counts are set to 0 just
+before it and read just after; the 2D lines of the kernel summary carry
+the 2D path's launches, the d=3 and cells lines the 3D path's. The run
+fails if a kernel of a path was not launched there, or if a cells work
+list overflowed at the default capacity. Then the per-kernel summary, the
+card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Solver output goes to a temporary
 directory outside the checkout, deleted at the end. Any failure raises;
 without a CUDA device the script exits non-zero before printing results.
@@ -26,6 +44,7 @@ without a CUDA device the script exits non-zero before printing results.
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -36,28 +55,43 @@ import time
 import numpy as np
 import torch
 
-INIT_EPOCHS = 300      # the entry point's default is 10000
-ADVANCE_EPOCHS = 300   # per phase and frame; the default is 20000
+INIT_EPOCHS = 200      # 2D; the entry point's default is 10000
+ADVANCE_EPOCHS = 200   # 2D, per phase and frame; the default is 20000
+INIT3D_EPOCHS = 200    # the 3D entry point's default is 500
+ADVANCE3D_EPOCHS = 200  # 3D, per phase; the default is 20000
 TIMED_LAUNCHES = 30
+PLAIN_LAUNCHES_3D = 3  # the plain versions take ~0.1-1 s at Ring-Collide
+TOL = 1e-4   # relative to the largest reference entry: f32 sums in another
+#              order and FMA contraction on the card
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): f32 outside the
 # tensor cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# Operations per query-Gaussian pair, counted from csrc/gsr_centered.cu
-# (an FMA counts 2, exp and a compare 1 each, d = vdim = 2): every pair of a
-# live tile pays the centered geometry; pairs inside the support (g >= c)
-# pay the accumulation too.
-OPS_GEOMETRY = 15
-OPS_SUPPORT = {"gsr_fwd": 17, "gsr_bwd_dn": 74, "gsr_bwd_dn2": 126}
+# Operations per query-Gaussian pair, counted from csrc/gsr_tile.cuh (an
+# FMA counts 2, exp and a compare 1 each): every pair of a live tile pays
+# the centered geometry; pairs inside the support (g >= c) pay the
+# accumulation too. d = vdim = 2 as counted for the first slice; d = vdim =
+# 3 with njac = 3 and the value cotangents read (the 3D main path's
+# variants: the projection's helicity head reads the value).
+OPS_GEOMETRY = {2: 15, 3: 27}
+OPS_SUPPORT = {(2, "fwd"): 17, (2, "bwd_dn"): 74, (2, "bwd_dn2"): 126,
+               (3, "fwd"): 34, (3, "bwd_dn"): 136, (3, "bwd_dn2"): 272}
 
+PALLAS = "gaussian_fluids_tpu/ops/pallas/"
 REPLACES = {
-    "gsr_fwd": "gaussian_fluids_tpu/ops/pallas/gsr_centered.py:442",
-    "gsr_bwd_dn": "gaussian_fluids_tpu/ops/pallas/gsr_centered.py:497",
-    "gsr_bwd_dn2": "gaussian_fluids_tpu/ops/pallas/gsr_centered.py:559",
+    "gsr_fwd": PALLAS + "gsr_centered.py:442",
+    "gsr_bwd_dn": PALLAS + "gsr_centered.py:497",
+    "gsr_bwd_dn2": PALLAS + "gsr_centered.py:559",
+    "cells_fwd": PALLAS + "gsr_cells.py:107",
+    "cells_bwd_dn": PALLAS + "gsr_cells.py:228",
+    "cells_bwd_dn2": PALLAS + "gsr_cells.py:199",
 }
-SOURCE = "gaussian_fluids_torch/csrc/gsr_centered.cu"
+SOURCES = {"gsr": "gaussian_fluids_torch/csrc/gsr_centered.cu",
+           "cells": "gaussian_fluids_torch/csrc/gsr_cells.cu"}
+NO_LIBRARY = ("no single PyTorch call computes the clamp-masked, "
+              "tile-culled Gaussian sum and its Jacobian or cotangents")
 
 
 def emit(obj):
@@ -75,7 +109,7 @@ def time_ms(fn, reps=TIMED_LAUNCHES):
     """Median device milliseconds of ``fn`` over ``reps`` calls. A sleep
     kernel first keeps the card busy while the host queues every call and
     its events, so host overhead between calls does not enter the gaps."""
-    for _ in range(3):
+    for _ in range(min(reps, 3)):
         fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -97,8 +131,8 @@ def time_ms(fn, reps=TIMED_LAUNCHES):
 def compare(name, got, want, tol):
     """(max abs err, max abs err / max |want|); raises beyond ``tol``
     relative to the largest reference entry."""
-    got = [g.float() for g in got]
-    want = [w.float() for w in want]
+    got = [g.double() for g in got]
+    want = [w.double() for w in want]
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want)
     rel = err / max(scale, 1e-30)
@@ -108,7 +142,71 @@ def compare(name, got, want, tol):
     return err, rel
 
 
+def ptxas_summary(log):
+    """['kernel<D,VDIM[,NCOT]>: R registers, S bytes spilled', ...] from
+    ptxas's -v report."""
+    out, name, spill = [], "?", 0
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            t = re.search(r"\d([a-z][a-z_]*_kernel)ILi(\d)ELi(\d)E"
+                          r"(?:Li(\d)E)?", m.group(1))
+            name = (f"{t.group(1)}<{','.join(g for g in t.groups()[1:] if g)}>"
+                    if t else m.group(1))
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"{name}: {m.group(1)} registers, {spill} bytes "
+                       f"spilled")
+    return out
+
+
+def _entry(name, route_src, errs, ms, plain_ms, ops, nbytes):
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {
+        "name": name, "route": "cuda", "source": SOURCES[route_src],
+        "replaces": REPLACES[name.split("[")[0]],
+        "max_abs_err": max(e for e, _ in errs),
+        "max_rel_err": max(r for _, r in errs), "tolerance": TOL,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None, "library_note": NO_LIBRARY, "ops": ops,
+        "bytes": nbytes,
+    }
+
+
+def _run_cases(cases, d, live_pairs, support_pairs, in_bytes, plain_reps,
+               tag=""):
+    """Compare every variant of every kernel with its plain version, time
+    the main path's variant (the first), and build the summary entries."""
+    stats = {}
+    for name, (src, key, variants, extra_bytes, walk_bytes) in cases.items():
+        errs = [compare(f"{name}{tag}[{i}]", k(), p(), TOL)
+                for i, (k, p) in enumerate(variants)]
+        torch.cuda.synchronize()
+        kern, plain = variants[0]
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, plain_reps)
+        ops = OPS_GEOMETRY[d] * live_pairs \
+            + OPS_SUPPORT[(d, key)] * support_pairs
+        stats[name + tag] = _entry(name + tag, src, errs, ms, plain_ms, ops,
+                                   in_bytes + extra_bytes + walk_bytes)
+    return stats
+
+
+def _support_pairs(gc, tmask, x_p, muT, ppT, d, clamp):
+    n = 0
+    for tm, xb, _ in gc._row_blocks(tmask, x_p):
+        n += int(gc._tile_quantities(tm, xb, muT, ppT, d, clamp)[2].sum())
+    return n
+
+
 def kernel_phase(device):
+    """PR 4's 2D kernel checks at Leapfrog-2D shapes (unchanged cases)."""
     from gaussian_fluids_torch.utils.seeded_state import leapfrog_state
     from gaussian_fluids_torch.ops import field, gsr_centered as gc
 
@@ -126,21 +224,17 @@ def kernel_phase(device):
                                device=device)
     # this run's data: pairs in live tiles, and pairs inside the support
     live_pairs = int(tmask.sum()) * gc.TB * gc.TN
-    _, _, m, _ = gc._tile_quantities(tmask, x_p, muT, ppT, 2, clamp)
-    support_pairs = int(m.sum())
+    support_pairs = _support_pairs(gc, tmask, x_p, muT, ppT, 2, clamp)
     in_bytes = 4 * (tmask.numel() + x_p.numel() + muT.numel() + ppT.numel()
                     + v.numel())
-    tol = 1e-4   # relative to the largest reference entry: f32 sums in
-    #              another order and FMA contraction on the card
-
     cases = {
-        "gsr_fwd": (
+        "gsr_fwd": ("gsr", "fwd",
             [(lambda nj=nj: [gc.gsr_fwd(tmask, x_p, muT, ppT, v, clamp, nj)],
               lambda nj=nj: [gc.fwd_plain(tmask, x_p, muT, ppT, v, clamp,
                                           nj)])
              for nj in (2, 0)],
-            B * 6 * 4),
-        "gsr_bwd_dn": (
+            B * 6 * 4, 0),
+        "gsr_bwd_dn": ("gsr", "bwd_dn",
             [(lambda: list(gc.gsr_bwd_dn(tmask, x_p, muT, ppT, v, dout[0],
                                          clamp, 2)),
               lambda: list(gc.bwd_dn_plain(tmask, x_p, muT, ppT, v, dout[0],
@@ -149,8 +243,8 @@ def kernel_phase(device):
                                          clamp, 0)),
               lambda: list(gc.bwd_dn_plain(tmask, x_p, muT, ppT, v,
                                            dout_val, clamp, 0)))],
-            4 * (dout[0].numel() + 6 * N + 2 * N)),
-        "gsr_bwd_dn2": (
+            4 * (dout[0].numel() + 6 * N + 2 * N), 0),
+        "gsr_bwd_dn2": ("gsr", "bwd_dn2",
             [(lambda uv=uv: [t for blk in gc.gsr_bwd_dn2(
                 tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 2,
                 use_val=uv) for t in blk],
@@ -158,59 +252,274 @@ def kernel_phase(device):
                   tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 2,
                   use_val=uv) for t in blk])
              for uv in (False, True)],
-            4 * (2 * dout[0].numel() + 2 * (6 * N + 2 * N))),
+            4 * (2 * dout[0].numel() + 2 * (6 * N + 2 * N)), 0),
     }
-    stats = {}
-    for name, (variants, extra_bytes) in cases.items():
-        errs = [compare(f"{name}[{i}]", k(), p(), tol)
-                for i, (k, p) in enumerate(variants)]
-        torch.cuda.synchronize()
-        kern, plain = variants[0]   # the main path's variant is timed
-        ms = time_ms(kern)
-        plain_ms = time_ms(plain)
-        ops = OPS_GEOMETRY * live_pairs + OPS_SUPPORT[name] * support_pairs
-        nbytes = in_bytes + extra_bytes
-        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-        stats[name] = {
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name],
-            "max_abs_err": max(e for e, _ in errs),
-            "max_rel_err": max(r for _, r in errs), "tolerance": tol,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "ops": ops, "bytes": nbytes,
-        }
+    stats = _run_cases(cases, 2, live_pairs, support_pairs, in_bytes,
+                       TIMED_LAUNCHES)
     return stats, {"B": B, "N": N, "live_pairs": live_pairs,
                    "support_pairs": support_pairs,
                    "live_tile_fraction": float(tmask.float().mean())}
 
 
-def check_field(mix, spec):
+def kernel_phase_3d(device):
+    """The centered kernels at d=3 and the cells kernels at Ring-Collide
+    shapes, on the seeded Ring-Collide state."""
+    from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
+    from gaussian_fluids_torch.ops import (field, gsr_cells as gk,
+                                           gsr_centered as gc)
+
+    mix, spec, x = ring_collide_state(device)
+    clamp = spec.clamp_threshold
+    x_p, _, tmask, (rows, cols, gt, qt, ok) = field._cells_prep(mix, spec, x)
+    if not int(ok):
+        raise AssertionError("the Ring-Collide work list overflowed")
+    mu_p, pp_p, v_p = field._padded_param_rows(mix, spec, gk.TN)
+    muT, ppT, v = (mu_p.T.contiguous(), pp_p.T.contiguous(),
+                   v_p.contiguous())
+    B, N = x_p.shape[0], muT.shape[1]
+    rng = np.random.RandomState(2)
+    dout = [torch.as_tensor(rng.randn(B, 12).astype(np.float32) / B,
+                            device=device) for _ in range(2)]
+    dout_val = torch.as_tensor(rng.randn(B, 3).astype(np.float32) / B,
+                               device=device)
+    live_tiles = int(tmask.sum())
+    live_pairs = live_tiles * gk.TB * gk.TN
+    support_pairs = _support_pairs(gc, tmask, x_p, muT, ppT, 3, clamp)
+    par_bytes = 4 * (x_p.numel() + muT.numel() + ppT.numel() + v.numel())
+    mask_bytes = 4 * tmask.numel()
+    # the items a cells kernel walks: each live pair's (head, item)
+    list_bytes = 2 * 4 * live_tiles
+    out_fwd, out_bwd = 4 * B * 12, 4 * N * (3 + 10 + 3)
+    lv = (rows, cols, ok)
+    lt = (gt, qt, ok)
+
+    def pair(kern, plain):
+        return (lambda: [t for t in _flat(kern())],
+                lambda: [t for t in _flat(plain())])
+
+    centered = {
+        "gsr_fwd": ("gsr", "fwd",
+            [pair(lambda nj=nj: gc.gsr_fwd(tmask, x_p, muT, ppT, v, clamp,
+                                           nj),
+                  lambda nj=nj: gc.fwd_plain(tmask, x_p, muT, ppT, v, clamp,
+                                             nj))
+             for nj in (3, 0)],
+            out_fwd + mask_bytes, 0),
+        "gsr_bwd_dn": ("gsr", "bwd_dn",
+            [pair(lambda: gc.gsr_bwd_dn(tmask, x_p, muT, ppT, v, dout[0],
+                                        clamp, 3),
+                  lambda: gc.bwd_dn_plain(tmask, x_p, muT, ppT, v, dout[0],
+                                          clamp, 3)),
+             pair(lambda: gc.gsr_bwd_dn(tmask, x_p, muT, ppT, v, dout_val,
+                                        clamp, 0),
+                  lambda: gc.bwd_dn_plain(tmask, x_p, muT, ppT, v, dout_val,
+                                          clamp, 0))],
+            4 * dout[0].numel() + out_bwd + mask_bytes, 0),
+        "gsr_bwd_dn2": ("gsr", "bwd_dn2",
+            [pair(lambda uv=uv: gc.gsr_bwd_dn2(
+                tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 3,
+                use_val=uv),
+                  lambda uv=uv: gc.bwd_dn2_plain(
+                tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 3,
+                use_val=uv))
+             for uv in (True, False)],
+            4 * 2 * dout[0].numel() + 2 * out_bwd + mask_bytes, 0),
+    }
+    cells = {
+        "cells_fwd": ("cells", "fwd",
+            [pair(lambda nj=nj: gk.cells_fwd(*lv, tmask, x_p, muT, ppT, v,
+                                             clamp, nj),
+                  lambda nj=nj: gk.cells_fwd_plain(*lv, tmask, x_p, muT, ppT,
+                                                   v, clamp, nj))
+             for nj in (3, 0)],
+            out_fwd, list_bytes),
+        "cells_bwd_dn": ("cells", "bwd_dn",
+            [pair(lambda: gk.cells_bwd_dn(*lt, tmask, x_p, muT, ppT, v,
+                                          dout[0], clamp, 3),
+                  lambda: gk.cells_bwd_dn_plain(*lt, tmask, x_p, muT, ppT, v,
+                                                dout[0], clamp, 3)),
+             pair(lambda: gk.cells_bwd_dn(*lt, tmask, x_p, muT, ppT, v,
+                                          dout_val, clamp, 0),
+                  lambda: gk.cells_bwd_dn_plain(*lt, tmask, x_p, muT, ppT, v,
+                                                dout_val, clamp, 0))],
+            4 * dout[0].numel() + out_bwd, list_bytes),
+        "cells_bwd_dn2": ("cells", "bwd_dn2",
+            [pair(lambda uv=uv: gk.cells_bwd_dn2(
+                *lt, tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 3,
+                use_val=uv),
+                  lambda uv=uv: gk.cells_bwd_dn2_plain(
+                *lt, tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 3,
+                use_val=uv))
+             for uv in (True, False)],
+            4 * 2 * dout[0].numel() + 2 * out_bwd, list_bytes),
+    }
+    # the overflow branch: the same lists flagged as overflowed must give
+    # the same field by sweeping the whole mask
+    bad = torch.zeros_like(ok)
+    compare("cells_fwd[overflow]",
+            [gk.cells_fwd(rows, cols, bad, tmask, x_p, muT, ppT, v, clamp,
+                          3)],
+            [gc.fwd_plain(tmask, x_p, muT, ppT, v, clamp, 3)], TOL)
+    stats = _run_cases(centered, 3, live_pairs, support_pairs, par_bytes,
+                       PLAIN_LAUNCHES_3D, tag="[d=3]")
+    stats.update(_run_cases(cells, 3, live_pairs, support_pairs, par_bytes,
+                            PLAIN_LAUNCHES_3D))
+    shapes = {"B": B, "N": N, "tiles": list(tmask.shape),
+              "live_tiles": live_tiles, "live_pairs": live_pairs,
+              "support_pairs": support_pairs,
+              "live_tile_fraction": live_tiles / tmask.numel(),
+              "list_capacity": rows.numel()}
+    for s in stats.values():
+        s.update(live_pairs=live_pairs,
+                 live_tile_fraction=shapes["live_tile_fraction"])
+    return stats, shapes
+
+
+def _flat(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat(o)]
+
+
+def check_field(mix, spec, pts, tol=1e-3, f64=False):
     """The final field through the kernels vs the dense plain evaluation
-    (an independent formulation: the expanded quadratic as one matmul)."""
+    (an independent formulation: the expanded quadratic as one matmul, in
+    float64, where the expanded form's f32 cancellation would otherwise
+    be most of the difference)."""
+    from gaussian_fluids_torch.models.mixture import mixture_of
     from gaussian_fluids_torch.ops import field
-    from gaussian_fluids_torch.utils.grids import grid_points_2d
-    pts = torch.as_tensor(grid_points_2d(-5, 5, -5, 5, 64, 64),
-                          device=mix.device)
+    pts = torch.as_tensor(pts, device=mix.device)
+    ref_mix = mix
+    if f64:
+        ref_mix = mixture_of({k: p.double() for k, p in mix.params().items()},
+                             mix.alive)
     with torch.no_grad():
         v, j = field.value_and_jac(mix, spec, pts)
-        vd, jd = field.value_and_jac_dense(mix, spec, pts)
-    if v.shape != (4096, 2) or j.shape != (4096, 2, 2):
+        vd, jd = field.value_and_jac_dense(
+            ref_mix, spec, pts.double() if f64 else pts)
+    b, d = pts.shape
+    if v.shape != (b, spec.vdim) or j.shape != (b, spec.vdim, d):
         raise AssertionError(f"field shapes {v.shape}, {j.shape}")
-    # the dense reference carries the expanded form's cancellation,
-    # ~1e-5 of the largest entry at these scales (docs/KERNELS.md)
-    err, rel = compare("final field", [v, j], [vd, jd], 1e-3)
-    return {"max_abs_err": err, "max_rel_err": rel, "tolerance": 1e-3,
+    err, rel = compare("final field", [v, j], [vd, jd], tol)
+    return {"max_abs_err": err, "max_rel_err": rel, "tolerance": tol,
             "max_abs_velocity": float(vd.abs().max())}
+
+
+def check_frames(frames, n, tag):
+    if len(frames) != n:
+        raise AssertionError(f"{tag}: expected {n} frames, ran {len(frames)}")
+    for f in frames:
+        vals = list(f["clone"].values()) + list(f["project"].values())
+        if not f["project"] or not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{tag} frame {f['frame']}: {f}")
+
+
+def run_2d(tmp):
+    from gaussian_fluids_torch import advance2d, initialize2d
+    from gaussian_fluids_torch.ops import gsr_centered
+    from gaussian_fluids_torch.utils.grids import grid_points_2d
+
+    gsr_centered.reset_launches()
+    t0 = time.perf_counter()
+    mix, spec = initialize2d.main(
+        ["--init_cond", "leapfrog", "--dir", tmp,
+         "--max_epoch", str(INIT_EPOCHS)])
+    torch.cuda.synchronize()
+    init_launches = dict(gsr_centered.launches)
+    emit({"phase": "initialize", "seconds": time.perf_counter() - t0,
+          "epochs": INIT_EPOCHS, "n_gaussians": mix.n_alive(),
+          "capacity": mix.capacity, "launches": init_launches})
+
+    t0 = time.perf_counter()
+    mix, spec, frames = advance2d.main(
+        ["--init_cond", "leapfrog", "--dir", tmp, "--dt", ".025",
+         "--last_time", ".05", "--max_epoch", str(ADVANCE_EPOCHS)])
+    torch.cuda.synchronize()
+    launches = dict(gsr_centered.launches)   # initialize + advance
+    check_frames(frames, 2, "2D")
+    for f in frames:
+        emit({"phase": "advance", "frame": f["frame"],
+              "seconds": f["seconds"], "n_gaussians": f["n_alive"],
+              "capacity": f["capacity"], "clone": f["clone"],
+              "project": f["project"],
+              "divergence_residual": f["project"]["loss_div"]})
+    emit({"phase": "advance", "seconds": time.perf_counter() - t0,
+          "frames": len(frames),
+          "launches": {k: launches[k] - init_launches[k] for k in launches}})
+
+    t0 = time.perf_counter()
+    written = sorted(os.listdir(tmp))
+    want = [f"gaussian_velocity_{i}.pt" for i in range(3)]
+    if written != want:
+        raise AssertionError(f"checkpoints {written} != {want}")
+    pts = grid_points_2d(-5, 5, -5, 5, 64, 64)
+    emit({"phase": "check", "seconds": time.perf_counter() - t0,
+          **check_field(mix, spec, pts, f64=True)})
+    return launches
+
+
+def run_3d(tmp):
+    """leapfrog (centered kernels at d=3) and ring_collide (cells) through
+    the 3D entry points; returns the 3D path's launches per wrapper."""
+    from gaussian_fluids_torch import advance3d, initialize3d
+    from gaussian_fluids_torch.ops import gsr_cells, gsr_centered
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**gsr_centered.launches, **gsr_cells.launches}
+
+    gsr_centered.reset_launches()
+    gsr_cells.reset_launches()
+    total = {}
+    for scene in ("leapfrog", "ring_collide"):
+        d = os.path.join(tmp, scene)
+        before = counts()
+        t0 = time.perf_counter()
+        mix, spec = initialize3d.main(
+            ["--init_cond", scene, "--dir", d, "--max_epoch",
+             str(INIT3D_EPOCHS)])
+        mid = counts()
+        emit({"phase": "initialize3d", "scene": scene,
+              "seconds": time.perf_counter() - t0, "epochs": INIT3D_EPOCHS,
+              "n_gaussians": mix.n_alive(), "capacity": mix.capacity,
+              "batch": 8192,
+              "launches": {k: mid[k] - before[k] for k in mid}})
+        t0 = time.perf_counter()
+        mix, spec, frames = advance3d.main(
+            ["--init_cond", scene, "--dir", d, "--dt", ".02",
+             "--last_time", ".02", "--max_epoch", str(ADVANCE3D_EPOCHS)])
+        after = counts()
+        check_frames(frames, 1, scene)
+        f = frames[0]
+        emit({"phase": "advance3d", "scene": scene, "frame": f["frame"],
+              "seconds": f["seconds"], "clone_seconds": f["clone_seconds"],
+              "advect_seconds": f["advect_seconds"],
+              "project_seconds": f["project_seconds"],
+              "n_gaussians": f["n_alive"], "capacity": f["capacity"],
+              "clone": f["clone"], "project": f["project"],
+              "divergence_residual": f["project"]["loss_div"],
+              "launches": {k: after[k] - mid[k] for k in after}})
+        if sorted(os.listdir(d)) != ["gaussian_velocity_0.pt",
+                                     "gaussian_velocity_1.pt"]:
+            raise AssertionError(f"{scene}: checkpoints {os.listdir(d)}")
+        total = after
+    overflows = gsr_cells.overflows()
+    if any(overflows.values()):
+        raise AssertionError(f"cells work lists overflowed: {overflows}")
+    t0 = time.perf_counter()
+    pts = np.random.RandomState(3).uniform(0, 1, (4096, 3)) \
+        .astype(np.float32)
+    emit({"phase": "check3d", "scene": "ring_collide",
+          "seconds": time.perf_counter() - t0, "cells_overflows": overflows,
+          **check_field(mix, spec, pts, f64=True)})
+    return total
 
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script runs only on a CUDA GPU")
-    from gaussian_fluids_torch import advance2d, initialize2d
-    from gaussian_fluids_torch.ops import gsr_centered
+    from gaussian_fluids_torch.ops import cuda_build, gsr_cells, gsr_centered
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -219,12 +528,13 @@ def main():
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    lib, log = gsr_centered.build()
+    built = cuda_build.build(gsr_centered.SOURCE, gsr_cells.SOURCE)
     gsr_centered._lib()
+    gsr_cells._lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(lib), "built_now": bool(log),
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "libraries": {k: os.path.relpath(p) for k, (p, _) in built.items()},
+          "built_now": any(bool(log) for _, log in built.values()),
+          "ptxas": {k: ptxas_summary(log) for k, (_, log) in built.items()}})
 
     t0 = time.perf_counter()
     stats, shapes = kernel_phase(device)
@@ -234,58 +544,32 @@ def main():
                                          "max_rel_err", "tolerance", "ms",
                                          "plain_ms", "bound_ms")}
                       for s in stats.values()]})
+    t0 = time.perf_counter()
+    stats3, shapes3 = kernel_phase_3d(device)
+    emit({"phase": "kernels_3d", "seconds": time.perf_counter() - t0,
+          "card": card, "shapes": shapes3,
+          "kernels": [{k: s[k] for k in ("name", "max_abs_err",
+                                         "max_rel_err", "tolerance", "ms",
+                                         "plain_ms", "bound_ms", "bound_by")}
+                      for s in stats3.values()]})
 
     tmp = tempfile.mkdtemp(prefix="gf_torch_smoke_")
     try:
-        gsr_centered.reset_launches()
-        t0 = time.perf_counter()
-        mix, spec = initialize2d.main(
-            ["--init_cond", "leapfrog", "--dir", tmp,
-             "--max_epoch", str(INIT_EPOCHS)])
-        torch.cuda.synchronize()
-        init_launches = dict(gsr_centered.launches)
-        emit({"phase": "initialize", "seconds": time.perf_counter() - t0,
-              "epochs": INIT_EPOCHS, "n_gaussians": mix.n_alive(),
-              "capacity": mix.capacity, "launches": init_launches})
-
-        t0 = time.perf_counter()
-        mix, spec, frames = advance2d.main(
-            ["--init_cond", "leapfrog", "--dir", tmp, "--dt", ".025",
-             "--last_time", ".05", "--max_epoch", str(ADVANCE_EPOCHS)])
-        torch.cuda.synchronize()
-        launches = dict(gsr_centered.launches)   # initialize + advance
-        if len(frames) != 2:
-            raise AssertionError(f"expected 2 frames, ran {len(frames)}")
-        for f in frames:
-            vals = list(f["clone"].values()) + list(f["project"].values())
-            if not f["project"] or not all(math.isfinite(v) for v in vals):
-                raise AssertionError(f"frame {f['frame']}: {f}")
-            emit({"phase": "advance", "frame": f["frame"],
-                  "seconds": f["seconds"], "n_gaussians": f["n_alive"],
-                  "capacity": f["capacity"], "clone": f["clone"],
-                  "project": f["project"],
-                  "divergence_residual": f["project"]["loss_div"]})
-        emit({"phase": "advance", "seconds": time.perf_counter() - t0,
-              "frames": len(frames),
-              "launches": {k: launches[k] - init_launches[k]
-                           for k in launches}})
-
-        t0 = time.perf_counter()
-        written = sorted(os.listdir(tmp))
-        want = [f"gaussian_velocity_{i}.pt" for i in range(3)]
-        if written != want:
-            raise AssertionError(f"checkpoints {written} != {want}")
-        emit({"phase": "check", "seconds": time.perf_counter() - t0,
-              **check_field(mix, spec)})
+        launches_2d = run_2d(os.path.join(tmp, "2d"))
+        launches_3d = run_3d(os.path.join(tmp, "3d"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     for name, s in stats.items():
-        if launches[name] == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-        s["launches"] = launches[name]
+        s["launches"] = launches_2d[name]
+    for name, s in stats3.items():
+        s["launches"] = launches_3d[name.split("[")[0]]
+    missing = [n for n, s in {**stats, **stats3}.items()
+               if s["launches"] == 0]
+    if missing:
+        raise AssertionError(f"not launched on their main path: {missing}")
     print(f"total seconds: {time.perf_counter() - t_all:.1f}")
-    emit({"kernels": list(stats.values())})
+    emit({"kernels": list(stats.values()) + list(stats3.values())})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

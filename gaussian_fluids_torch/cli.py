@@ -1,6 +1,7 @@
-"""Command-line flags of the 2D entry points — the JAX package's
-``cli.parse_args_2d`` flag surface. Figures are not part of this port yet:
-it always runs as the JAX CLI does under ``--no_viz``.
+"""Command-line flags of the entry points — the JAX package's
+``cli.parse_args_2d`` / ``parse_args_3d`` flag surface. Figures and volumes
+are not part of this port yet: it always runs as the JAX CLI does under
+``--no_viz``.
 """
 
 from __future__ import annotations
@@ -8,20 +9,29 @@ from __future__ import annotations
 import argparse
 
 
-def _parser() -> argparse.ArgumentParser:
+def _parser(dim: int) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Gaussian Fluids 2D in PyTorch on one NVIDIA GPU. "
+        description=f"Gaussian Fluids {dim}D in PyTorch on one NVIDIA GPU. "
                     "Runs without figures, as the JAX CLI does under "
                     "--no_viz.")
     p.add_argument("--device", type=str, default="0",
                    help="'cpu' runs on the CPU; an index K runs on "
                         "cuda:K (default: the first GPU)")
-    p.add_argument("--dir", type=str, default="output_fast")
+    p.add_argument("--dir", type=str,
+                   default="output_fast" if dim == 2 else "output_3d")
     p.add_argument("--start_frame", type=int, default=0)
     p.add_argument("--init_cond", type=str, default="leapfrog",
-                   help="scene: leapfrog or taylor_green")
-    p.add_argument("--dt", type=float, default=0.01)
-    p.add_argument("--last_time", type=float, default=10.0)
+                   help="scene: leapfrog or taylor_green" if dim == 2 else
+                        "scene: leapfrog, single_vortex_ring or "
+                        "ring_collide")
+    p.add_argument("--dt", type=float, default=0.01 if dim == 2 else 0.02)
+    p.add_argument("--last_time", type=float,
+                   default=10.0 if dim == 2 else 100.0)
+    if dim == 3:
+        p.add_argument("--boundary", type=float, default=10.0)
+        p.add_argument("--density_res_multiplier", type=int, default=4,
+                       help="accepted for compatibility: the density "
+                            "replay that reads it is not ported yet")
     p.add_argument("--target_grid", type=int, default=0,
                    help="cached covector-target grid; only 0 (exact "
                         "per-epoch targets) is ported")
@@ -44,8 +54,8 @@ def device_of(flag: str) -> str:
     return f"cuda:{int(flag)}" if flag.isdigit() else "cuda"
 
 
-def parse_args_2d(argv=None, default_max_epoch=20000):
-    p = _parser()
+def _parse(dim, argv, default_max_epoch):
+    p = _parser(dim)
     args = p.parse_args(argv)
     if args.max_epoch is None:
         args.max_epoch = default_max_epoch
@@ -57,3 +67,11 @@ def parse_args_2d(argv=None, default_max_epoch=20000):
         p.error("--profile is not ported yet")
     args.device = device_of(args.device)
     return args
+
+
+def parse_args_2d(argv=None, default_max_epoch=20000):
+    return _parse(2, argv, default_max_epoch)
+
+
+def parse_args_3d(argv=None, default_max_epoch=20000):
+    return _parse(3, argv, default_max_epoch)

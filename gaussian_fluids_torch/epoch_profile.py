@@ -1,15 +1,19 @@
-"""Where a training epoch's time goes, at Leapfrog-2D width.
+"""Where a training epoch's time goes, at Leapfrog-2D and Ring-Collide
+width.
 
     python -m gaussian_fluids_torch.epoch_profile [--epochs 20]
 
 For one fit, clone re-fit and projection epoch each (the three epoch
-kinds of the 2D path), on a seeded Leapfrog-2D state (71x71 = 5041
-Gaussians, B = 512): the host wall time per epoch, and from
+kinds of the 2D and the 3D path), on a seeded Leapfrog-2D state (71x71 =
+5041 Gaussians, B = 512) and a seeded Ring-Collide state (40^3 = 64,000
+Gaussians, capacity 75,776, B = 8192; the 3D epochs run the cells
+kernels): the host wall time per epoch, and from
 ``torch.profiler`` the device time per epoch, the device's busy share
 (device time over wall time; kernels run on one stream, so this is their
 union), the operators the host dispatches and the device launches per
 epoch, and the device time by kernel name.
-Prints one JSON line per epoch kind, then the card's name and power limit.
+Prints one JSON line per configuration and epoch kind, then the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from gaussian_fluids_torch.scenes import get_scene_2d
+from gaussian_fluids_torch.scenes import get_scene_2d, get_scene_3d
 from gaussian_fluids_torch.solver import clone, fit, optim, project
-from gaussian_fluids_torch.utils.seeded_state import leapfrog_state
+from gaussian_fluids_torch.solver.simulate3d import FIT_LRS_3D
+from gaussian_fluids_torch.utils.seeded_state import (leapfrog_state,
+                                                      ring_collide_state)
 
 
 def _epochs(mix, spec, device):
@@ -62,6 +68,42 @@ def _epochs(mix, spec, device):
         "clone": run(clone_epoch, clone_c,
                      lambda: fit.uniform_batch(gen, 512, lo, hi)),
         "project": run(proj_epoch, proj_c, lambda: sample(gen, adv)),
+    }
+
+
+def _epochs_3d(mix, spec, device, batch: int = 8192):
+    """The same for the 3D epochs of the ring_collide scene."""
+    scene = get_scene_3d("ring_collide")
+    gen = torch.Generator(device=device).manual_seed(0)
+    lo = torch.zeros(3, device=device)
+    hi = torch.ones(3, device=device)
+    p = mix.params()
+
+    fit_epoch = fit.make_fit_epoch(spec, scene.velocity, scene.velocity_jac)
+    fit_c = [(p, optim.init(p, dict(FIT_LRS_3D)), mix.alive)]
+
+    clone_epoch = clone._clone_runner(spec)[0]
+    stop = torch.rand(mix.capacity, generator=gen, device=device) > 0.1
+    clone_c = [(p, optim.init(p, clone.DEFAULT_LRS_CLONE_3D), mix.alive,
+                stop, mix)]
+
+    proj_epoch, sample = project._runner_3d(
+        spec, "ring_collide", project.ProjectWeights(delta_pos=0.0), 10.0,
+        batch, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))[:2]
+    proj_c = [(p, optim.init(p, project.DEFAULT_LRS_3D), mix.alive, mix,
+               0.02)]
+
+    def run(epoch, carry, make_input):
+        def step():
+            carry[0] = epoch(carry[0], make_input())[0]
+        return step
+
+    return {
+        "fit": run(fit_epoch, fit_c,
+                   lambda: fit.uniform_batch(gen, batch, lo, hi)),
+        "clone": run(clone_epoch, clone_c,
+                     lambda: fit.uniform_batch(gen, batch, lo, hi)),
+        "project": run(proj_epoch, proj_c, lambda: sample(gen)),
     }
 
 
@@ -111,10 +153,16 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("epoch_profile: needs a CUDA GPU")
     device = torch.device("cuda")
-    mix, spec, _ = leapfrog_state(device)
-    for kind, step in _epochs(mix, spec, device).items():
-        print(json.dumps({"epoch": kind, **profile_epoch(step, args.epochs)}),
-              flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    configs = (("leapfrog_2d", leapfrog_state, _epochs),
+               ("ring_collide", ring_collide_state, _epochs_3d))
+    for name, state, epochs in configs:
+        mix, spec, _ = state(device)
+        for kind, step in epochs(mix, spec, device).items():
+            print(json.dumps({"config": name, "epoch": kind,
+                              **profile_epoch(step, args.epochs)}),
+                  flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -2,7 +2,9 @@
 the same as the JAX package writes: a torch-pickled dict of the four
 parameter tensors (alive rows only, on the CPU) plus ``clamp_threshold``,
 ``min_grid_scale`` and ``domain_range`` (padded bounds interleaved as
-(x_min, x_max, y_min, y_max)). Either package loads the other's files.
+(x_min, x_max, y_min, y_max[, z_min, z_max])). Rotations are angles in 2D
+and quaternions (r, x, y, z) in 3D. Either package loads the other's
+files.
 """
 
 from __future__ import annotations

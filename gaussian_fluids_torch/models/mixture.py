@@ -47,11 +47,12 @@ def _f32(a, device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class GaussianMixture:
-    """N anisotropic 2D Gaussians carrying a ``vdim``-dimensional value.
+    """N anisotropic Gaussians (d = 2 or 3) carrying a ``vdim``-dimensional
+    value.
 
     positions: (N, d) centres mu_i.
     scalings:  (N, d) log *inverse* scales s_i.
-    rotations: (N,) angle.
+    rotations: (N,) angle in 2D, (N, 4) quaternion (r, x, y, z) in 3D.
     values:    (N, vdim) splatted coefficients v_i.
     alive:     (N,) bool — False for padding entries.
     """
@@ -89,11 +90,9 @@ class GaussianMixture:
     def create(positions, spec: FieldSpec,
                device="cuda") -> "GaussianMixture":
         """Initial state at the given centres: scalings =
-        spec.initial_scaling, zero rotations, zero values."""
+        spec.initial_scaling, identity rotations, zero values."""
         positions = _f32(positions, device)
         n, d = positions.shape
-        if d != 2:
-            raise NotImplementedError("only 2D mixtures are ported so far")
         cap = _bucket(n)
         pos = torch.empty((cap, d), dtype=torch.float32, device=device)
         pos[:n] = positions
@@ -101,7 +100,13 @@ class GaussianMixture:
         pos[n:] = torch.tensor(spec.lo, dtype=torch.float32, device=device)
         scalings = torch.full((cap, d), spec.initial_scaling,
                               dtype=torch.float32, device=device)
-        rotations = torch.zeros((cap,), dtype=torch.float32, device=device)
+        if d == 2:
+            rotations = torch.zeros((cap,), dtype=torch.float32,
+                                    device=device)
+        else:
+            rotations = torch.zeros((cap, 4), dtype=torch.float32,
+                                    device=device)
+            rotations[:, 0] = 1.0
         values = torch.zeros((cap, spec.vdim), dtype=torch.float32,
                              device=device)
         alive = torch.zeros((cap,), dtype=torch.bool, device=device)
@@ -127,10 +132,13 @@ class GaussianMixture:
 
         pos = _pad(positions)
         pos[n:] = torch.tensor(spec.lo, dtype=torch.float32, device=device)
+        rot = _pad(rotations)
+        if d == 3:
+            rot[n:, 0] = 1.0   # padded rows: identity quaternions
         alive = torch.zeros((cap,), dtype=torch.bool, device=device)
         alive[:n] = True
-        return GaussianMixture(pos, _pad(scalings), _pad(rotations),
-                               _pad(values), alive)
+        return GaussianMixture(pos, _pad(scalings), rot, _pad(values),
+                               alive)
 
     def _reordered(self, order: torch.Tensor) -> "GaussianMixture":
         return GaussianMixture(self.positions[order], self.scalings[order],
@@ -138,9 +146,10 @@ class GaussianMixture:
                                self.alive[order])
 
     def spatially_sorted(self) -> "GaussianMixture":
-        """Reorder by coordinate 0, dead rows last. Order is semantically
-        irrelevant, but the tile mask only culls well when Gaussian tiles
-        are thin x-slabs."""
+        """Reorder by coordinate 0, dead rows last, in 2D and 3D alike (the
+        JAX package's production key; its Morton key is opt-in and not
+        ported). Order is semantically irrelevant, but the tile mask only
+        culls well when Gaussian tiles are thin x-slabs."""
         key = torch.where(self.alive, self.positions[:, 0], float("inf"))
         return self._reordered(torch.argsort(key, stable=True))
 

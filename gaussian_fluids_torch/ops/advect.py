@@ -54,7 +54,8 @@ def rk4_advect_pos(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
                    dt, presorted: bool = False) -> torch.Tensor:
     """Position-only RK4: the stages skip the Jacobian columns."""
     return rk4_pos_stages(
-        lambda p: field.value(mix, spec, p, presorted=presorted), x, dt)
+        lambda p: field.value(mix, spec, p, presorted=presorted,
+                              need_dx=False), x, dt)
 
 
 @torch.no_grad()

@@ -6,21 +6,29 @@ Semantics (the same as the JAX package's ``ops/field.py``):
     u(x)     = sum_i  1[g_i >= c] * 1[mu_i in padded domain] * v_i (g_i - c)
     du/dx    = sum_i  1[...] * v_i (-g_i) (Sigma_i^{-1} (x - mu_i))^T
 
-Two backends behind ``value`` / ``value_and_jac`` / ``two_head_grads``,
-chosen by the device of the query points:
-  * on the card, the centered block-sparse path: queries sorted along
-    coordinate 0, an exact bounding-box + support-radius tile mask at the
-    CUDA kernels' tiles, and the kernels of ``ops/gsr_centered.py``;
+Three backends behind ``value`` / ``value_and_jac`` / ``two_head_grads``,
+chosen as the JAX package chooses them, with the device of the query
+points in place of its TPU test:
+  * on the card in 3D, for ``need_dx=False`` evaluations with B >= 256 and
+    B*N >= 2^26, the work-list ("cells") path: the exact tile mask
+    compacted into flat lists of its live tile pairs (``ops/spatial.py``)
+    and the kernels of ``ops/gsr_cells.py``, which walk only those;
+  * otherwise on the card, the centered block-sparse path: queries sorted
+    along coordinate 0, an exact bounding-box + support-radius tile mask at
+    the CUDA kernels' tiles, and the kernels of ``ops/gsr_centered.py``;
   * on the CPU, the dense path: the quadratic form as one (B, F) @ (F, N)
     matmul over polynomial features, as the JAX package's dense backend
     computes it, so CPU runs of both packages agree closely.
-The centered functions also run on the CPU (through the kernels' plain
-twins), which is how the tests hold them against the JAX Pallas kernels.
+The centered and cells functions also run on the CPU (through the kernels'
+plain twins), which is how the tests hold them against the JAX Pallas
+kernels. ``need_dx`` is the JAX signature's: it is False where the caller
+never differentiates the query points, which no port path does.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -28,14 +36,33 @@ import torch
 from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.models.mixture import (GaussianMixture,
                                                   mixture_of)
-from gaussian_fluids_torch.ops import gsr_centered
+from gaussian_fluids_torch.ops import gsr_cells, gsr_centered, spatial
 from gaussian_fluids_torch.ops import rotations as rotations_ops
+from gaussian_fluids_torch.utils.grids import default_chunk
 
 _INF = float("inf")
+
+_MIN_B = 256              # below one TPU query tile the JAX package goes dense
+_CELLS_MIN_BN = 1 << 26   # below this B*N, list preparation outweighs
 
 
 def _use_kernel(x: torch.Tensor) -> bool:
     return x.is_cuda
+
+
+def _use_cells(x: torch.Tensor, n: int, d: int) -> bool:
+    """The JAX package's cells dispatch, with the card in place of its
+    TPU test."""
+    b = x.shape[0]
+    return d == 3 and x.is_cuda and b >= _MIN_B and b * n >= _CELLS_MIN_BN
+
+
+def _cells_cap(nbt: int, nnt: int) -> int:
+    """Work-list capacity: a density fraction of the full tile grid
+    (``GF_CELLS_CAP``, default 0.3) plus the keep-alive floor. Too small is
+    safe: the kernels sweep the whole mask on overflow."""
+    frac = float(os.environ.get("GF_CELLS_CAP", "0.3"))
+    return int(frac * nbt * nnt) + max(nbt, nnt)
 
 
 def _check_queries(mix: GaussianMixture, x: torch.Tensor):
@@ -202,6 +229,17 @@ def _padded_param_rows(mix: GaussianMixture, spec: FieldSpec, tn: int):
     return mu_p, pp_p, v_p
 
 
+@torch.no_grad()
+def _tile_mask_of(mix: GaussianMixture, spec: FieldSpec, x_p, b: int,
+                  tb: int, tn: int) -> torch.Tensor:
+    """The tile mask of tb-padded queries (``b`` real rows) against the
+    mixture's tn-padded rows."""
+    valid_b = torch.arange(x_p.shape[0], device=x_p.device) < b
+    dead_n = _pad_axis(~in_domain_mask(mix, spec), tn, fill=True)
+    return _tile_mask(x_p, valid_b, _pad_axis(mix.positions, tn), dead_n,
+                      _pad_axis(mix.scalings, tn), spec, tb, tn)
+
+
 def _centered_prep(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
                    tb: int, tn: int, presorted: bool):
     """Sort (unless presorted), pad, pack, and build the tile mask.
@@ -213,15 +251,9 @@ def _centered_prep(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
         order = torch.argsort(x[:, 0], stable=True)
         inv = torch.argsort(order)
         x = x[order]
-    dead = ~in_domain_mask(mix, spec)
     x_p = _pad_axis(x, tb).contiguous()
-    bp = x_p.shape[0]
     mu_p, pp_p, v_p = _padded_param_rows(mix, spec, tn)
-    valid_b = torch.arange(bp, device=x.device) < b
-    dead_n = _pad_axis(dead, tn, fill=True)
-    s_p = _pad_axis(mix.scalings, tn)
-    with torch.no_grad():
-        tmask = _tile_mask(x_p, valid_b, mu_p, dead_n, s_p, spec, tb, tn)
+    tmask = _tile_mask_of(mix, spec, x_p, b, tb, tn)
     return x_p, b, inv, mu_p, pp_p, v_p, tmask
 
 
@@ -231,48 +263,103 @@ def _split_out(out: torch.Tensor, b: int, d: int, vdim: int):
     return val, jac
 
 
-def value_and_jac_centered(mix: GaussianMixture, spec: FieldSpec,
-                           x: torch.Tensor, presorted: bool = False):
-    """``value_and_jac`` through the centered kernels; differentiable in
+def _centered_value_jac(mix: GaussianMixture, spec: FieldSpec,
+                        x: torch.Tensor, njac: int, presorted: bool):
+    """(val, jac | None) through the centered kernels; differentiable in
     the mixture parameters (the query points are constants)."""
     d, vdim = mix.d, mix.vdim
     x_p, b, inv, mu_p, pp_p, v_p, tmask = _centered_prep(
         mix, spec, x, gsr_centered.TB, gsr_centered.TN, presorted)
     out = gsr_centered.fused_gsr_centered(
         tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
-        v_p.contiguous(), spec.clamp_threshold, d)[:b]
-    val, jac = _split_out(out, b, d, vdim)
+        v_p.contiguous(), spec.clamp_threshold, njac)[:b]
+    val, jac = _split_out(out, b, d, vdim) if njac else (out, None)
     if inv is not None:
-        val, jac = val[inv], jac[inv]
+        val = val[inv]
+        jac = jac[inv] if njac else None
     return val, jac
+
+
+def value_and_jac_centered(mix: GaussianMixture, spec: FieldSpec,
+                           x: torch.Tensor, presorted: bool = False):
+    """``value_and_jac`` through the centered kernels."""
+    return _centered_value_jac(mix, spec, x, mix.d, presorted)
 
 
 def value_centered(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
                    presorted: bool = False) -> torch.Tensor:
     """Value-only variant (no Jacobian columns) — the boundary-loss and
     RK4-stage path."""
-    x_p, b, inv, mu_p, pp_p, v_p, tmask = _centered_prep(
-        mix, spec, x, gsr_centered.TB, gsr_centered.TN, presorted)
-    val = gsr_centered.fused_gsr_centered(
-        tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
-        v_p.contiguous(), spec.clamp_threshold, 0)[:b]
-    return val[inv] if inv is not None else val
+    return _centered_value_jac(mix, spec, x, 0, presorted)[0]
+
+
+# ---- work-list (cells) path (the CUDA cells kernels) ----
+
+def _cells_lists(tmask: torch.Tensor, cap: int):
+    """(rows, cols, gtiles, qtiles, ok): the work lists of the mask and of
+    its transpose, ok an int32 flag that both fit."""
+    m = tmask.bool()
+    rows, cols, okf = spatial.flat_work_list(m, cap)
+    gtiles, qtiles, okb = spatial.flat_work_list(m.T, cap)
+    return rows, cols, gtiles, qtiles, (okf & okb).to(torch.int32)
+
+
+def _cells_prep(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor):
+    """(x_p, b, tmask, lists) for the cells path: ``x`` (presorted by
+    ``spatial.sort_key``) padded to the kernels' query tile, the exact tile
+    mask at the kernels' tiles, and its work lists. The capacity's
+    Gaussian rows are a multiple of 512, so the Gaussian tile divides
+    them."""
+    _check_queries(mix, x)
+    with torch.no_grad():
+        b = x.shape[0]
+        x_p = _pad_axis(x.detach(), gsr_cells.TB).contiguous()
+        tmask = _tile_mask_of(mix, spec, x_p, b, gsr_cells.TB, gsr_cells.TN)
+        lists = _cells_lists(tmask, _cells_cap(*tmask.shape))
+    return x_p, b, tmask, lists
+
+
+def _cells_value_jac(mix: GaussianMixture, spec: FieldSpec,
+                     x: torch.Tensor, njac: int, presorted: bool = True):
+    """(val, jac | None) via the work-list kernels, differentiable in the
+    mixture parameters (x is a constant)."""
+    if x.requires_grad:
+        raise NotImplementedError(
+            "the cells path gives no gradient for the query points")
+    d, vdim = mix.d, mix.vdim
+    inv = None
+    if not presorted:
+        x, inv = spatial.sort_queries(x)
+    x_p, b, tmask, lists = _cells_prep(mix, spec, x)
+    mu_p, pp_p, v_p = _padded_param_rows(mix, spec, gsr_cells.TN)
+    out = gsr_cells.fused_gsr_cells(
+        lists, tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+        v_p.contiguous(), spec.clamp_threshold, njac)[:b]
+    val, jac = _split_out(out, b, d, vdim) if njac else (out, None)
+    if inv is not None:
+        val = val[inv]
+        jac = jac[inv] if njac else None
+    return val, jac
 
 
 # ---- dispatch ----
 
 def value(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
-          presorted: bool = False) -> torch.Tensor:
+          presorted: bool = False, need_dx: bool = True) -> torch.Tensor:
     """u(x): (B, vdim). ``presorted`` promises x ascends in coordinate 0
     (an untrue promise only loosens the tile mask, never correctness)."""
+    if not need_dx and _use_cells(x, mix.capacity, mix.d):
+        return _cells_value_jac(mix, spec, x, 0, presorted=presorted)[0]
     if _use_kernel(x):
         return value_centered(mix, spec, x, presorted=presorted)
     return value_dense(mix, spec, x)
 
 
 def value_and_jac(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
-                  presorted: bool = False):
+                  presorted: bool = False, need_dx: bool = True):
     """(u(x), du/dx): shapes (B, vdim) and (B, vdim, d)."""
+    if not need_dx and _use_cells(x, mix.capacity, mix.d):
+        return _cells_value_jac(mix, spec, x, mix.d, presorted=presorted)
     if _use_kernel(x):
         return value_and_jac_centered(mix, spec, x, presorted=presorted)
     return value_and_jac_dense(mix, spec, x)
@@ -288,28 +375,37 @@ def _grads(loss, leaves, retain):
     return dict(zip(leaves, g))
 
 
-def two_head_grads_centered(params, alive, spec: FieldSpec, x: torch.Tensor,
-                            head1, head2):
+def _two_head_grads_kernels(params, alive, spec: FieldSpec, x: torch.Tensor,
+                            head1, head2, cells: bool):
     """((l1, l2), (g1, g2)): two scalar heads of (val, jac) and their
     parameter gradients from ONE forward kernel and ONE dual-cotangent
-    backward kernel (the PCGrad heads need the gradients separately).
-    When neither head reads the value (autograd finds no path to it), the
-    backward kernel skips the value cotangents. ``x`` must be presorted in
-    coordinate 0; no gradient for x."""
+    backward kernel (the PCGrad heads need the gradients separately),
+    through the cells kernels or the centered ones. When neither head
+    reads the value (autograd finds no path to it), the backward kernel
+    skips the value cotangents. ``x`` must be presorted in coordinate 0;
+    no gradient for x."""
     d, vdim = spec.d, spec.vdim
     b = x.shape[0]
     tb, tn = gsr_centered.TB, gsr_centered.TN
     clamp = spec.clamp_threshold
     mix_sg = mixture_of({k: p.detach() for k, p in params.items()}, alive)
-    x_p, _, _, _, _, _, tmask = _centered_prep(mix_sg, spec, x, tb, tn,
-                                               presorted=True)
+    if cells:
+        x_p, _, tmask, (rows, cols, gtiles, qtiles, ok) = _cells_prep(
+            mix_sg, spec, x)
+    else:
+        x_p, _, _, _, _, _, tmask = _centered_prep(mix_sg, spec, x, tb, tn,
+                                                   presorted=True)
     leaves = _grad_leaves(params)
     with torch.enable_grad():
         mu_p, pp_p, v_p = _padded_param_rows(mixture_of(leaves, alive), spec,
                                              tn)
         prep = (mu_p.T.contiguous(), pp_p.T.contiguous(), v_p.contiguous())
-    out = gsr_centered.gsr_fwd(tmask, x_p, *(t.detach() for t in prep),
-                               clamp, d)[:b]
+    args = tuple(t.detach() for t in prep)
+    if cells:
+        out = gsr_cells.cells_fwd(rows, cols, ok, tmask, x_p, *args, clamp,
+                                  d)[:b]
+    else:
+        out = gsr_centered.gsr_fwd(tmask, x_p, *args, clamp, d)[:b]
     cots, losses = [], []
     for head in (head1, head2):
         # value and Jacobian columns as separate leaves: an unread one gets
@@ -325,9 +421,13 @@ def two_head_grads_centered(params, alive, spec: FieldSpec, x: torch.Tensor,
                                   for g, t in zip(c, (out[:, :vdim],
                                                       out[:, vdim:]))], 1),
                        tb).contiguous() for c in cots]
-    t1, t2 = gsr_centered.gsr_bwd_dn2(
-        tmask, x_p, *(t.detach() for t in prep), douts[0], douts[1], clamp,
-        d, use_val=use_val)
+    if cells:
+        t1, t2 = gsr_cells.cells_bwd_dn2(
+            gtiles, qtiles, ok, tmask, x_p, *args, douts[0], douts[1],
+            clamp, d, use_val=use_val)
+    else:
+        t1, t2 = gsr_centered.gsr_bwd_dn2(
+            tmask, x_p, *args, douts[0], douts[1], clamp, d, use_val=use_val)
     grads = []
     for i, t in enumerate((t1, t2)):
         gs = torch.autograd.grad(prep, list(leaves.values()), grad_outputs=t,
@@ -337,11 +437,30 @@ def two_head_grads_centered(params, alive, spec: FieldSpec, x: torch.Tensor,
     return tuple(losses), tuple(grads)
 
 
+def two_head_grads_centered(params, alive, spec: FieldSpec, x: torch.Tensor,
+                            head1, head2):
+    """Two-head gradients through the centered kernels."""
+    return _two_head_grads_kernels(params, alive, spec, x, head1, head2,
+                                   cells=False)
+
+
+def two_head_grads_cells(params, alive, spec: FieldSpec, x: torch.Tensor,
+                         head1, head2):
+    """Two-head gradients through the work-list kernels: one forward over
+    the live tile pairs and one dual-cotangent walk of the transposed
+    list."""
+    return _two_head_grads_kernels(params, alive, spec, x, head1, head2,
+                                   cells=True)
+
+
 def two_head_grads(params, alive, spec: FieldSpec, x: torch.Tensor,
                    head1, head2):
     """Backend-dispatching two-head gradients; ``x`` presorted in
     coordinate 0 on the card. On the dense path the two gradients are two
     autograd pullbacks of one forward."""
+    cap = params["positions"].shape[0]
+    if _use_cells(x, cap, spec.d):
+        return two_head_grads_cells(params, alive, spec, x, head1, head2)
     if _use_kernel(x):
         return two_head_grads_centered(params, alive, spec, x, head1, head2)
     leaves = _grad_leaves(params)
@@ -356,10 +475,12 @@ def two_head_grads(params, alive, spec: FieldSpec, x: torch.Tensor,
 # ---- chunked evaluation ----
 
 def value_and_jac_chunked(mix: GaussianMixture, spec: FieldSpec,
-                          x: torch.Tensor, chunk: int = 4096,
+                          x: torch.Tensor, chunk: int = 0,
                           presorted: bool = False):
-    """(val, jac) on many points in chunks, no gradients: bounds the dense
-    path's (chunk, N) kernel matrix on the CPU."""
+    """(val, jac) on many points in chunks, no gradients; ``chunk`` 0 takes
+    the JAX package's (``utils.grids.default_chunk``)."""
+    if chunk == 0:
+        chunk = default_chunk(x)
     vals, jacs = [], []
     with torch.no_grad():
         for i in range(0, x.shape[0], chunk):
@@ -371,7 +492,7 @@ def value_and_jac_chunked(mix: GaussianMixture, spec: FieldSpec,
 
 
 def eval_on_grid(mix: GaussianMixture, spec: FieldSpec, pts,
-                 chunk: int = 4096):
+                 chunk: int = 0):
     """(val, jac) as numpy arrays on arbitrarily many points."""
     x = torch.as_tensor(np.asarray(pts, np.float32), device=mix.device)
     v, j = value_and_jac_chunked(mix, spec, x, chunk)

@@ -1,0 +1,290 @@
+"""Work-list ("cells") field kernels: CUDA wrappers and their plain twins.
+
+Ports three Pallas TPU kernels of ``gaussian_fluids_tpu/ops/pallas/
+gsr_cells.py`` to CUDA C++ for Hopper (``csrc/gsr_cells.cu``):
+
+  ``cells_fwd``      <- ``_fwd_work_kernel``  value + Jacobian forward
+  ``cells_bwd_dn``   <- ``_dn1_work_kernel``  per-Gaussian cotangents
+  ``cells_bwd_dn2``  <- ``_dn2_work_kernel``  the same for two cotangent
+                                              blocks sharing one recompute
+
+They compute what the centered kernels of ``ops/gsr_centered.py``
+compute, over only the live tile pairs of a flat work list
+(``ops/spatial.flat_work_list``): ``(rows, cols)`` of the (B/TB, N/TN)
+tile mask for the forward, ``(gtiles, qtiles)`` of its transpose for the
+backward. ``ok`` (an int32 device scalar) says whether the lists hold
+every live pair; where they do not, the kernels sweep the same fine tile
+mask instead, on the device, so the result is exact either way and no
+host read is needed. ``overflows()`` reads how many launches took that
+branch (a device counter, read only when asked).
+
+Each wrapper dispatches on the device of ``x``: a CUDA tensor launches
+the kernel (after validation; any failure raises), a CPU tensor runs the
+plain PyTorch version below, which evaluates the centered kernels' plain
+twins on the mask the lists describe. ``launches`` counts kernel launches
+per wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+from gaussian_fluids_torch.ops import cuda_build
+from gaussian_fluids_torch.ops import gsr_centered
+from gaussian_fluids_torch.ops.gsr_centered import (_F, _I, _P, _ptr,
+                                                    _raise_on, _stream)
+
+TB, TN = gsr_centered.TB, gsr_centered.TN
+SOURCE = cuda_build.CSRC / "gsr_cells.cu"
+NAMES = ("cells_fwd", "cells_bwd_dn", "cells_bwd_dn2")
+
+launches: Dict[str, int] = {k: 0 for k in NAMES}
+_overflow_counts: Dict[torch.device, torch.Tensor] = {}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+    for c in _overflow_counts.values():
+        c.zero_()
+
+
+def overflows() -> Dict[str, int]:
+    """Launches per wrapper that swept the whole tile mask because the
+    work list overflowed (synchronises with the card)."""
+    out = {k: 0 for k in NAMES}
+    for c in _overflow_counts.values():
+        for k, n in zip(NAMES, c.tolist()):
+            out[k] += n
+    return out
+
+
+def _counter(device: torch.device, name: str) -> torch.Tensor:
+    if device not in _overflow_counts:
+        _overflow_counts[device] = torch.zeros(len(NAMES), dtype=torch.int32,
+                                               device=device)
+    k = NAMES.index(name)
+    return _overflow_counts[device][k:k + 1]
+
+
+# ---------------------------------------------------------------------------
+# build and bind
+# ---------------------------------------------------------------------------
+
+def build() -> Tuple[Path, str]:
+    """Compile the kernels if this source has not been built yet. Returns
+    (library path, compiler log; empty when already built)."""
+    return cuda_build.build(SOURCE)[SOURCE.stem]
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()[0]))
+        lib.cells_tile_sizes.argtypes = [ctypes.POINTER(_I)] * 2
+        lib.cells_tile_sizes.restype = _I
+        lib.cells_fwd.argtypes = [_P, _P, _I] + [_P] * 8 + [_I] * 5 \
+            + [_F, _P]
+        lib.cells_fwd.restype = _I
+        lib.cells_bwd_dn.argtypes = [_P, _P, _I] + [_P] * 10 + [_I] * 6 \
+            + [_F, _P]
+        lib.cells_bwd_dn.restype = _I
+        lib.cells_bwd_dn2.argtypes = [_P, _P, _I] + [_P] * 13 + [_I] * 6 \
+            + [_F, _P]
+        lib.cells_bwd_dn2.restype = _I
+        tb, tn = _I(), _I()
+        lib.cells_tile_sizes(ctypes.byref(tb), ctypes.byref(tn))
+        if (tb.value, tn.value) != (TB, TN):
+            raise RuntimeError(f"library tiles {(tb.value, tn.value)} != "
+                               f"{(TB, TN)}")
+        _LIB = lib
+    return _LIB
+
+
+# ---------------------------------------------------------------------------
+# validation
+# ---------------------------------------------------------------------------
+
+def _check_lists(heads, items, ok, x):
+    """A work list: ``heads`` row-sorted, ``items`` the live column or -1,
+    ``ok`` one flag."""
+    if heads.dim() != 1 or heads.shape != items.shape or heads.numel() < 1:
+        raise ValueError(f"work lists {tuple(heads.shape)}, "
+                         f"{tuple(items.shape)}: two equal 1-D lists")
+    if ok.numel() != 1:
+        raise ValueError("ok must hold one element")
+    if x.is_cuda:
+        ts = (heads, items, ok)
+        if any(t.device != x.device for t in ts):
+            raise ValueError("all kernel operands must be on one device")
+        if any(t.dtype != torch.int32 for t in ts):
+            raise ValueError("work lists and ok must be int32")
+        if not all(t.is_contiguous() for t in ts):
+            raise ValueError("work lists must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path and the card-side reference)
+# ---------------------------------------------------------------------------
+
+def list_mask(heads, items, shape) -> torch.Tensor:
+    """The (R, C) int32 tile mask a work list describes: 1 at every live
+    (heads[w], items[w])."""
+    m = torch.zeros(shape, dtype=torch.int32, device=heads.device)
+    keep = items >= 0
+    m[heads[keep].long(), items[keep].long()] = 1
+    return m
+
+
+def _fwd_mask(rows, cols, ok, tmask):
+    return list_mask(rows, cols, tmask.shape) if bool(ok) else tmask
+
+
+def _bwd_mask(gtiles, qtiles, ok, tmask):
+    if not bool(ok):
+        return tmask
+    return list_mask(gtiles, qtiles, tmask.T.shape).T.contiguous()
+
+
+def cells_fwd_plain(rows, cols, ok, tmask, x, muT, ppT, values,
+                    clamp: float, njac: int):
+    return gsr_centered.fwd_plain(_fwd_mask(rows, cols, ok, tmask), x, muT,
+                                  ppT, values, clamp, njac)
+
+
+def cells_bwd_dn_plain(gtiles, qtiles, ok, tmask, x, muT, ppT, values,
+                       dout, clamp: float, njac: int, use_val: bool = True):
+    return gsr_centered.bwd_dn_plain(_bwd_mask(gtiles, qtiles, ok, tmask),
+                                     x, muT, ppT, values, dout, clamp, njac,
+                                     use_val)
+
+
+def cells_bwd_dn2_plain(gtiles, qtiles, ok, tmask, x, muT, ppT, values,
+                        dout1, dout2, clamp: float, njac: int,
+                        use_val: bool = True):
+    return gsr_centered.bwd_dn2_plain(
+        _bwd_mask(gtiles, qtiles, ok, tmask), x, muT, ppT, values, dout1,
+        dout2, clamp, njac, use_val)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def cells_fwd(rows, cols, ok, tmask, x, muT, ppT, values, clamp: float,
+              njac: int):
+    """(B, (1+njac)*vdim) = [val | jac_0 | ... ] over the work list."""
+    d, vdim, B, N = gsr_centered._check(tmask, x, muT, ppT, values, njac)
+    _check_lists(rows, cols, ok, x)
+    if not x.is_cuda:
+        return cells_fwd_plain(rows, cols, ok, tmask, x, muT, ppT, values,
+                               clamp, njac)
+    lib = _lib()
+    out = torch.empty((B, (1 + njac) * vdim), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.cells_fwd(_ptr(rows), _ptr(cols), rows.numel(), _ptr(ok),
+                           _ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
+                           _ptr(values), _ptr(out),
+                           _ptr(_counter(x.device, "cells_fwd")), B, N, d,
+                           vdim, njac, float(clamp), _stream(x))
+    _raise_on(rc, "cells_fwd")
+    launches["cells_fwd"] += 1
+    return out
+
+
+def cells_bwd_dn(gtiles, qtiles, ok, tmask, x, muT, ppT, values, dout,
+                 clamp: float, njac: int, use_val: bool = True):
+    """(dmuT (d, N), dppT (np, N), dv (N, vdim)) for one cotangent over
+    the transposed work list."""
+    if not use_val and njac == 0:
+        raise ValueError("use_val=False needs Jacobian columns")
+    d, vdim, B, N = gsr_centered._check(tmask, x, muT, ppT, values, njac,
+                                        (dout,))
+    _check_lists(gtiles, qtiles, ok, x)
+    if not x.is_cuda:
+        return cells_bwd_dn_plain(gtiles, qtiles, ok, tmask, x, muT, ppT,
+                                  values, dout, clamp, njac, use_val)
+    lib = _lib()
+    dmp = torch.empty((d + ppT.shape[0], N), dtype=torch.float32,
+                      device=x.device)
+    dv = torch.empty((N, vdim), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.cells_bwd_dn(
+            _ptr(gtiles), _ptr(qtiles), gtiles.numel(), _ptr(ok),
+            _ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT), _ptr(values),
+            _ptr(dout), _ptr(dmp), _ptr(dv),
+            _ptr(_counter(x.device, "cells_bwd_dn")), B, N, d, vdim, njac,
+            int(use_val), float(clamp), _stream(x))
+    _raise_on(rc, "cells_bwd_dn")
+    launches["cells_bwd_dn"] += 1
+    return dmp[:d], dmp[d:], dv
+
+
+def cells_bwd_dn2(gtiles, qtiles, ok, tmask, x, muT, ppT, values, dout1,
+                  dout2, clamp: float, njac: int, use_val: bool = True):
+    """((dmuT1, dppT1, dv1), (dmuT2, dppT2, dv2)) for two cotangent blocks
+    in one walk of the transposed work list. ``use_val=False`` promises
+    zero value cotangents."""
+    if not use_val and njac == 0:
+        raise ValueError("use_val=False needs Jacobian columns")
+    d, vdim, B, N = gsr_centered._check(tmask, x, muT, ppT, values, njac,
+                                        (dout1, dout2))
+    _check_lists(gtiles, qtiles, ok, x)
+    if not x.is_cuda:
+        return cells_bwd_dn2_plain(gtiles, qtiles, ok, tmask, x, muT, ppT,
+                                   values, dout1, dout2, clamp, njac,
+                                   use_val)
+    lib = _lib()
+    nmp = d + ppT.shape[0]
+    dmp1, dmp2 = (torch.empty((nmp, N), dtype=torch.float32, device=x.device)
+                  for _ in range(2))
+    dv1, dv2 = (torch.empty((N, vdim), dtype=torch.float32, device=x.device)
+                for _ in range(2))
+    with torch.cuda.device(x.device):
+        rc = lib.cells_bwd_dn2(
+            _ptr(gtiles), _ptr(qtiles), gtiles.numel(), _ptr(ok),
+            _ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT), _ptr(values),
+            _ptr(dout1), _ptr(dout2), _ptr(dmp1), _ptr(dv1), _ptr(dmp2),
+            _ptr(dv2), _ptr(_counter(x.device, "cells_bwd_dn2")), B, N, d,
+            vdim, njac, int(use_val), float(clamp), _stream(x))
+    _raise_on(rc, "cells_bwd_dn2")
+    launches["cells_bwd_dn2"] += 1
+    return (dmp1[:d], dmp1[d:], dv1), (dmp2[:d], dmp2[d:], dv2)
+
+
+class _FusedGsrCells(torch.autograd.Function):
+    """Work-list forward with the work-list backward as its VJP — the port
+    of the JAX package's ``_cells_core`` custom VJP. No gradient for x."""
+
+    @staticmethod
+    def forward(ctx, lists, tmask, x, muT, ppT, values, clamp, njac):
+        rows, cols, gtiles, qtiles, ok = lists
+        ctx.save_for_backward(gtiles, qtiles, ok, tmask, x, muT, ppT,
+                              values)
+        ctx.clamp, ctx.njac = clamp, njac
+        return cells_fwd(rows, cols, ok, tmask, x, muT, ppT, values, clamp,
+                         njac)
+
+    @staticmethod
+    def backward(ctx, dout):
+        gtiles, qtiles, ok, tmask, x, muT, ppT, values = ctx.saved_tensors
+        dmuT, dppT, dv = cells_bwd_dn(gtiles, qtiles, ok, tmask, x, muT,
+                                      ppT, values, dout.contiguous(),
+                                      ctx.clamp, ctx.njac)
+        return None, None, None, dmuT, dppT, dv, None, None
+
+
+def fused_gsr_cells(lists, tmask, x, muT, ppT, values, clamp: float,
+                    njac: int):
+    """Differentiable in (muT, ppT, values); x is a constant (the field's
+    cells path refuses queries that require a gradient)."""
+    return _FusedGsrCells.apply(tuple(lists), tmask, x, muT, ppT, values,
+                                float(clamp), int(njac))

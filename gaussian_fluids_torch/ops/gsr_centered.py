@@ -16,9 +16,10 @@ a CPU tensor runs the plain PyTorch version below, which repeats the
 kernel's arithmetic on whole (B, N) planes with the tile mask expanded.
 There is no fallback from the kernel to the plain version.
 
+The kernels take d = 2 or 3 and vdim = 1, 2 or 3 (templates on both).
 The shared library is built with ``nvcc`` at first use into
-``gaussian_fluids_torch/_build/``, keyed by a hash of the source and the
-flags, and loaded with ``ctypes``: no PyTorch headers, a build of seconds.
+``gaussian_fluids_torch/_build/`` (``ops/cuda_build.py``) and loaded with
+``ctypes``: no PyTorch headers, a build of seconds.
 
 ``launches`` counts kernel launches per wrapper, so a run can show that
 its main path went through the kernels.
@@ -31,24 +32,18 @@ raises if a gradient for them is requested.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
-# The CUDA kernels' tiles: 8 queries x 64 Gaussians (csrc/gsr_centered.cu).
+from gaussian_fluids_torch.ops import cuda_build
+
+# The CUDA kernels' tiles: 8 queries x 64 Gaussians (csrc/gsr_tile.cuh).
 # The field's tile mask is built at these sizes on the card.
 TB, TN = 8, 64
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "gsr_centered.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = cuda_build.CSRC / "gsr_centered.cu"
 
 launches: Dict[str, int] = {"gsr_fwd": 0, "gsr_bwd_dn": 0, "gsr_bwd_dn2": 0}
 
@@ -62,37 +57,11 @@ def reset_launches() -> None:
 # build and bind
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"gsr_centered_{h.hexdigest()[:16]}.so"
-
-
 def build() -> Tuple[Path, str]:
     """Compile the kernels if this source has not been built yet. Returns
     (library path, compiler log — ptxas's register and spill report; empty
     when the library was already built)."""
-    out = library_path()
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: concurrent builds never see a torn file
-    return out, proc.stdout + proc.stderr
+    return cuda_build.build(SOURCE)[SOURCE.stem]
 
 
 _LIB = None
@@ -107,11 +76,11 @@ def _lib():
         lib = ctypes.CDLL(str(build()[0]))
         lib.gsr_tile_sizes.argtypes = [ctypes.POINTER(_I)] * 2
         lib.gsr_tile_sizes.restype = _I
-        lib.gsr_fwd.argtypes = [_P] * 6 + [_I] * 4 + [_F, _P]
+        lib.gsr_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_F, _P]
         lib.gsr_fwd.restype = _I
-        lib.gsr_bwd_dn.argtypes = [_P] * 8 + [_I] * 5 + [_F, _P]
+        lib.gsr_bwd_dn.argtypes = [_P] * 8 + [_I] * 6 + [_F, _P]
         lib.gsr_bwd_dn.restype = _I
-        lib.gsr_bwd_dn2.argtypes = [_P] * 11 + [_I] * 5 + [_F, _P]
+        lib.gsr_bwd_dn2.argtypes = [_P] * 11 + [_I] * 6 + [_F, _P]
         lib.gsr_bwd_dn2.restype = _I
         tb, tn = _I(), _I()
         lib.gsr_tile_sizes(ctypes.byref(tb), ctypes.byref(tn))
@@ -172,9 +141,9 @@ def _check(tmask, x, muT, ppT, values, njac, douts=()):
             raise ValueError("kernel operands: int32 tmask, float32 rest")
         if not all(t.is_contiguous() for t in ts):
             raise ValueError("kernel operands must be contiguous")
-        if d != 2 or vdim not in (1, 2):
-            raise ValueError(f"the CUDA kernels take d=2, vdim 1 or 2; got "
-                             f"d={d}, vdim={vdim}")
+        if d not in (2, 3) or vdim not in (1, 2, 3):
+            raise ValueError(f"the CUDA kernels take d 2 or 3, vdim 1 to 3;"
+                             f" got d={d}, vdim={vdim}")
         if (B // nbt, N // nnt) != (TB, TN):
             raise ValueError(f"tile mask built for tiles {(B // nbt, N // nnt)}"
                              f"; the CUDA kernels use {(TB, TN)}")
@@ -216,7 +185,28 @@ def _tile_quantities(tmask, x, muT, ppT, d, clamp):
     return delta, g, m, pd
 
 
+# The plain versions work on (rows, N) planes of at most this many query
+# rows, so that the card-side reference at Ring-Collide width (N = 75,776)
+# stays within memory; the backward sums the blocks' contributions.
+_PLAIN_ROWS = 1024
+
+
+def _row_blocks(tmask, x, *douts):
+    """(tmask, x, douts) for successive whole query tiles of <= _PLAIN_ROWS
+    rows."""
+    tb = x.shape[0] // tmask.shape[0]
+    step = max(tb, _PLAIN_ROWS // tb * tb)
+    for s in range(0, x.shape[0], step):
+        yield (tmask[s // tb:(s + step) // tb], x[s:s + step],
+               [t[s:s + step] for t in douts])
+
+
 def fwd_plain(tmask, x, muT, ppT, values, clamp: float, njac: int):
+    return torch.cat([_fwd_plain_block(tm, xb, muT, ppT, values, clamp, njac)
+                      for tm, xb, _ in _row_blocks(tmask, x)])
+
+
+def _fwd_plain_block(tmask, x, muT, ppT, values, clamp, njac):
     d = x.shape[1]
     _, g, m, pd = _tile_quantities(tmask, x, muT, ppT, d, clamp)
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
@@ -280,25 +270,32 @@ def _dn_accumulate(q, ppT, dout, v, d, vdim, clamp, njac, use_val):
     return torch.stack(rows), dv
 
 
+def _bwd_plain(tmask, x, muT, ppT, values, douts, clamp, njac, use_val):
+    """[(dmp, dv) per cotangent], summed over the query-row blocks."""
+    d, vdim = x.shape[1], values.shape[1]
+    acc = None
+    for tm, xb, db in _row_blocks(tmask, x, *douts):
+        q = _tile_quantities(tm, xb, muT, ppT, d, clamp)
+        part = [_dn_accumulate(q, ppT, dout, values, d, vdim, clamp, njac,
+                               use_val) for dout in db]
+        acc = part if acc is None else [(a[0] + p[0], a[1] + p[1])
+                                        for a, p in zip(acc, part)]
+    return acc
+
+
 def bwd_dn_plain(tmask, x, muT, ppT, values, dout, clamp: float, njac: int,
                  use_val: bool = True):
-    d, vdim = x.shape[1], values.shape[1]
-    q = _tile_quantities(tmask, x, muT, ppT, d, clamp)
-    dmp, dv = _dn_accumulate(q, ppT, dout, values, d, vdim, clamp, njac,
-                             use_val)
+    d = x.shape[1]
+    (dmp, dv), = _bwd_plain(tmask, x, muT, ppT, values, (dout,), clamp, njac,
+                            use_val)
     return dmp[:d], dmp[d:], dv
 
 
 def bwd_dn2_plain(tmask, x, muT, ppT, values, dout1, dout2, clamp: float,
                   njac: int, use_val: bool = True):
-    d, vdim = x.shape[1], values.shape[1]
-    q = _tile_quantities(tmask, x, muT, ppT, d, clamp)
-    out = []
-    for dout in (dout1, dout2):
-        dmp, dv = _dn_accumulate(q, ppT, dout, values, d, vdim, clamp, njac,
-                                 use_val)
-        out.append((dmp[:d], dmp[d:], dv))
-    return tuple(out)
+    d = x.shape[1]
+    return tuple((dmp[:d], dmp[d:], dv) for dmp, dv in _bwd_plain(
+        tmask, x, muT, ppT, values, (dout1, dout2), clamp, njac, use_val))
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +312,7 @@ def gsr_fwd(tmask, x, muT, ppT, values, clamp: float, njac: int):
                       device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.gsr_fwd(_ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
-                         _ptr(values), _ptr(out), B, N, vdim, njac,
+                         _ptr(values), _ptr(out), B, N, d, vdim, njac,
                          float(clamp), _stream(x))
     _raise_on(rc, "gsr_fwd")
     launches["gsr_fwd"] += 1
@@ -338,7 +335,7 @@ def gsr_bwd_dn(tmask, x, muT, ppT, values, dout, clamp: float, njac: int,
     with torch.cuda.device(x.device):
         rc = lib.gsr_bwd_dn(_ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
                             _ptr(values), _ptr(dout), _ptr(dmp), _ptr(dv),
-                            B, N, vdim, njac, int(use_val), float(clamp),
+                            B, N, d, vdim, njac, int(use_val), float(clamp),
                             _stream(x))
     _raise_on(rc, "gsr_bwd_dn")
     launches["gsr_bwd_dn"] += 1
@@ -365,7 +362,7 @@ def gsr_bwd_dn2(tmask, x, muT, ppT, values, dout1, dout2, clamp: float,
         rc = lib.gsr_bwd_dn2(_ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
                              _ptr(values), _ptr(dout1), _ptr(dout2),
                              _ptr(dmp1), _ptr(dv1), _ptr(dmp2), _ptr(dv2),
-                             B, N, vdim, njac, int(use_val), float(clamp),
+                             B, N, d, vdim, njac, int(use_val), float(clamp),
                              _stream(x))
     _raise_on(rc, "gsr_bwd_dn2")
     launches["gsr_bwd_dn2"] += 1

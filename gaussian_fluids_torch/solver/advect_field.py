@@ -1,6 +1,11 @@
-"""Covector advection in 2D: move the Gaussian centres by RK4 through the
-field's own velocity and drop those that leave the padded domain (N
-shrinks; the capacity is kept)."""
+"""Covector advection: move the Gaussian centres through the flow.
+
+2D: RK4 through the field's own velocity; Gaussians that leave the padded
+domain are dropped (N shrinks; the capacity is kept).
+
+3D: RK4 through the OLD velocity field, clipped to the padded domain (N
+unchanged); padded rows stay parked at the domain corner.
+"""
 
 from __future__ import annotations
 
@@ -22,3 +27,16 @@ def advect_covector_field_2d(mix: GaussianMixture, spec: FieldSpec,
         new_pos[valid], mix.scalings[valid], mix.rotations[valid],
         mix.values[valid], spec, min_capacity=mix.capacity,
         device=mix.device).spatially_sorted()
+
+
+@torch.no_grad()
+def advect_covector_field_3d(mix: GaussianMixture, vel_mix: GaussianMixture,
+                             spec: FieldSpec, dt: float) -> GaussianMixture:
+    new_pos = rk4_advect(vel_mix, spec, mix.positions, dt)
+    lo = torch.tensor(spec.lo, dtype=torch.float32, device=mix.device)
+    hi = torch.tensor(spec.hi, dtype=torch.float32, device=mix.device)
+    new_pos = torch.where(mix.alive[:, None],
+                          torch.minimum(torch.maximum(new_pos, lo), hi), lo)
+    # re-sort by coordinate 0 so the tile bounding boxes stay tight
+    return GaussianMixture(new_pos, mix.scalings, mix.rotations, mix.values,
+                           mix.alive).spatially_sorted()

@@ -1,4 +1,4 @@
-"""Clone + adaptive splitting and the re-fit that follows (2D).
+"""Clone + adaptive splitting and the re-fit that follows (2D and 3D).
 
 Per frame the solver copies the current field, splits over-stretched
 Gaussians into two children, freezes everything except the children and
@@ -18,7 +18,7 @@ import torch
 
 from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.models.mixture import GaussianMixture, mixture_of
-from gaussian_fluids_torch.ops import field
+from gaussian_fluids_torch.ops import field, spatial
 from gaussian_fluids_torch.ops.rotations import precision_matrix
 from gaussian_fluids_torch.solver import losses, optim
 from gaussian_fluids_torch.solver.fit import grads_of, uniform_batch
@@ -27,7 +27,8 @@ from gaussian_fluids_torch.solver.loop import Patience, run_chunked
 PATIENCE_REL_CLONE = (1e-3, 1e-3)          # (val, grad)
 DEFAULT_LRS_CLONE_2D = {"positions": 1e-2, "scalings": 5e-2,
                         "rotations": 5e-2, "values": 5e-3}
-TEST_CHUNK = 4096
+DEFAULT_LRS_CLONE_3D = {"positions": 1e-3, "scalings": 1e-3,
+                        "rotations": 1e-3, "values": 1e-3}
 
 
 def _repad_like(mix: GaussianMixture, capacity: int,
@@ -91,6 +92,55 @@ def split_gaussians_2d(mix: GaussianMixture, spec: FieldSpec,
             stop[order], n_split)
 
 
+def split_gaussians_3d(mix: GaussianMixture, spec: FieldSpec,
+                       rng: np.random.RandomState
+                       ) -> Tuple[GaussianMixture, np.ndarray, int]:
+    """Loop-until-none splitting at ratio >= 2: the parent's shortest-scale
+    axis gets += log 2, all axes -= log(2)/3, then two children copy the
+    modified shape; children's positions are clamped to the padded domain.
+    The same numpy draws in the same order as the JAX package."""
+    p = mix.to_param_dict()
+    pos, sca, rot, val = (p["positions"], p["scalings"], p["rotations"],
+                          p["values"])
+    stop = np.ones((pos.shape[0],), bool)
+    total_split = 0
+    lo = np.asarray(spec.lo, np.float32)
+    hi = np.asarray(spec.hi, np.float32)
+    while True:
+        ratio = np.exp(sca.max(-1) - sca.min(-1))
+        need = ratio >= 2.0
+        n_split = int(need.sum())
+        print(f"Add {n_split} particles. {float(ratio.max())}")
+        if n_split == 0:
+            break
+        total_split += n_split
+        axis_min = sca[need].argmin(-1)
+        prec = precision_matrix(torch.from_numpy(sca[need]),
+                                torch.from_numpy(rot[need]), 3).numpy()
+        child_pos = np.clip(_sample_children(rng, pos[need], prec), lo, hi)
+        child_rot = np.tile(rot[need], (2, 1))
+        mod = sca[need].copy()
+        mod[np.arange(n_split), axis_min] += np.log(2.0)
+        mod -= np.log(2.0) / 3.0
+        child_sca = np.tile(mod, (2, 1))
+        child_val = np.tile(val[need], (2, 1))
+        pos = np.concatenate([pos[~need], child_pos])
+        rot = np.concatenate([rot[~need], child_rot])
+        sca = np.concatenate([sca[~need], child_sca])
+        val = np.concatenate([val[~need], child_val])
+        stop = np.concatenate([stop[~need],
+                               np.zeros((2 * n_split,), bool)])
+    if total_split == 0:
+        return mix, stop, 0
+    # the spatial sort of the block-sparse backends; stop stays aligned
+    order = np.argsort(spatial.sort_key_np(pos), kind="stable")
+    return (GaussianMixture.from_arrays(pos[order], sca[order], rot[order],
+                                        val[order], spec,
+                                        min_capacity=mix.capacity,
+                                        device=mix.device),
+            stop[order], total_split)
+
+
 def _unfreeze_neighbors(mix: GaussianMixture, spec: FieldSpec,
                         stop: np.ndarray) -> torch.Tensor:
     """(capacity,) bool: stop &= ~neighbours(new Gaussians)."""
@@ -116,7 +166,7 @@ def _clone_runner(spec: FieldSpec):
     def loss_fn(params, alive, stop, x, ref_val, ref_jac):
         frozen = losses.freeze_params(params, stop)
         val, jac = field.value_and_jac(mixture_of(frozen, alive), spec, x,
-                                       presorted=True)
+                                       presorted=True, need_dx=False)
         l_val = losses.value_loss(val, ref_val)
         l_grad = losses.grad_loss(jac, ref_jac)
         l_aniso = losses.aniso_loss(params["scalings"], alive & ~stop)
@@ -130,7 +180,10 @@ def _clone_runner(spec: FieldSpec):
         if field._use_kernel(x):
             x = x[torch.argsort(x[:, 0])]
         with torch.no_grad():
-            ref = field.value_and_jac(old_mix, spec, x, presorted=True)
+            # the old field's targets, as the JAX package's production
+            # regime computes them (its hoisted batch sweep, need_dx=False)
+            ref = field.value_and_jac(old_mix, spec, x, presorted=True,
+                                      need_dx=False)
         total, aux, grads = grads_of(loss_fn, params, alive, stop, x, *ref)
         params, opt_state = optim.step(opt_state, params, grads, total)
         return (params, opt_state, alive, stop, old_mix), aux
@@ -138,12 +191,12 @@ def _clone_runner(spec: FieldSpec):
     def test_ref_fn(old_mix, test_x):
         """Old-field (val, jac) on the test grid, constant over the fit."""
         return field.value_and_jac_chunked(old_mix, spec, test_x,
-                                           TEST_CHUNK, presorted=True)
+                                           presorted=True)
 
     @torch.no_grad()
     def test_fn(params, alive, stop, test_x, test_ref):
         mix = mixture_of(params, alive)
-        v, j = field.value_and_jac_chunked(mix, spec, test_x, TEST_CHUNK,
+        v, j = field.value_and_jac_chunked(mix, spec, test_x,
                                            presorted=True)
         rv, rj = test_ref
         b = test_x.shape[0]
@@ -158,7 +211,7 @@ def _clone_runner(spec: FieldSpec):
 
 def clone_velocity_field(old_mix: GaussianMixture, spec: FieldSpec, *,
                          lo, hi, test_x, gen: torch.Generator, seed: int = 0,
-                         lrs: Optional[Dict[str, float]] = None,
+                         d: int = 2, lrs: Optional[Dict[str, float]] = None,
                          batch_size: int = 512, max_epoch: int = 3000,
                          patience: int = 500, check_iter: int = 100,
                          verbose: int = 1):
@@ -169,9 +222,14 @@ def clone_velocity_field(old_mix: GaussianMixture, spec: FieldSpec, *,
     dev = old_mix.device
     test_x = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
     test_x = test_x[torch.argsort(test_x[:, 0])]
-    new_mix, stop_np, n_split = split_gaussians_2d(old_mix, spec, rng)
-    if lrs is None:
-        lrs = dict(DEFAULT_LRS_CLONE_2D)
+    if d == 2:
+        new_mix, stop_np, n_split = split_gaussians_2d(old_mix, spec, rng)
+        if lrs is None:
+            lrs = dict(DEFAULT_LRS_CLONE_2D)
+    else:
+        new_mix, stop_np, n_split = split_gaussians_3d(old_mix, spec, rng)
+        if lrs is None:
+            lrs = dict(DEFAULT_LRS_CLONE_3D)
     if n_split == 0:
         return new_mix, {}
     stop = _unfreeze_neighbors(new_mix, spec, stop_np)

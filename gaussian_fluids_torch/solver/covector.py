@@ -1,8 +1,14 @@
-"""Advected covector-field target for 2D: backtrace x through the old
-velocity by -dt with RK4; the target vorticity at x is curl u_old at the
-backtraced point, zeroed where the backtrace leaves the advance domain
-(2D vorticity is materially conserved). The projection's data loss is
-evaluated at the ORIGINAL sample positions, as in the reference.
+"""Advected covector-field targets.
+
+2D: backtrace x through the old velocity by -dt with RK4; the target
+vorticity at x is curl u_old at the backtraced point, zeroed where the
+backtrace leaves the advance domain (2D vorticity is materially
+conserved). The projection's data loss is evaluated at the ORIGINAL sample
+positions, as in the reference.
+
+3D: the RK4 backtrace carries the deformation gradient dpsi of the flow
+map; the vorticity is pulled back through it, omega = (dpsi)^{-1} omega_b,
+and the helicity target is hel = v_b . omega_b.
 """
 
 from __future__ import annotations
@@ -12,7 +18,8 @@ import torch
 from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.models.mixture import GaussianMixture
 from gaussian_fluids_torch.ops import field
-from gaussian_fluids_torch.ops.advect import rk4_pos_stages
+from gaussian_fluids_torch.ops.advect import (rk4_deformation_stages,
+                                              rk4_pos_stages)
 from gaussian_fluids_torch.solver import losses
 
 
@@ -30,6 +37,28 @@ def advected_vorticity_2d(vel_mix: GaussianMixture, spec: FieldSpec,
     """Target vorticity at x, (B,); adv_lo/adv_hi are the scaled
     advance-domain bounds as (2,) tensors."""
     bk_x = rk4_pos_stages(
-        lambda p: field.value(vel_mix, spec, p, presorted=presorted), x, -dt)
-    _, dv = field.value_and_jac(vel_mix, spec, bk_x, presorted=presorted)
+        lambda p: field.value(vel_mix, spec, p, presorted=presorted,
+                              need_dx=False), x, -dt)
+    _, dv = field.value_and_jac(vel_mix, spec, bk_x, presorted=presorted,
+                                need_dx=False)
     return _finish_2d(bk_x, dv, adv_lo, adv_hi)
+
+
+def covector_targets_3d_from(f, x: torch.Tensor, dt):
+    """(vor (B, 3), hel (B,)): the RK4 deformation backtrace through
+    ``f(points) -> (velocities, jacobians)``, then the vorticity pullback
+    (a batched 3x3 solve) and the helicity."""
+    _, dpsi, pb_v, pb_dv = rk4_deformation_stages(f, x, -dt)
+    pb_vor = losses.curl3d(pb_dv)
+    hel = (pb_v * pb_vor).sum(-1)
+    vor = torch.linalg.solve(dpsi, pb_vor[..., None])[..., 0]
+    return vor, hel
+
+
+@torch.no_grad()
+def advected_vorticity_3d(vel_mix: GaussianMixture, spec: FieldSpec,
+                          x: torch.Tensor, dt, presorted: bool = False):
+    """(vor (B, 3), hel (B,)) at x through the old field ``vel_mix``."""
+    return covector_targets_3d_from(
+        lambda p: field.value_and_jac(vel_mix, spec, p, presorted=presorted,
+                                      need_dx=False), x, dt)

@@ -47,7 +47,7 @@ def make_fit_epoch(spec: FieldSpec, ref_val_fn: Callable,
 
     def loss_fn(params, alive, x, ref_val, ref_jac):
         val, jac = field.value_and_jac(mixture_of(params, alive), spec, x,
-                                       presorted=True)
+                                       presorted=True, need_dx=False)
         l_val = losses.value_loss(val, ref_val)
         l_grad = losses.grad_loss(jac, ref_jac)
         l_aniso = losses.aniso_loss(params["scalings"], alive)

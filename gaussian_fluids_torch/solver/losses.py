@@ -1,4 +1,4 @@
-"""Loss functions, the 2D subset of the JAX package's ``solver/losses.py``.
+"""Loss functions, the port of the JAX package's ``solver/losses.py``.
 
 Data terms are means over the query batch; regularizers are masked means
 over the alive Gaussians. Per-Gaussian freezing detaches frozen rows of
@@ -42,6 +42,12 @@ def curl2d(jac):
     return jac[:, 1, 0] - jac[:, 0, 1]
 
 
+def curl3d(jac):
+    return torch.stack([jac[:, 2, 1] - jac[:, 1, 2],
+                        jac[:, 0, 2] - jac[:, 2, 0],
+                        jac[:, 1, 0] - jac[:, 0, 1]], dim=-1)
+
+
 def divergence(jac):
     return jac.diagonal(dim1=-2, dim2=-1).sum(-1)
 
@@ -49,6 +55,17 @@ def divergence(jac):
 def vorticity_loss_2d(jac, ref_vor):
     """mean |curl u - ref|."""
     return (curl2d(jac) - ref_vor).abs().mean()
+
+
+def vorticity_loss_3d(jac, ref_vor):
+    """mean |curl u - ref| over (Q, 3)."""
+    return (curl3d(jac) - ref_vor).abs().mean()
+
+
+def helicity_loss(val, jac, ref_hel):
+    """mean |u . curl u - ref_hel|."""
+    hel = (val * curl3d(jac)).sum(-1)
+    return (hel - ref_hel).abs().mean()
 
 
 def divergence_loss(jac):
@@ -63,6 +80,11 @@ def boundary_dirichlet_loss(val, ref_val):
 def boundary_flux_loss(val, normals, normal_ref):
     """L1 of the normal flux against its target."""
     return ((val * normals).sum(-1) - normal_ref).abs().mean()
+
+
+def boundary_freeslip_loss(val, normals):
+    """3D free-slip: mean |u . n|."""
+    return (val * normals).sum(-1).abs().mean()
 
 
 # ---- regularizers over Gaussian parameters ----
@@ -94,6 +116,11 @@ def delta_pos_loss(positions, positions_org, alive):
     """mse(positions, positions_org) over the alive rows."""
     per = ((positions - positions_org) ** 2).mean(-1)
     return _masked_mean(per, alive)
+
+
+def value_reg_loss(values, alive):
+    """mean |values| over the alive rows."""
+    return _masked_mean(values.abs().mean(-1), alive)
 
 
 # ---- PCGrad conflict-free gradient combination ----

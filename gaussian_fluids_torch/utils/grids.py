@@ -1,9 +1,20 @@
-"""Grid points with the reference's ordering: 2D meshgrid with 'xy'
-indexing — y varies slowest, x fastest."""
+"""Grid points with the reference's orderings (2D: meshgrid with 'xy'
+indexing, y slowest and x fastest; 3D: 'ij' indexing, x slowest and z
+fastest), and the fixed-size chunking of large query sets."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def sweep_group(n: int, b: int, cap: int = 262144) -> int:
+    """Largest divisor g of n with g*b <= cap (min 1): how many epochs'
+    sample batches share one batched target sweep."""
+    g = max(1, min(n, cap // max(b, 1)))
+    while n % g:
+        g -= 1
+    return g
 
 
 def grid_points_2d(x_min, x_max, y_min, y_max, x_n, y_n) -> np.ndarray:
@@ -11,3 +22,37 @@ def grid_points_2d(x_min, x_max, y_min, y_max, x_n, y_n) -> np.ndarray:
     ys = np.linspace(y_min, y_max, y_n, dtype=np.float32)
     X, Y = np.meshgrid(xs, ys, indexing="xy")
     return np.stack([X, Y], axis=-1).reshape(-1, 2)
+
+
+def grid_points_3d(x_min, x_max, y_min, y_max, z_min, z_max,
+                   x_n, y_n, z_n) -> np.ndarray:
+    xs = np.linspace(x_min, x_max, x_n, dtype=np.float32)
+    ys = np.linspace(y_min, y_max, y_n, dtype=np.float32)
+    zs = np.linspace(z_min, z_max, z_n, dtype=np.float32)
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    return np.stack([X, Y, Z], axis=-1).reshape(-1, 3)
+
+
+def default_chunk(x: torch.Tensor) -> int:
+    """The JAX package's chunk of large query sets: 32768 on the
+    accelerator (here the card), 4096 elsewhere, where the dense path's
+    (chunk, N) kernel matrix bounds it."""
+    return 32768 if x.is_cuda else 4096
+
+
+def pad_chunks(x: torch.Tensor, d: int, b: int, chunk: int = 0):
+    """Split (b, d) points into fixed-size chunks: ((nchunk, chunk, d)
+    points, (nchunk, chunk) validity weights); ``chunk`` 0 takes
+    :func:`default_chunk`."""
+    if b == 0:
+        raise ValueError("pad_chunks: empty point set (b=0)")
+    if chunk == 0:
+        chunk = default_chunk(x)
+    chunk = min(chunk, b)
+    nchunk = -(-b // chunk)
+    xp = torch.zeros((nchunk * chunk, d), dtype=torch.float32,
+                     device=x.device)
+    xp[:b] = x
+    valid = (torch.arange(nchunk * chunk, device=x.device) < b) \
+        .reshape(nchunk, chunk).float()
+    return xp.reshape(nchunk, chunk, d), valid

@@ -1,6 +1,7 @@
-"""A seeded Leapfrog-2D-sized state: the inputs at which the smoke run
-checks each CUDA kernel against its plain version, the card tests repeat
-those checks, and the epoch profiler times a training epoch."""
+"""Seeded states at the sizes of the main paths — Leapfrog-2D and
+Ring-Collide (3D): the inputs at which the smoke run checks each CUDA
+kernel against its plain version, the card tests repeat those checks, and
+the epoch profiler times a training epoch."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import torch
 
 from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.models.mixture import GaussianMixture
-from gaussian_fluids_torch.utils.grids import grid_points_2d
+from gaussian_fluids_torch.utils.grids import grid_points_2d, grid_points_3d
 
 
 def leapfrog_state(device, seed: int = 0):
@@ -30,5 +31,30 @@ def leapfrog_state(device, seed: int = 0):
         (0.5 * rng.randn(cap, 2)).astype(np.float32),
         device=device) * mix.alive[:, None]
     x = rng.uniform(-5, 5, (512, 2)).astype(np.float32)
+    x = torch.as_tensor(x[np.argsort(x[:, 0])], device=device)
+    return mix, spec, x
+
+
+def ring_collide_state(device, seed: int = 0, n_queries: int = 8192,
+                       side: int = 40):
+    """A Ring-Collide-sized mixture (the scene's 40^3 grid in [0, 1]^3,
+    capacity 75,776, sorted along x as the solver keeps it) with seeded
+    jitter of shapes, quaternions and values, and ``n_queries`` sorted
+    query points (the scene's batch, 8192, by default). ``side`` 10 gives
+    the Leapfrog-3D grid (1000 Gaussians, capacity 1024) for the tests."""
+    rng = np.random.RandomState(seed)
+    pos = grid_points_3d(0, 1, 0, 1, 0, 1, side, side, side)
+    spec = FieldSpec.create((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), pos.shape[0],
+                            d=3, vdim=3)
+    mix = GaussianMixture.create(pos, spec, device=device).spatially_sorted()
+    cap = mix.capacity
+    mix.scalings += torch.as_tensor(
+        rng.uniform(-0.3, 0.3, (cap, 3)).astype(np.float32), device=device)
+    mix.rotations += torch.as_tensor(
+        rng.uniform(-0.3, 0.3, (cap, 4)).astype(np.float32), device=device)
+    mix.values = torch.as_tensor(
+        (0.1 * rng.randn(cap, 3)).astype(np.float32),
+        device=device) * mix.alive[:, None]
+    x = rng.uniform(0, 1, (n_queries, 3)).astype(np.float32)
     x = torch.as_tensor(x[np.argsort(x[:, 0])], device=device)
     return mix, spec, x

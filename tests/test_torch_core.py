@@ -91,8 +91,18 @@ def test_rotations_and_precisions_match():
 
 
 def test_rotations_refuse_3d():
-    with pytest.raises(NotImplementedError):
-        trot.packed_precision_entries(torch.zeros(4, 3), torch.ones(4, 4), 3)
+    """3D is no longer refused: at d = 3 the packed entries are the upper
+    triangle of the quaternion precision matrix, diagonal first, then
+    (0,1), (0,2), (1,2). Bad inputs still fail loudly."""
+    rng = np.random.RandomState(5)
+    s = torch.as_tensor(rng.randn(6, 3).astype(np.float32))
+    q = torch.as_tensor(rng.randn(6, 4).astype(np.float32))
+    P = trot.precision_matrix(s, q, 3)
+    close(trot.packed_precision_entries(s, q, 3),
+          torch.stack([P[:, 0, 0], P[:, 1, 1], P[:, 2, 2], P[:, 0, 1],
+                       P[:, 0, 2], P[:, 1, 2]], -1), 1e-5)
+    with pytest.raises((IndexError, RuntimeError)):
+        trot.packed_precision_entries(torch.zeros(4, 3), torch.ones(4, 3), 3)
 
 
 @pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])

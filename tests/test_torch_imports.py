@@ -45,14 +45,23 @@ def test_imports_only_allowed_modules(path):
 def test_guard_sees_the_whole_package():
     rel = {os.path.relpath(p, ROOT) for p in _sources()}
     assert {"chip_smoke.py", "gaussian_fluids_torch/ops/gsr_centered.py",
-            "gaussian_fluids_torch/solver/project.py"} <= rel
-    assert os.path.exists(os.path.join(PKG, "csrc", "gsr_centered.cu"))
+            "gaussian_fluids_torch/ops/gsr_cells.py",
+            "gaussian_fluids_torch/ops/spatial.py",
+            "gaussian_fluids_torch/solver/project.py",
+            "gaussian_fluids_torch/solver/simulate3d.py",
+            "gaussian_fluids_torch/scenes/fields3d.py"} <= rel
+    for src in ("gsr_centered.cu", "gsr_cells.cu", "gsr_tile.cuh"):
+        assert os.path.exists(os.path.join(PKG, "csrc", src))
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, gaussian_fluids_torch.solver.simulate2d, "
             "gaussian_fluids_torch.advance2d, "
-            "gaussian_fluids_torch.initialize2d\n"
+            "gaussian_fluids_torch.initialize2d, "
+            "gaussian_fluids_torch.solver.simulate3d, "
+            "gaussian_fluids_torch.advance3d, "
+            "gaussian_fluids_torch.initialize3d, "
+            "gaussian_fluids_torch.epoch_profile\n"
             "bad = [m for m in ('jax', 'gaussian_fluids_tpu', 'matplotlib')"
             " if m in sys.modules]\n"
             "assert not bad, bad")

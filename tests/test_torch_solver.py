@@ -36,7 +36,9 @@ from gaussian_fluids_tpu.solver import optim as jopt
 from gaussian_fluids_tpu.solver import project as jproj
 from gaussian_fluids_tpu.utils.grids import grid_points_2d as jgrid
 
-from torch_parity import close, jax_mixture, t, to_torch
+from torch_parity import (close, jax_mixture, jopt_warm as _jopt,
+                          params_close as _params_close, t, to_torch,
+                          topt_warm as _topt)
 
 R = np.random.RandomState
 
@@ -263,28 +265,6 @@ def _tg_state(seed):
 
 def _jax_tree(params):
     return {k: jnp.asarray(v) for k, v in params.items()}
-
-
-def _warm(state, ones):
-    """Optimizer state with a nonzero second moment, as after earlier
-    epochs: the Adam step is then linear in the gradient, where a fresh
-    state's first step is lr * sign(g) and turns f32 noise in gradients
-    near zero into differences of a whole lr."""
-    return state._replace(groups={
-        k: g._replace(v=1e-2 * ones(g.v)) for k, g in state.groups.items()})
-
-
-def _jopt(params, lrs):
-    return _warm(jopt.init(params, lrs, patience=50), jnp.ones_like)
-
-
-def _topt(params, lrs):
-    return _warm(topt.init(params, lrs, patience=50), torch.ones_like)
-
-
-def _params_close(tp, jp, msg, tol=1e-5):
-    for k in jp:
-        close(tp[k], jp[k], tol, err_msg=f"{msg} {k}")
 
 
 def test_fit_epoch_matches():

@@ -28,6 +28,32 @@ def jax_mixture(n, seed, lo=-5.0, hi=5.0, spread=4.0, center=0.0):
                            jnp.asarray(val), mix.alive), spec
 
 
+def jax_mixture_3d(n, seed, scale_shift=0.5):
+    """A 3D JAX-package mixture in [0, 1]^3 with seeded random shapes,
+    quaternions and values, x-sorted (the pattern of tests/test_cells.py),
+    and its spec."""
+    import jax.numpy as jnp
+    from gaussian_fluids_tpu import FieldSpec, GaussianMixture
+    r = np.random.RandomState(seed)
+    spec = FieldSpec.create((0, 0, 0), (1, 1, 1), n, d=3, vdim=3)
+    mix = GaussianMixture.create(r.uniform(0.02, 0.98, (n, 3)), spec)
+    p = mix.params()
+    p["scalings"] = p["scalings"] + scale_shift \
+        + 0.2 * jnp.asarray(r.randn(*p["scalings"].shape), jnp.float32)
+    p["rotations"] = jnp.asarray(r.randn(*p["rotations"].shape),
+                                 jnp.float32)
+    p["values"] = jnp.asarray(r.randn(*p["values"].shape)
+                              * np.asarray(mix.alive)[:, None], jnp.float32)
+    return mix.with_params(p).spatially_sorted(), spec
+
+
+def sorted_queries_3d(seed, b, lo=-0.02, hi=1.02):
+    """(b, 3) f32 points sorted along coordinate 0."""
+    x = np.random.RandomState(seed).uniform(lo, hi, (b, 3)).astype(
+        np.float32)
+    return x[np.argsort(x[:, 0], kind="stable")]
+
+
 def to_torch(mix, spec):
     """(port mixture on the CPU, port spec) for a JAX mixture and spec."""
     params = {k: np.asarray(v) for k, v in mix.params().items()}
@@ -46,6 +72,33 @@ def close(got, want, rtol_scale=1e-5, err_msg=""):
     scale = max(1.0, float(np.abs(want).max()) if want.size else 1.0)
     np.testing.assert_allclose(got, want, rtol=0, atol=rtol_scale * scale,
                                err_msg=err_msg)
+
+
+def _warm(state, ones):
+    """Optimizer state with a nonzero second moment, as after earlier
+    epochs: the Adam step is then linear in the gradient, where a fresh
+    state's first step is lr * sign(g) and turns f32 noise in gradients
+    near zero into differences of a whole lr."""
+    return state._replace(groups={
+        k: g._replace(v=1e-2 * ones(g.v)) for k, g in state.groups.items()})
+
+
+def jopt_warm(params, lrs):
+    """A warm JAX-package optimizer state (see ``_warm``)."""
+    import jax.numpy as jnp
+    from gaussian_fluids_tpu.solver import optim as jopt
+    return _warm(jopt.init(params, lrs, patience=50), jnp.ones_like)
+
+
+def topt_warm(params, lrs):
+    """A warm port optimizer state (see ``_warm``)."""
+    from gaussian_fluids_torch.solver import optim as topt
+    return _warm(topt.init(params, lrs, patience=50), torch.ones_like)
+
+
+def params_close(tp, jp, msg, tol=1e-5):
+    for k in jp:
+        close(tp[k], jp[k], tol, err_msg=f"{msg} {k}")
 
 
 EPOCH_KINDS = ["fit", "clone", "project", "project_ref"]
@@ -148,6 +201,82 @@ def one_epoch_runs(kind, device, monkeypatch, runs):
         grads = {k: g.m / (1.0 - optim.BETA1)
                  for k, g in new[1].groups.items()}
         out.append((aux, grads, dict(gsr_centered.launches)))
+    return out
+
+
+EPOCH_KINDS_3D = ["fit", "clone", "project", "project_ref"]
+
+
+def one_epoch_runs_3d(kind, device, monkeypatch, runs):
+    """The 3D twin of :func:`one_epoch_runs`, on a seeded Leapfrog-3D-sized
+    state (1000 Gaussians, capacity 1024, B = 512) with the ring_collide
+    scene's targets and boundary. Routes: "cells" (the work-list kernels,
+    forced at this size, which the field would give the centered ones),
+    "centered", and "dense64". Returns one (aux, gradients, kernel
+    launches of both kernel modules) per run."""
+    from gaussian_fluids_torch.ops import field, gsr_cells, gsr_centered
+    from gaussian_fluids_torch.scenes import get_scene_3d
+    from gaussian_fluids_torch.solver import (clone, covector, fit, optim,
+                                              project)
+    from gaussian_fluids_torch.solver.simulate3d import FIT_LRS_3D
+    from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
+
+    mix, spec, _ = ring_collide_state(device, seed=94, side=10)
+    old, _, _ = ring_collide_state(device, seed=95, side=10)
+    scene = get_scene_3d("ring_collide")
+    gen = torch.Generator(device=device).manual_seed(96)
+    lo, hi = torch.zeros(3, device=device), torch.ones(3, device=device)
+    p = mix.params()
+
+    if kind == "fit":
+        epoch = fit.make_fit_epoch(spec, scene.velocity, scene.velocity_jac)
+        carry = (p, optim.init(p, FIT_LRS_3D), mix.alive)
+        xs = fit.uniform_batch(gen, 512, lo, hi)
+        presorted = _sort_rows(xs)[0]
+    elif kind == "clone":
+        epoch = clone._clone_runner(spec)[0]
+        stop = torch.rand(mix.capacity, generator=gen, device=device) > 0.5
+        carry = (p, optim.init(p, clone.DEFAULT_LRS_CLONE_3D), mix.alive,
+                 stop, old)
+        xs = fit.uniform_batch(gen, 512, lo, hi)
+        presorted = _sort_rows(xs)[0]
+    else:
+        epoch, sample = project._runner_3d(
+            spec, "ring_collide", project.ProjectWeights(delta_pos=0.0),
+            10.0, 512, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))[:2]
+        dt = 0.02
+        carry = (p, optim.init(p, project.DEFAULT_LRS_3D), mix.alive, old,
+                 dt)
+        data, _, _, bnd = sample(gen)
+        rv = rh = None
+        if kind == "project_ref":
+            with monkeypatch.context() as mp:
+                mp.setattr(field, "_use_kernel", lambda x: False)
+                rv, rh = covector.advected_vorticity_3d(old, spec, data, dt)
+        xs = (data, rv, rh, bnd)
+        srt = _sort_rows(data, *([] if rv is None else [rv, rh]))
+        presorted = (srt[0], *(srt[1:] if rv is not None else (None, None)),
+                     _sort_rows(*bnd))
+
+    out = []
+    for route, presort in runs:
+        gsr_centered.reset_launches()
+        gsr_cells.reset_launches()
+        args = (carry, presorted if presort else xs)
+        if route == "dense64":
+            args = _to64(args)
+        with monkeypatch.context() as mp:
+            mp.setattr(field, "_use_kernel",
+                       lambda x, c=route != "dense64": c)
+            mp.setattr(field, "_use_cells",
+                       lambda x, n, d, c=route == "cells": c and d == 3)
+            new, aux = epoch(*args)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        grads = {k: g.m / (1.0 - optim.BETA1)
+                 for k, g in new[1].groups.items()}
+        out.append((aux, grads, {**gsr_centered.launches,
+                                 **gsr_cells.launches}))
     return out
 
 
