@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line with its wall seconds:
-  build         compile csrc/gsr_centered.cu and csrc/gsr_cells.cu with
-                nvcc into gaussian_fluids_torch/_build/, one nvcc per source,
-                started together (skipped when already built)
+  build         compile csrc/gsr_centered.cu, csrc/gsr_cells.cu and
+                csrc/gsr_banded.cu with nvcc into gaussian_fluids_torch/_build/,
+                one nvcc per source, started together (skipped when already
+                built)
   kernels       each centered kernel at Leapfrog-2D shapes (B=512 queries,
                 N=6144 Gaussian rows, d=2, vdim=2) against its plain
                 PyTorch version on the card; median time over 30 launches
@@ -14,6 +15,11 @@ Phases, each printing one JSON line with its wall seconds:
                 (cells) kernels at Ring-Collide shapes (B=8192, N=75,776,
                 d=vdim=3) against their plain versions, with the live-pair
                 count and the live tile fraction
+  kernels_density  the banded value kernel of the density replay at its
+                production shapes (one 262,144-node chunk: the 512^3 grid's
+                x-plane nearest 0.5, on the seeded Ring-Collide state) against
+                its plain version, and its guard's full sweep (band 1)
+                against the sufficient band's output, bitwise
   initialize    the leapfrog scene fitted at 71x71 = 5041 Gaussians through
                 the entry point ``gaussian_fluids_torch.initialize2d``
   advance       two frames (clone -> advect -> project) at dt .025 through
@@ -30,11 +36,24 @@ Phases, each printing one JSON line with its wall seconds:
                 128^3 test grid; losses and the divergence residual
   check3d       the final Ring-Collide field through the kernels against
                 the dense plain evaluation in float64 on 4096 points
+  density3d     the smoke replay through ``gaussian_fluids_torch.advance_density3d``
+                (--density_res_multiplier 1: 128^3 nodes) on ring_collide's
+                checkpoints 0 and 1: densities a and b, two steps each, .vti
+                and pooled .npz files checked
+  check_density the RK4 backtrace of 4096 seeded grid nodes through the
+                banded kernel against the dense plain backtrace in float64 on
+                frame 1's mixture, and the density sampled there
+  density512    one advected_density step of one density at the production
+                512^3 grid on frame 1's mixture, timed (fails on a guard
+                failure); one timed write of its .vti as the replay writes
+                it; and the card's busy share over a 128^3 step
+                (torch.profiler)
 Launches are counted per path: each path's counts are set to 0 just
 before it and read just after; the 2D lines of the kernel summary carry
 the 2D path's launches, the d=3 and cells lines the 3D path's. The run
 fails if a kernel of a path was not launched there, or if a cells work
-list overflowed at the default capacity. Then the per-kernel summary, the
+list overflowed at the default capacity. The banded kernel's path is the
+replay (density3d). Then the per-kernel summary, the
 card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Solver output goes to a temporary
 directory outside the checkout, deleted at the end. Any failure raises;
@@ -78,6 +97,21 @@ PEAK_BYTES_PER_S = 3.35e12
 OPS_GEOMETRY = {2: 15, 3: 27}
 OPS_SUPPORT = {(2, "fwd"): 17, (2, "bwd_dn"): 74, (2, "bwd_dn2"): 126,
                (3, "fwd"): 34, (3, "bwd_dn"): 136, (3, "bwd_dn2"): 272}
+# The banded kernel (csrc/gsr_banded.cu, d = vdim = 3): every pair of a
+# window pays dx (3), the direct quadratic form (6 terms of a multiply and
+# an FMA: 18) and the cut compare (1); pairs inside the support also pay
+# -quad/2, the exp and the support compare (3), then g - c and 3 FMAs (7).
+OPS_BANDED_WINDOW, OPS_BANDED_SUPPORT = 22, 10
+
+DENSITY_DT = 0.02
+DENSITY_TOL_POS = 1e-5    # backtrace positions, domain units: f32 grid
+#                           coordinates in [0, 1] (spacing 6e-8) moved by
+#                           dt = .02 times an f32 velocity
+DENSITY_TOL_SAMPLE = 2e-3  # a sampled density: DENSITY_TOL_POS times the
+#                            steepest step of an indicator seed, 1 over one
+#                            cell of the 128^3 grid (h = 1/127), rounded up
+NO_LIBRARY_BANDED = ("no single PyTorch call computes the clamp-masked "
+                     "Gaussian sum over a per-query-tile window")
 
 PALLAS = "gaussian_fluids_tpu/ops/pallas/"
 REPLACES = {
@@ -87,9 +121,11 @@ REPLACES = {
     "cells_fwd": PALLAS + "gsr_cells.py:107",
     "cells_bwd_dn": PALLAS + "gsr_cells.py:228",
     "cells_bwd_dn2": PALLAS + "gsr_cells.py:199",
+    "gsr_value_banded": PALLAS + "gsr_centered.py:701",
 }
 SOURCES = {"gsr": "gaussian_fluids_torch/csrc/gsr_centered.cu",
-           "cells": "gaussian_fluids_torch/csrc/gsr_cells.cu"}
+           "cells": "gaussian_fluids_torch/csrc/gsr_cells.cu",
+           "banded": "gaussian_fluids_torch/csrc/gsr_banded.cu"}
 NO_LIBRARY = ("no single PyTorch call computes the clamp-masked, "
               "tile-culled Gaussian sum and its Jacobian or cotangents")
 
@@ -164,7 +200,8 @@ def ptxas_summary(log):
     return out
 
 
-def _entry(name, route_src, errs, ms, plain_ms, ops, nbytes):
+def _entry(name, route_src, errs, ms, plain_ms, ops, nbytes,
+           note=NO_LIBRARY):
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return {
         "name": name, "route": "cuda", "source": SOURCES[route_src],
@@ -174,7 +211,7 @@ def _entry(name, route_src, errs, ms, plain_ms, ops, nbytes):
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "library_note": NO_LIBRARY, "ops": ops,
+        "library_ms": None, "library_note": note, "ops": ops,
         "bytes": nbytes,
     }
 
@@ -515,11 +552,250 @@ def run_3d(tmp):
     return total
 
 
+def kernel_phase_density(device):
+    """The banded value kernel at the replay's production shapes: one
+    262,144-node chunk (the 512^3 grid's x-plane nearest 0.5) against the
+    seeded Ring-Collide state, x-sorted, with the band the replay would
+    use; then band 1, which fails the guard and sweeps the whole axis."""
+    from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
+    from gaussian_fluids_torch.ops import field, gsr_banded as gb
+    from gaussian_fluids_torch.scenes import get_scene_3d
+    from gaussian_fluids_torch.solver.simulate3d import (
+        DENSITY_CHUNK, _grid_chunks_device, _suggest_band)
+    from gaussian_fluids_torch.utils.grids import axis_nodes
+
+    mix, spec, _ = ring_collide_state(device)
+    mix = mix.x_sorted()
+    clamp = spec.clamp_threshold
+    domain = get_scene_3d("ring_collide").domain
+    xs = axis_nodes(domain[0], domain[1], 512)
+    plane = int(np.argmin(np.abs(xs - 0.5 * (domain[0] + domain[1]))))
+    chunks, _ = _grid_chunks_device(tuple(domain), (512,) * 3,
+                                    DENSITY_CHUNK, device)
+    x = chunks[plane]
+    B = x.shape[0]
+    band = _suggest_band(mix, spec, DENSITY_DT)
+    prep = field.banded_prep(mix, spec)
+    jlo, ok = field.band_window(x, B, prep["nlo"], prep["nhi"], band, gb.TB)
+    if not int(ok):
+        raise AssertionError(f"band {band} fails the guard at x = "
+                             f"{xs[plane]}")
+    args = (x, prep["muT"], prep["ppT"], prep["v"], clamp)
+    kern = lambda: gb.gsr_value_banded(jlo, ok, *args, band)  # noqa: E731
+    plain = lambda: gb.value_banded_plain(jlo, ok, *args,  # noqa: E731
+                                          band)
+    errs = [compare("gsr_value_banded", [kern()], [plain()], TOL)]
+    jlo1, ok1 = field.band_window(x, B, prep["nlo"], prep["nhi"], 1, gb.TB)
+    if int(ok1):
+        raise AssertionError("band 1 passed the guard")
+    before = gb.guard_failures()
+    swept = gb.gsr_value_banded(jlo1, ok1, *args, 1)
+    if not torch.equal(swept, kern()):
+        raise AssertionError("the guard's full sweep differs from the "
+                             "sufficient band's output")
+    if gb.guard_failures() != before + 1:
+        raise AssertionError("the guard counter missed the full sweep")
+    torch.cuda.synchronize()
+    ms = time_ms(kern)
+    sweep_ms = time_ms(lambda: gb.gsr_value_banded(jlo1, ok1, *args, 1), 5)
+    plain_ms = time_ms(plain, PLAIN_LAUNCHES_3D)
+    N = prep["muT"].shape[1]
+    window_pairs = B * band * gb.TN
+    support_pairs = sum(int((mgv > 0).sum()) for _, mgv in gb.window_weights(
+        jlo, ok, x, prep["muT"], prep["ppT"], clamp, band))
+    ops = OPS_BANDED_WINDOW * window_pairs \
+        + OPS_BANDED_SUPPORT * support_pairs
+    nbytes = 4 * (2 * x.numel() + jlo.numel() + prep["muT"].numel()
+                  + prep["ppT"].numel() + prep["v"].numel())
+    entry = _entry("gsr_value_banded", "banded", errs, ms, plain_ms, ops,
+                   nbytes, NO_LIBRARY_BANDED)
+    shapes = {"B": B, "N": N, "band": band, "band_of": N // gb.TN,
+              "window_rows": band * gb.TN, "window_pairs": window_pairs,
+              "support_pairs": support_pairs, "plane_x": float(xs[plane]),
+              "full_sweep_ms": sweep_ms, "full_sweep_bitwise_equal": True}
+    entry.update(shapes)
+    return {"gsr_value_banded": entry}, shapes
+
+
+def _volume_stats(v):
+    v = np.asarray(v, np.float64)
+    return {"mass": float(v.sum()), "max": float(v.max()),
+            "finite": bool(np.isfinite(v).all())}
+
+
+def run_density(d):
+    """The replay through its entry point on the ring_collide checkpoints
+    0 and 1 in ``d``, at 128^3; returns the banded kernel's launches."""
+    from gaussian_fluids_torch import advance_density3d
+    from gaussian_fluids_torch.io import vti
+    from gaussian_fluids_torch.ops import gsr_banded
+
+    gsr_banded.reset_launches()
+    t0 = time.perf_counter()
+    records = advance_density3d.main(
+        ["--init_cond", "ring_collide", "--dir", d, "--dt", str(DENSITY_DT),
+         "--density_res_multiplier", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gsr_banded.launches)
+    guard = gsr_banded.guard_failures()
+    volumes = {}
+    for tag in "ab":
+        for frame in range(3):
+            base = os.path.join(d, f"density_{tag}_{frame}")
+            small = os.path.join(d, f"density_small_{tag}_{frame}.npz")
+            if not os.path.exists(small):
+                raise AssertionError(f"missing {small}")
+            v = vti.read_vti_array(base + ".vti")
+            st = _volume_stats(v)
+            if v.shape != (128,) * 3 or not st["finite"] \
+                    or st["max"] > 1 + 1e-5 or st["mass"] <= 0:
+                raise AssertionError(f"{base}.vti: {v.shape} {st}")
+            volumes[f"{tag}{frame}"] = st
+    if [r["frame"] for r in records] != [1, 2] or guard:
+        raise AssertionError(f"replay frames {records}, guard {guard}")
+    emit({"phase": "density3d", "seconds": wall, "grid": [128] * 3,
+          "frames": records, "volumes": volumes, "guard_failures": guard,
+          "launches": launches})
+    return launches
+
+
+def check_density(d, device):
+    """The backtrace of 4096 seeded grid nodes of the 128^3 grid (up to
+    half inside the frame-1 smoke) through the banded kernel (the
+    replay's own stage function) against the dense plain backtrace in
+    float64 on frame 1's mixture, and the frame-1 density sampled at both
+    endpoints."""
+    from gaussian_fluids_torch.io import checkpoint, vti
+    from gaussian_fluids_torch.models.mixture import mixture_of
+    from gaussian_fluids_torch.ops import field, interp
+    from gaussian_fluids_torch.ops.advect import rk4_pos_stages
+    from gaussian_fluids_torch.scenes import get_scene_3d
+    from gaussian_fluids_torch.solver.simulate3d import (_stage_velocity,
+                                                         _suggest_band)
+    from gaussian_fluids_torch.utils.grids import grid_points_3d
+
+    t0 = time.perf_counter()
+    mix, spec = checkpoint.load_checkpoint(
+        os.path.join(d, "gaussian_velocity_1.pt"), device=device)
+    mix = mix.x_sorted()
+    domain = get_scene_3d("ring_collide").domain
+    dens = torch.as_tensor(vti.read_vti_array(
+        os.path.join(d, "density_a_1.vti")).copy(), device=device)
+    # up to half the nodes inside the smoke, the rest elsewhere; sorted
+    # node indices are x-sorted nodes
+    nodes = grid_points_3d(*domain, 128, 128, 128)
+    rng = np.random.RandomState(4)
+    inside = dens.reshape(-1).cpu().numpy() > 0
+    smoke = rng.choice(np.flatnonzero(inside), min(2048, int(inside.sum())),
+                       replace=False)
+    rest = rng.choice(np.flatnonzero(~inside), 4096 - smoke.size,
+                      replace=False)
+    pts = torch.as_tensor(nodes[np.sort(np.concatenate([smoke, rest]))],
+                          device=device)
+    band = _suggest_band(mix, spec, DENSITY_DT, chunk=pts.shape[0])
+    with torch.no_grad():
+        bk = rk4_pos_stages(_stage_velocity(mix, spec, band), pts,
+                            -DENSITY_DT)
+        m64 = mixture_of({k: p.double() for k, p in mix.params().items()},
+                         mix.alive)
+        f64 = lambda q: torch.cat([  # noqa: E731
+            field.value_dense(m64, spec, q[s:s + 512])
+            for s in range(0, q.shape[0], 512)])
+        bk64 = rk4_pos_stages(f64, pts.double(), -DENSITY_DT)
+    lo = torch.tensor(domain[0::2], device=device)
+    hi = torch.tensor(domain[1::2], device=device)
+    s32 = interp.trilinear_interp(
+        dens, torch.minimum(torch.maximum(bk, lo), hi), domain)
+    s64 = interp.trilinear_interp(
+        dens.double(), torch.minimum(torch.maximum(bk64, lo.double()),
+                                     hi.double()), domain)
+    pos_err = float((bk.double() - bk64).abs().max())
+    sample_err = float((s32.double() - s64).abs().max())
+    if not (pos_err <= DENSITY_TOL_POS and sample_err <= DENSITY_TOL_SAMPLE
+            and torch.isfinite(bk).all()):
+        raise AssertionError(f"backtrace err {pos_err}, sample err "
+                             f"{sample_err}")
+    emit({"phase": "check_density", "seconds": time.perf_counter() - t0,
+          "points": pts.shape[0], "band": band,
+          "max_abs_err_position": pos_err, "tolerance_position":
+          DENSITY_TOL_POS, "max_displacement": float(
+              (bk64 - pts.double()).abs().max()),
+          "max_abs_err_sample": sample_err,
+          "tolerance_sample": DENSITY_TOL_SAMPLE,
+          "sampled_nonzero": int((s64 > 0).sum())})
+
+
+def density_512(d, device):
+    """One density step at the production 512^3 grid (seconds per density
+    per frame; no guard failure allowed), the seconds of writing its .vti
+    as the replay writes it, and the card's busy share over a 128^3
+    step."""
+    from gaussian_fluids_torch.epoch_profile import profile_epoch
+    from gaussian_fluids_torch.io import checkpoint, vti
+    from gaussian_fluids_torch.ops import gsr_banded, interp
+    from gaussian_fluids_torch.scenes import get_scene_3d
+    from gaussian_fluids_torch.solver.simulate3d import (
+        DENSITY_CHUNK, _grid_chunks_device, _suggest_band, advected_density)
+
+    mix, spec = checkpoint.load_checkpoint(
+        os.path.join(d, "gaussian_velocity_1.pt"), device=device)
+    mix = mix.x_sorted()
+    scene = get_scene_3d("ring_collide")
+    domain = scene.domain
+    r = scene.info["ring1"]
+    t0 = time.perf_counter()
+    dens = interp.seed_ring_density((512,) * 3, domain, r.center, r.normal,
+                                    r.radius, r.thickness, device=device)
+    _grid_chunks_device(tuple(domain), (512,) * 3, DENSITY_CHUNK, device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    before = _volume_stats(dens.cpu().numpy())
+    n0, g0 = gsr_banded.launches["gsr_value_banded"], \
+        gsr_banded.guard_failures()
+    t0 = time.perf_counter()
+    out = advected_density(dens, mix, spec, domain, DENSITY_DT, (512,) * 3)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = gsr_banded.launches["gsr_value_banded"] - n0
+    guard = gsr_banded.guard_failures() - g0
+    host = out.cpu().numpy()
+    after = _volume_stats(host)
+    if not after["finite"] or after["max"] > 1 + 1e-5 or after["mass"] <= 0 \
+            or guard:
+        raise AssertionError(f"512^3 density: {after}, guard {guard}")
+    # the replay writes each 512^3 density as inline-base64 .vti on a
+    # background thread; time one such write (and its size) to set beside
+    # the step's seconds
+    lo, hi = np.asarray(domain[0::2]), np.asarray(domain[1::2])
+    with tempfile.TemporaryDirectory(dir=d) as tmp:
+        path = os.path.join(tmp, "density_512.vti")
+        t0 = time.perf_counter()
+        vti.write_vti_array(host, lo, (hi - lo) / 512, path)
+        write_seconds = time.perf_counter() - t0
+        write_bytes = os.path.getsize(path)
+    small = interp.seed_ring_density((128,) * 3, domain, r.center, r.normal,
+                                     r.radius, r.thickness, device=device)
+    prof = profile_epoch(lambda: advected_density(
+        small, mix, spec, domain, DENSITY_DT, (128,) * 3), 1)
+    emit({"phase": "density512", "seconds": seconds, "setup_seconds": setup,
+          "vti_write_seconds": write_seconds, "vti_bytes": write_bytes,
+          "grid": [512] * 3, "chunks": -(-512 ** 3 // DENSITY_CHUNK),
+          "band": _suggest_band(mix, spec, DENSITY_DT),
+          "launches": launches, "guard_failures": guard,
+          "before": before, "after": after,
+          "profile_128": {k: prof[k] for k in (
+              "ms_per_epoch", "device_ms_per_epoch", "device_busy_share",
+              "host_ops_per_epoch", "device_launches_per_epoch",
+              "top_kernels_ms_per_epoch")}})
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script runs only on a CUDA GPU")
-    from gaussian_fluids_torch.ops import cuda_build, gsr_cells, gsr_centered
+    from gaussian_fluids_torch.ops import (cuda_build, gsr_banded, gsr_cells,
+                                           gsr_centered)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -528,9 +804,11 @@ def main():
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    built = cuda_build.build(gsr_centered.SOURCE, gsr_cells.SOURCE)
+    built = cuda_build.build(gsr_centered.SOURCE, gsr_cells.SOURCE,
+                             gsr_banded.SOURCE)
     gsr_centered._lib()
     gsr_cells._lib()
+    gsr_banded._lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: os.path.relpath(p) for k, (p, _) in built.items()},
           "built_now": any(bool(log) for _, log in built.values()),
@@ -552,11 +830,23 @@ def main():
                                          "max_rel_err", "tolerance", "ms",
                                          "plain_ms", "bound_ms", "bound_by")}
                       for s in stats3.values()]})
+    t0 = time.perf_counter()
+    stats_d, shapes_d = kernel_phase_density(device)
+    emit({"phase": "kernels_density", "seconds": time.perf_counter() - t0,
+          "card": card, "shapes": shapes_d,
+          "kernels": [{k: s[k] for k in ("name", "max_abs_err",
+                                         "max_rel_err", "tolerance", "ms",
+                                         "plain_ms", "bound_ms", "bound_by")}
+                      for s in stats_d.values()]})
 
     tmp = tempfile.mkdtemp(prefix="gf_torch_smoke_")
     try:
         launches_2d = run_2d(os.path.join(tmp, "2d"))
         launches_3d = run_3d(os.path.join(tmp, "3d"))
+        ring = os.path.join(tmp, "3d", "ring_collide")
+        launches_density = run_density(ring)
+        check_density(ring, device)
+        density_512(ring, device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -564,12 +854,15 @@ def main():
         s["launches"] = launches_2d[name]
     for name, s in stats3.items():
         s["launches"] = launches_3d[name.split("[")[0]]
-    missing = [n for n, s in {**stats, **stats3}.items()
+    for name, s in stats_d.items():
+        s["launches"] = launches_density[name]
+    missing = [n for n, s in {**stats, **stats3, **stats_d}.items()
                if s["launches"] == 0]
     if missing:
         raise AssertionError(f"not launched on their main path: {missing}")
     print(f"total seconds: {time.perf_counter() - t_all:.1f}")
-    emit({"kernels": list(stats.values()) + list(stats3.values())})
+    emit({"kernels": list(stats.values()) + list(stats3.values())
+           + list(stats_d.values())})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Command-line flags of the entry points — the JAX package's
-``cli.parse_args_2d`` / ``parse_args_3d`` flag surface. Figures and volumes
-are not part of this port yet: it always runs as the JAX CLI does under
-``--no_viz``.
+``cli.parse_args_2d`` / ``parse_args_3d`` flag surface, with the same
+defaults. Figures and the frame loop's volumes are not part of this port
+yet: it always runs as the JAX CLI does under ``--no_viz``.
 """
 
 from __future__ import annotations
@@ -20,8 +20,10 @@ def _parser(dim: int) -> argparse.ArgumentParser:
     p.add_argument("--dir", type=str,
                    default="output_fast" if dim == 2 else "output_3d")
     p.add_argument("--start_frame", type=int, default=0)
-    p.add_argument("--init_cond", type=str, default="leapfrog",
-                   help="scene: leapfrog or taylor_green" if dim == 2 else
+    p.add_argument("--init_cond", type=str,
+                   default="taylor_vortex" if dim == 2 else "leapfrog",
+                   help="scene: taylor_vortex, leapfrog or taylor_green"
+                        if dim == 2 else
                         "scene: leapfrog, single_vortex_ring or "
                         "ring_collide")
     p.add_argument("--dt", type=float, default=0.01 if dim == 2 else 0.02)
@@ -30,8 +32,8 @@ def _parser(dim: int) -> argparse.ArgumentParser:
     if dim == 3:
         p.add_argument("--boundary", type=float, default=10.0)
         p.add_argument("--density_res_multiplier", type=int, default=4,
-                       help="accepted for compatibility: the density "
-                            "replay that reads it is not ported yet")
+                       help="density replay grid = visualize_res * this "
+                            "(4 gives ring_collide's 512^3)")
     p.add_argument("--target_grid", type=int, default=0,
                    help="cached covector-target grid; only 0 (exact "
                         "per-epoch targets) is ported")

@@ -4,7 +4,9 @@ parameter tensors (alive rows only, on the CPU) plus ``clamp_threshold``,
 ``min_grid_scale`` and ``domain_range`` (padded bounds interleaved as
 (x_min, x_max, y_min, y_max[, z_min, z_max])). Rotations are angles in 2D
 and quaternions (r, x, y, z) in 3D. Either package loads the other's
-files.
+``.pt`` files. Where the ``.pt`` is absent, ``load_checkpoint`` reads the
+``gaussian_velocity_{n}.pt.npz`` sidecar that the JAX package writes in
+its place when torch is not installed (the same keys, saved by numpy).
 """
 
 from __future__ import annotations
@@ -50,7 +52,10 @@ def save_checkpoint(path: str, mix: GaussianMixture, spec: FieldSpec) -> None:
 
 def load_checkpoint(path: str,
                     device="cuda") -> Tuple[GaussianMixture, FieldSpec]:
-    data = torch.load(path, map_location="cpu", weights_only=False)
+    if not os.path.exists(path) and os.path.exists(path + ".npz"):
+        data = dict(np.load(path + ".npz"))
+    else:
+        data = torch.load(path, map_location="cpu", weights_only=False)
 
     def get(k):
         v = data[k]

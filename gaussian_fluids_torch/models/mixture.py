@@ -150,6 +150,13 @@ class GaussianMixture:
         JAX package's production key; its Morton key is opt-in and not
         ported). Order is semantically irrelevant, but the tile mask only
         culls well when Gaussian tiles are thin x-slabs."""
+        return self.x_sorted()
+
+    def x_sorted(self) -> "GaussianMixture":
+        """Reorder by coordinate 0, dead rows last, whatever the dimension
+        and whatever order ``spatially_sorted`` takes: the order the banded
+        kernel (``ops/field.value_banded``) needs for a narrow band. The
+        density replay re-sorts each loaded checkpoint through this."""
         key = torch.where(self.alive, self.positions[:, 0], float("inf"))
         return self._reordered(torch.argsort(key, stable=True))
 

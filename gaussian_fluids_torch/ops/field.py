@@ -23,6 +23,12 @@ The centered and cells functions also run on the CPU (through the kernels'
 plain twins), which is how the tests hold them against the JAX Pallas
 kernels. ``need_dx`` is the JAX signature's: it is False where the caller
 never differentiates the query points, which no port path does.
+
+``value_banded`` is the density replay's own path, called by name as in
+the JAX package: value only, queries and Gaussians sorted along x, each
+query tile summing a window of ``band`` Gaussian tiles (the kernel of
+``ops/gsr_banded.py``), with a device-side guard that sweeps the whole
+axis when a window would miss a tile.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ import torch
 from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.models.mixture import (GaussianMixture,
                                                   mixture_of)
-from gaussian_fluids_torch.ops import gsr_cells, gsr_centered, spatial
+from gaussian_fluids_torch.ops import (gsr_banded, gsr_cells, gsr_centered,
+                                       spatial)
 from gaussian_fluids_torch.ops import rotations as rotations_ops
 from gaussian_fluids_torch.utils.grids import default_chunk
 
@@ -340,6 +347,95 @@ def _cells_value_jac(mix: GaussianMixture, spec: FieldSpec,
         val = val[inv]
         jac = jac[inv] if njac else None
     return val, jac
+
+
+# ---- banded value-only path (the density replay's CUDA kernel) ----
+
+def gaussian_tile_extents(mix: GaussianMixture, spec: FieldSpec, tn: int):
+    """(nlo, nhi): per tn-row Gaussian tile, the x-range its live rows
+    reach, each row dilated by its own support radius (+-inf for a tile
+    with no live row). Host-free: tensors on the mixture's device."""
+    with torch.no_grad():
+        nnt = -(-mix.capacity // tn)
+        dead = _pad_axis(~in_domain_mask(mix, spec), tn, fill=True) \
+            .reshape(nnt, tn)
+        mun = _pad_axis(mix.positions[:, 0], tn).reshape(nnt, tn)
+        r = support_radius(_pad_axis(mix.scalings, tn), spec.clamp_threshold) \
+            .reshape(nnt, tn)
+        nlo = torch.where(dead, _INF, mun - r).amin(dim=1)
+        nhi = torch.where(dead, -_INF, mun + r).amax(dim=1)
+    return nlo, nhi
+
+
+def band_window(x_p: torch.Tensor, b: int, nlo, nhi, band: int, tb: int):
+    """(jlo, ok) of the banded kernel, on the device: per query tile of
+    ``x_p`` (``b`` real rows) the first Gaussian tile whose x-range meets
+    the tile's, clipped into [0, nnt - band]; ``ok`` (int32, shape (1,))
+    is 1 iff every tile that meets a query tile lies in its window — the
+    JAX package's band guard (``field.value_banded``)."""
+    nbt, nnt = x_p.shape[0] // tb, nlo.shape[0]
+    xb = x_p[:, 0].reshape(nbt, tb)
+    valid = (torch.arange(x_p.shape[0], device=x_p.device) < b) \
+        .reshape(nbt, tb)
+    blo = torch.where(valid, xb, _INF).amin(dim=1)
+    bhi = torch.where(valid, xb, -_INF).amax(dim=1)
+    meet = ((bhi[:, None] >= nlo[None, :])
+            & (blo[:, None] <= nhi[None, :])).to(torch.int32)
+    jlo = meet.argmax(dim=1).clamp(0, nnt - band)
+    jhi = nnt - 1 - meet.flip(1).argmax(dim=1)
+    covered = ((meet.amax(dim=1) == 0) | (jhi < jlo + band)).all()
+    return jlo.to(torch.int32), covered.to(torch.int32).reshape(1)
+
+
+def banded_prep(mix: GaussianMixture, spec: FieldSpec):
+    """The Gaussian side of ``value_banded``, shared by every call on one
+    mixture (the replay's four RK4 stages of every chunk): the kernel's
+    transposed, TN-padded rows and the tiles' x extents."""
+    tn = gsr_banded.TN
+    with torch.no_grad():
+        mu_p, pp_p, v_p = _padded_param_rows(mix, spec, tn)
+        nlo, nhi = gaussian_tile_extents(mix, spec, tn)
+    return {"muT": mu_p.T.contiguous(), "ppT": pp_p.T.contiguous(),
+            "v": v_p.contiguous(), "nlo": nlo, "nhi": nhi,
+            "d": mix.d, "clamp": spec.clamp_threshold}
+
+
+@torch.no_grad()
+def value_banded_prepped(prep, x: torch.Tensor, band: int,
+                         presorted: bool = False) -> torch.Tensor:
+    """``value_banded`` on a ``banded_prep``."""
+    if x.dim() != 2 or x.shape[1] != prep["d"]:
+        raise ValueError(f"query points must have shape (B, {prep['d']}); "
+                         f"got {tuple(x.shape)}")
+    tb = gsr_banded.TB
+    b = x.shape[0]
+    inv = None
+    if not presorted:
+        order = torch.argsort(x[:, 0], stable=True)
+        inv = torch.argsort(order)
+        x = x[order]
+    x_p = _pad_axis(x, tb).contiguous()
+    band = min(band, prep["nlo"].shape[0])
+    jlo, ok = band_window(x_p, b, prep["nlo"], prep["nhi"], band, tb)
+    out = gsr_banded.gsr_value_banded(
+        jlo, ok, x_p, prep["muT"], prep["ppT"], prep["v"], prep["clamp"],
+        band)[:b]
+    return out if inv is None else out[inv]
+
+
+def value_banded(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
+                 band: int, presorted: bool = False) -> torch.Tensor:
+    """Value through the banded value-only kernel, for huge spatially
+    coherent query sets (the density backtrace); no gradients. The
+    mixture must be x-sorted (``x_sorted``) for a narrow band to cover.
+    Queries are sorted along x here unless ``presorted``; query tile i sums
+    the ``band`` Gaussian tiles from its first x-overlapping one. An
+    insufficient band is safe: the guard, computed on the device, makes the
+    kernel sweep the whole axis for the call (exact, never a dropped
+    contribution). Tiles and band are the CUDA kernel's (``gsr_banded.TB``,
+    ``TN``), on the CPU too."""
+    _check_queries(mix, x)
+    return value_banded_prepped(banded_prep(mix, spec), x, band, presorted)
 
 
 # ---- dispatch ----

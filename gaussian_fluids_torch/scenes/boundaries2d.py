@@ -44,6 +44,6 @@ def make_samplers(name, info, scaling_factor):
         u = torch.rand((n,), generator=gen, device=adv.device)
         return sample_on_domain_boundary_2(u, adv, scaling_factor)
 
-    if name in ("taylor_green", "leapfrog"):
+    if name in ("taylor_green", "taylor_vortex", "leapfrog"):
         return None, domain_only_2
     raise KeyError(f"2D scene {name!r} is not ported yet")

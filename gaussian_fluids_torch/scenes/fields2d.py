@@ -41,6 +41,19 @@ def taylor_green_jac_closed(x):
                         torch.stack([-g01, -g00], dim=-1)], dim=-2)
 
 
+def taylor_vortex_single(x, info):
+    """Two Gaussian vortices (reference 2D/init_cond.py:169-191)."""
+    U, a = info["U"], info["a"]
+    out = 0.0
+    for key in ("vortex_pos1", "vortex_pos2"):
+        x0 = info[key]
+        dx = torch.stack([x[0] - x0[0], x[1] - x0[1]])
+        r2 = (dx * dx).sum()
+        coef = U / a * torch.exp(0.5 * (1.0 - r2 / a ** 2))
+        out = out + coef * torch.stack([-dx[1], dx[0]])
+    return out
+
+
 def leapfrog_single(x, info):
     """Four regularized point vortices."""
     U, a = info["U"], info["a"]
@@ -55,6 +68,8 @@ def make_field(name, info):
     """(value_fn, jac_fn) batched over (B, 2) points."""
     if name == "taylor_green":
         return batched(taylor_green_single)
+    if name == "taylor_vortex":
+        return batched(partial(taylor_vortex_single, info=info))
     if name == "leapfrog":
         return batched(partial(leapfrog_single, info=info))
     raise KeyError(f"2D field {name!r} is not ported yet")

@@ -1,6 +1,7 @@
 """2D scene registry: domains, particle counts, physics constants, fields
 and boundary samplers. The data are the JAX package's (reference
-2D/init_cond.py); this slice ports ``leapfrog`` and ``taylor_green``.
+2D/init_cond.py); the port has ``taylor_vortex``, ``leapfrog`` and
+``taylor_green``.
 """
 
 from __future__ import annotations
@@ -15,12 +16,19 @@ PI = math.pi
 
 _INITIALIZE_DOMAIN = {
     "taylor_green": (0.0, 2.0 * PI, 0.0, 2.0 * PI),
+    "taylor_vortex": (-5.0, 5.0, -5.0, 5.0),
     "leapfrog": (-5.0, 5.0, -5.0, 5.0),
 }
-_PARTICLE_COUNT = {"taylor_green": (24, 24), "leapfrog": (71, 71)}
-_VISUALIZE_RES = {"taylor_green": (200, 200), "leapfrog": (200, 200)}
+_PARTICLE_COUNT = {"taylor_green": (24, 24), "taylor_vortex": (71, 71),
+                   "leapfrog": (71, 71)}
+_VISUALIZE_RES = {"taylor_green": (200, 200), "taylor_vortex": (200, 200),
+                  "leapfrog": (200, 200)}
 _OTHER_INFO = {
     "taylor_green": {},
+    "taylor_vortex": {
+        "U": 3.0, "a": 0.5,
+        "vortex_pos1": (-0.8, 0.0), "vortex_pos2": (0.8, 0.0),
+    },
     "leapfrog": {
         "U": 0.5, "a": 0.3,
         "vortex_pos1": (-3.0, -3.0), "vortex_pos2": (-1.0, -3.0),

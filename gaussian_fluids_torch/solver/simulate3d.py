@@ -1,27 +1,32 @@
-"""3D end-to-end flows: initialization and the frame loop
-clone -> advect -> project -> save, as in the JAX package's
-``solver/simulate3d.py`` run with ``viz=False`` (the VTI volumes and loss
-plots are not ported yet).
+"""3D end-to-end flows: initialization, the frame loop
+clone -> advect -> project -> save, and the offline smoke-density replay,
+as in the JAX package's ``solver/simulate3d.py`` run with ``viz=False``
+(the frame loop's VTI volumes and loss plots are not ported yet).
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import threading
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from gaussian_fluids_torch.config import FieldSpec
-from gaussian_fluids_torch.io import checkpoint
+from gaussian_fluids_torch.io import checkpoint, vti
 from gaussian_fluids_torch.models.mixture import GaussianMixture
+from gaussian_fluids_torch.ops import field, gsr_banded, interp
+from gaussian_fluids_torch.ops.advect import rk4_pos_stages
 from gaussian_fluids_torch.scenes import get_scene_3d
 from gaussian_fluids_torch.solver.advect_field import advect_covector_field_3d
 from gaussian_fluids_torch.solver.clone import clone_velocity_field
 from gaussian_fluids_torch.solver.fit import fit_velocity_with_gradient
 from gaussian_fluids_torch.solver.project import ProjectWeights, project_3d
 from gaussian_fluids_torch.solver.simulate2d import _generator
-from gaussian_fluids_torch.utils.grids import grid_points_3d
+from gaussian_fluids_torch.utils.grids import axis_nodes, grid_points_3d
 
 FIT_LRS_3D = {"positions": 1e-3, "scalings": 1e-3, "rotations": 1e-3,
               "values": 1e-3}
@@ -113,3 +118,334 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
         cnt += 1
         t += dt
     return mix, spec, frames
+
+
+# ---- offline smoke replay (reference 3D/advance_density.py) ----
+
+DENSITY_CHUNK = 262144   # grid nodes per chunk: one x-plane of the 512^3 grid
+
+
+@functools.lru_cache(maxsize=2)
+def _grid_chunks_device(domain: tuple, grid_shape: tuple, chunk: int,
+                        device: torch.device):
+    """(chunks, true count): the grid nodes of ``grid_points_3d`` built on
+    ``device``, padded to whole chunks by repeating the last node and
+    split into views. The grid is x-slowest, so the padded array stays
+    sorted by x and the banded sweep runs presorted. Constant across frames
+    and densities, so built once (a 512^3 grid is 1.6 GB)."""
+    axes = [torch.as_tensor(axis_nodes(domain[2 * i], domain[2 * i + 1], s),
+                            device=device)
+            for i, s in enumerate(grid_shape)]
+    pts = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1) \
+        .reshape(-1, 3)
+    n = pts.shape[0]
+    pad = (-n) % chunk
+    if pad:
+        pts = torch.cat([pts, pts[-1:].expand(pad, 3)])
+    return pts.split(chunk), n
+
+
+def _suggest_band(mix: GaussianMixture, spec: FieldSpec, dt,
+                  chunk: int = DENSITY_CHUNK) -> int:
+    """The band of ``field.value_banded`` for this mixture: the widest
+    window of Gaussian tiles that one query tile can meet, with a drift
+    margin for the RK4 stage excursions. The JAX package computes it for
+    its TPU tiles (tb = 1024, tn = 512); this computes it for the CUDA
+    kernel's tiles (``gsr_banded.TB``, ``TN``) by the same scan, over the
+    tile x extents the device guard holds the band to
+    (``field.gaussian_tile_extents``: each row dilated by its own radius,
+    where the JAX package dilates a tile by its largest). It is not
+    rounded up to a multiple of 8 as the JAX package rounds it (there, to
+    avoid recompiles; the CUDA kernel takes the band at run time). A band
+    that turns out too narrow for some stage is caught by the device guard
+    and swept in full, never a wrong answer. ``chunk`` is the number of
+    points the banded evaluation is called with."""
+    nlo, nhi = (e.cpu().numpy() for e in field.gaussian_tile_extents(
+        mix, spec, gsr_banded.TN))
+    nnt = nlo.shape[0]
+    L = max(spec.hi[i] - spec.lo[i] for i in range(spec.d))
+    # a query tile of TB of a chunk-point coordinate-sorted batch spans
+    # ~tb/chunk of the domain for near-uniform points (4x slop); the drift
+    # margin covers the RK4 stage excursions of O(1)-velocity flows
+    margin = 0.05 * L + 2.0 * abs(float(dt))
+    wB = min(L, 4.0 * L * gsr_banded.TB / chunk) + margin
+    # widest window over every query interval [a, a + wB], with tile edges
+    # as the candidate starts
+    starts = np.concatenate([nlo, nhi]) - wB
+    meet = (nhi[None, :] >= starts[:, None]) \
+        & (nlo[None, :] <= (starts + wB)[:, None])
+    any_row = meet.any(1)
+    first = meet.argmax(1)
+    last = nnt - 1 - meet[:, ::-1].argmax(1)
+    width = max(1, int((last - first + 1)[any_row].max(initial=1)))
+    return min(nnt, width + 2)
+
+
+# Query rows per dense evaluation on the CPU: bounds its (rows, N) planes.
+_DENSE_PAIRS = 1 << 22
+
+
+def _stage_velocity(mix: GaussianMixture, spec: FieldSpec, band):
+    """f(points) -> velocities for the RK4 stages of a density step: the
+    banded kernel on the card (points presorted along x), the dense field
+    in row blocks on the CPU."""
+    if mix.device.type == "cuda":
+        prep = field.banded_prep(mix, spec)
+        return lambda q: field.value_banded_prepped(prep, q, band,
+                                                    presorted=True)
+    rows = max(1, _DENSE_PAIRS // mix.capacity)
+    return lambda q: torch.cat([
+        field.value(mix, spec, q[s:s + rows], need_dx=False)
+        for s in range(0, q.shape[0], rows)])
+
+
+@torch.no_grad()
+def advected_density(density: torch.Tensor, mix: GaussianMixture,
+                     spec: FieldSpec, domain, dt, grid_shape,
+                     chunk: int = DENSITY_CHUNK,
+                     band: Optional[int] = None) -> torch.Tensor:
+    """One semi-Lagrangian step: RK4-backtrace every grid node through the
+    velocity field, clamp to the domain, and trilinearly sample the old
+    density (reference 3D/advance_density.py:52-59).
+
+    On the card the stages go through the banded value kernel
+    (``field.value_banded``): grid chunks are x-sorted, so each query tile
+    visits only a window of Gaussian tiles; ``band`` is ``_suggest_band``'s
+    when None, and ``mix`` must be x-sorted. On the CPU the dense field
+    runs on the JAX package's N-bounded chunk. Every chunk is dispatched
+    before anything is read back; the result stays on the device."""
+    xn, yn, zn = grid_shape
+    dev = mix.device
+    if dev.type == "cuda":
+        if band is None:
+            band = _suggest_band(mix, spec, dt, chunk=chunk)
+    else:
+        # the JAX package's N-bounded CPU chunk, floored to a power of two
+        # so it stays stable while the capacity drifts over a replay
+        cap_chunk = max(4096, (1 << 29) // max(mix.capacity, 1))
+        chunk = min(chunk, 1 << (cap_chunk.bit_length() - 1))
+    f = _stage_velocity(mix, spec, band)
+    lo = torch.tensor(domain[0::2], dtype=torch.float32, device=dev)
+    hi = torch.tensor(domain[1::2], dtype=torch.float32, device=dev)
+    xcs, n = _grid_chunks_device(tuple(domain), tuple(grid_shape), chunk,
+                                 dev)
+    density = density.to(dev)
+    outs = []
+    for xc in xcs:
+        bk = torch.minimum(torch.maximum(rk4_pos_stages(f, xc, -dt), lo), hi)
+        outs.append(interp.trilinear_interp(density, bk, domain))
+    return torch.cat(outs)[:n].reshape(xn, yn, zn)
+
+
+@torch.no_grad()
+def advected_density_n(density0: torch.Tensor, out_dir: str, spec_domain,
+                       dt, n_frames: int, grid_shape,
+                       chunk: int = DENSITY_CHUNK) -> torch.Tensor:
+    """Multi-frame re-trace variant (reference 3D/advance_density.py:61-71,
+    unused by default): walk the grid nodes back through all ``n_frames``
+    saved velocity checkpoints, then sample the INITIAL density once. Runs
+    on the device of ``density0``."""
+    xn, yn, zn = grid_shape
+    dev = density0.device
+    x = torch.as_tensor(grid_points_3d(*spec_domain, xn, yn, zn), device=dev)
+    n = x.shape[0]
+    for i in range(n_frames - 1, -1, -1):
+        mix, spec = checkpoint.load_checkpoint(
+            os.path.join(out_dir, f"gaussian_velocity_{i}.pt"), device=dev)
+        mix = mix.x_sorted()
+        band, fchunk = None, chunk
+        if dev.type == "cuda":
+            band = _suggest_band(mix, spec, dt, chunk=chunk)
+        else:
+            fchunk = min(chunk, max(4096, (1 << 29) // max(mix.capacity, 1)))
+        f = _stage_velocity(mix, spec, band)
+        outs = []
+        for s in range(0, n, fchunk):
+            xc = x[s:s + fchunk]
+            # the banded kernel wants x-sorted queries: sort each chunk
+            order = torch.argsort(xc[:, 0], stable=True)
+            bk = torch.empty_like(xc)
+            bk[order] = rk4_pos_stages(f, xc[order], -dt)
+            outs.append(bk)
+        x = torch.cat(outs)
+    lo = torch.tensor(spec_domain[0::2], dtype=torch.float32, device=dev)
+    hi = torch.tensor(spec_domain[1::2], dtype=torch.float32, device=dev)
+    x = torch.minimum(torch.maximum(x, lo), hi)
+    return interp.trilinear_interp(density0, x, spec_domain) \
+        .reshape(xn, yn, zn)
+
+
+def _write_density_small(host: np.ndarray, origin, spacing, path):
+    """Mean-pool the full-resolution density to <= 64 cells per axis and
+    save it as a compressed float16 .npz next to the .vti (~100s of KB
+    against 512 MB at 512^3): the small durable record of a replay. Mass is
+    kept exactly, moments to the pooled cells' resolution. Refuses a shape
+    its pool factors do not divide, which would drop edge planes."""
+    factors = [-(-s // 64) for s in host.shape]
+    for s, f in zip(host.shape, factors):
+        if s % f:
+            raise ValueError(
+                f"density shape {host.shape} not divisible by pooling "
+                f"factors {factors}; mean-pooling would drop edge planes")
+    v = host.reshape(
+        host.shape[0] // factors[0], factors[0],
+        host.shape[1] // factors[1], factors[1],
+        host.shape[2] // factors[2], factors[2]).mean(axis=(1, 3, 5))
+    np.savez_compressed(
+        path, density=v.astype(np.float16),
+        origin=np.asarray(origin, np.float64),
+        spacing=np.asarray(
+            [sp * f for sp, f in zip(spacing, factors)], np.float64),
+        full_shape=np.asarray(host.shape, np.int64))
+
+
+class _AsyncVtiWriter:
+    """Single-slot pipelined volume writer: the copy to the host is queued
+    on the device right after the density it copies (into pinned memory,
+    so the host does not wait), and a background thread waits for it and
+    writes the files while the next density's chunks run. At most one
+    extra host volume is alive at a time."""
+
+    def __init__(self):
+        self._pending = None
+        self._error = None
+
+    def submit(self, volume: torch.Tensor, origin, spacing, path,
+               small_path=None):
+        self.drain()
+        if volume.is_cuda:
+            host = torch.empty(volume.shape, dtype=volume.dtype,
+                               pin_memory=True)
+            host.copy_(volume, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host, done = volume, None
+
+        def work():
+            try:
+                if done is not None:
+                    done.synchronize()
+                arr = host.numpy()
+                vti.write_vti_array(arr, origin, spacing, path)
+                if small_path is not None:
+                    _write_density_small(arr, origin, spacing, small_path)
+            except BaseException as e:  # re-raised on the caller's thread
+                self._error = e
+
+        self._pending = threading.Thread(target=work)
+        self._pending.start()
+
+    def drain(self):
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
+
+
+class _Clock:
+    """Seconds between marks: CUDA events on the card (read once, after
+    the work is done; nothing waits while marking), the host clock on the
+    CPU."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._marks = []
+
+    def mark(self) -> int:
+        """Records a mark; returns its index."""
+        if self._cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._marks.append(ev)
+        else:
+            self._marks.append(time.perf_counter())
+        return len(self._marks) - 1
+
+    def seconds(self, i: int) -> float:
+        """From mark i to mark i + 1 (synchronises on the card)."""
+        a, b = self._marks[i], self._marks[i + 1]
+        if self._cuda:
+            b.synchronize()
+            return a.elapsed_time(b) / 1e3
+        return b - a
+
+
+def advance_density(init_cond: str, out_dir: str, dt: float,
+                    res_multiplier: int = 4, grid_res=None,
+                    verbose: int = 1, start_frame: int = 0,
+                    device="cuda"):
+    """Replay loop: seed ring densities, then for every saved frame advect
+    each density one step and write ``density_{tag}_{frame}.vti`` with its
+    pooled ``density_small_{tag}_{frame}.npz`` (reference
+    3D/advance_density.py:87-120). Every scene ``Ring`` seeds one density
+    (ring1 -> a, ring2 -> b, ...), identical to the reference for
+    ring_collide. The grid is ``visualize_res * res_multiplier`` (512^3 by
+    default); ``grid_res`` overrides it. ``start_frame`` resumes from the
+    replay's own ``density_{tag}_{start_frame}.vti``. Returns one record per
+    advected frame: its number, the band (None on the CPU) and the seconds
+    per density."""
+    from gaussian_fluids_torch.scenes.fields3d import Ring
+    device = torch.device(device)
+    scene = get_scene_3d(init_cond)
+    domain = scene.domain
+    xn, yn, zn = grid_res or tuple(r * res_multiplier
+                                   for r in scene.visualize_res)
+    rings = [scene.info[k] for k in sorted(scene.info)
+             if isinstance(scene.info[k], Ring)]
+    if not rings:
+        raise NotImplementedError(
+            f"scene '{init_cond}' defines no rings to seed densities from")
+    tags = [chr(ord("a") + i) for i in range(len(rings))]
+    spacing = tuple((domain[2 * i + 1] - domain[2 * i]) / s
+                    for i, s in enumerate((xn, yn, zn)))
+    origin = (domain[0], domain[2], domain[4])
+    writer = _AsyncVtiWriter()
+
+    def submit(tag, frame, volume):
+        writer.submit(volume, origin, spacing,
+                      os.path.join(out_dir, f"density_{tag}_{frame}.vti"),
+                      os.path.join(out_dir,
+                                   f"density_small_{tag}_{frame}.npz"))
+
+    if start_frame > 0:
+        frame = start_frame
+        dens = [torch.as_tensor(vti.read_vti_array(os.path.join(
+            out_dir, f"density_{tag}_{frame}.vti")).copy(), device=device)
+            for tag in tags]
+    else:
+        frame = 0
+        dens = [interp.seed_ring_density((xn, yn, zn), domain, r.center,
+                                         r.normal, r.radius, r.thickness,
+                                         device=device)
+                for r in rings]
+        for tag, d in zip(tags, dens):
+            submit(tag, frame, d)
+    records = []
+    clock = _Clock(device)
+    while True:
+        path = os.path.join(out_dir, f"gaussian_velocity_{frame}.pt")
+        if not os.path.exists(path):
+            break
+        mix, spec = checkpoint.load_checkpoint(path, device=device)
+        mix = mix.x_sorted()   # the banded kernel's window needs x-order
+        band = (_suggest_band(mix, spec, dt) if device.type == "cuda"
+                else None)
+        frame += 1
+        marks = {}
+        for i, tag in enumerate(tags):
+            marks[tag] = clock.mark()
+            dens[i] = advected_density(dens[i], mix, spec, domain, dt,
+                                       (xn, yn, zn), band=band)
+            clock.mark()
+            submit(tag, frame, dens[i])
+        records.append({"frame": frame, "band": band, "marks": marks})
+        if verbose:
+            print(f"Frame {frame} finished.", flush=True)
+    writer.drain()
+    for rec in records:
+        rec["seconds"] = {tag: clock.seconds(m)
+                          for tag, m in rec.pop("marks").items()}
+    return records

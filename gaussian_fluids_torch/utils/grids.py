@@ -17,18 +17,23 @@ def sweep_group(n: int, b: int, cap: int = 262144) -> int:
     return g
 
 
+def axis_nodes(lo: float, hi: float, n: int) -> np.ndarray:
+    """(n,) f32 nodes of one grid axis, endpoints included."""
+    return np.linspace(lo, hi, n, dtype=np.float32)
+
+
 def grid_points_2d(x_min, x_max, y_min, y_max, x_n, y_n) -> np.ndarray:
-    xs = np.linspace(x_min, x_max, x_n, dtype=np.float32)
-    ys = np.linspace(y_min, y_max, y_n, dtype=np.float32)
+    xs = axis_nodes(x_min, x_max, x_n)
+    ys = axis_nodes(y_min, y_max, y_n)
     X, Y = np.meshgrid(xs, ys, indexing="xy")
     return np.stack([X, Y], axis=-1).reshape(-1, 2)
 
 
 def grid_points_3d(x_min, x_max, y_min, y_max, z_min, z_max,
                    x_n, y_n, z_n) -> np.ndarray:
-    xs = np.linspace(x_min, x_max, x_n, dtype=np.float32)
-    ys = np.linspace(y_min, y_max, y_n, dtype=np.float32)
-    zs = np.linspace(z_min, z_max, z_n, dtype=np.float32)
+    xs = axis_nodes(x_min, x_max, x_n)
+    ys = axis_nodes(y_min, y_max, y_n)
+    zs = axis_nodes(z_min, z_max, z_n)
     X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
     return np.stack([X, Y, Z], axis=-1).reshape(-1, 3)
 

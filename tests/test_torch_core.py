@@ -126,3 +126,27 @@ def test_checkpoints_load_across(tmp_path, direction):
         np.testing.assert_array_equal(np.asarray(getattr(got, k)),
                                       np.asarray(getattr(want, k)),
                                       err_msg=k)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_checkpoint_sidecar_loads_as_in_jax(tmp_path, d):
+    """A checkpoint the JAX package saved where torch was absent: numpy's
+    ``gaussian_velocity_{n}.pt.npz`` with the same keys, and no ``.pt``
+    (its io/checkpoint.py:60-71). The port loads it as the JAX package
+    does."""
+    from torch_parity import jax_mixture_3d
+    jm, spec = jax_mixture(300, seed=9) if d == 2 else jax_mixture_3d(300, 9)
+    path = os.path.join(tmp_path, "gaussian_velocity_4.pt")
+    with open(path + ".npz", "wb") as fd:
+        np.savez(fd, **jm.to_param_dict(),
+                 clamp_threshold=spec.clamp_threshold,
+                 min_grid_scale=spec.min_grid_scale,
+                 domain_range=np.asarray(jckpt._domain_range(spec)))
+    assert not os.path.exists(path)
+    got, got_spec = tckpt.load_checkpoint(path, device="cpu")
+    want, want_spec = jckpt.load_checkpoint(path)
+    assert got_spec.__dict__ == want_spec.__dict__
+    for k in ("positions", "scalings", "rotations", "values", "alive"):
+        np.testing.assert_array_equal(np.asarray(getattr(got, k)),
+                                      np.asarray(getattr(want, k)),
+                                      err_msg=k)

@@ -1,9 +1,12 @@
 """On the card only: each CUDA kernel of the port against its plain
 PyTorch version — the centered kernels at Leapfrog-2D shapes and at d = 3,
 the work-list (cells) kernels at Ring-Collide shapes (B = 8192, N =
-75,776), with their overflow branch — the wrappers' refusals, the field
-through the kernels, and one fit, clone and projection epoch, 2D and 3D,
-through the kernels against the dense path in float64. Skips without a
+75,776), with their overflow branch, and the banded value kernel of the
+density replay at its production chunk (262,144 grid nodes), with its
+guard's full sweep — the wrappers' refusals, the field through the
+kernels, one fit, clone and projection epoch, 2D and 3D, through the
+kernels against the dense path in float64, and the replay's RK4 backtrace
+through the banded kernel against the dense one in float64. Skips without a
 GPU. Imports neither JAX nor the JAX package, so it runs on the card's
 machine:
 
@@ -21,8 +24,11 @@ import torch
 from gaussian_fluids_torch.utils.seeded_state import (leapfrog_state,
                                                       ring_collide_state)
 from gaussian_fluids_torch.ops import field as tf
+from gaussian_fluids_torch.ops import gsr_banded as tb
 from gaussian_fluids_torch.ops import gsr_cells as tc
 from gaussian_fluids_torch.ops import gsr_centered as tk
+from gaussian_fluids_torch.solver import simulate3d as tsim
+from gaussian_fluids_torch.utils.grids import axis_nodes
 
 from torch_parity import (EPOCH_KINDS, EPOCH_KINDS_3D,  # noqa: F401
                           assert_epochs_agree, cuda_device, one_epoch_runs,
@@ -236,3 +242,97 @@ def test_epoch_3d_through_kernels_matches_dense_f64(cuda_device, monkeypatch,
     assert_epochs_agree(cells, dense, 1e-5)
     assert_epochs_agree(centered, dense, 1e-5)
     assert_epochs_agree(cells, cells_sorted, 1e-5)
+
+
+# ---- the banded value kernel of the density replay ----
+
+def _plane(device, x0, n=512):
+    """The n^2 nodes of one x-plane of the n^3 grid over [0, 1]^3: one
+    production chunk of the replay at n = 512."""
+    g = torch.as_tensor(axis_nodes(0.0, 1.0, n), device=device)
+    Y, Z = torch.meshgrid(g, g, indexing="ij")
+    return torch.stack([torch.full_like(Y, x0), Y, Z], -1).reshape(-1, 3)
+
+
+def _banded(device, seed=87):
+    mix, spec, _ = ring_collide_state(device, seed=seed)
+    mix = mix.x_sorted()
+    return mix, spec, tf.banded_prep(mix, spec), \
+        tsim._suggest_band(mix, spec, 0.02)
+
+
+def _banded_call(prep, x, band, kernel=True):
+    jlo, ok = tf.band_window(x, x.shape[0], prep["nlo"], prep["nhi"], band,
+                             tb.TB)
+    f = tb.gsr_value_banded if kernel else tb.value_banded_plain
+    return f(jlo, ok, x, prep["muT"], prep["ppT"], prep["v"],
+             prep["clamp"], band), int(ok)
+
+
+@pytest.mark.parametrize("where", ["plane", "stage"])
+def test_banded_kernel_matches_plain(cuda_device, where):
+    """A 262,144-node chunk at Ring-Collide width, on the grid plane and
+    moved as an RK4 stage moves it (x + dt/2 u, no longer one plane, not
+    re-sorted): kernel and plain twin within 1e-4 of the largest entry."""
+    mix, spec, prep, band = _banded(cuda_device)
+    x = _plane(cuda_device, 0.4985)
+    if where == "stage":
+        u = tf.value_banded_prepped(prep, x, band, presorted=True)
+        x = (x - 0.01 * u).contiguous()
+    got, ok = _banded_call(prep, x, band)
+    want, _ = _banded_call(prep, x, band, kernel=False)
+    assert ok == 1
+    assert float(want.abs().max()) > 0
+    _close([got], [want])
+
+
+def test_banded_guard_sweep_is_bitwise(cuda_device):
+    """Band 1 fails the device guard: the kernel sweeps the whole axis,
+    bitwise equal to the sufficient band's output, and counts it."""
+    mix, spec, prep, band = _banded(cuda_device, seed=88)
+    x = _plane(cuda_device, 0.25)
+    tb.reset_launches()
+    want, ok = _banded_call(prep, x, band)
+    got, ok1 = _banded_call(prep, x, 1)
+    assert (ok, ok1) == (1, 0)
+    assert torch.equal(got, want)
+    assert tb.guard_failures() == 1 and tb.launches["gsr_value_banded"] == 2
+
+
+def test_banded_wrapper_refuses(cuda_device):
+    mix, spec, prep, band = _banded(cuda_device)
+    x = _plane(cuda_device, 0.5, n=64)
+    jlo, ok = tf.band_window(x, x.shape[0], prep["nlo"], prep["nhi"], band,
+                             tb.TB)
+    args = (prep["muT"], prep["ppT"], prep["v"], prep["clamp"])
+    with pytest.raises(ValueError):          # starts for other tiles
+        tb.gsr_value_banded(jlo[::2].contiguous(), ok, x, *args, band)
+    with pytest.raises(ValueError):          # wrong dtype
+        tb.gsr_value_banded(jlo.long(), ok, x, *args, band)
+    with pytest.raises(ValueError):          # band wider than the axis
+        tb.gsr_value_banded(jlo, ok, x, *args, prep["nlo"].shape[0] + 1)
+    with pytest.raises(ValueError):          # not contiguous
+        tb.gsr_value_banded(jlo, ok, torch.cat([x, x], 1)[:, ::2], *args,
+                            band)
+
+
+def test_density_backtrace_through_kernel_matches_dense_f64(cuda_device):
+    """The replay's RK4 stage function on the card (the banded kernel)
+    against the dense field in float64 on 4096 x-sorted points of a
+    Leapfrog-3D-sized state: endpoints within 1e-5 in domain units."""
+    mix, spec, _ = ring_collide_state(cuda_device, seed=89, side=10)
+    mix = mix.x_sorted()
+    x = torch.as_tensor(np.sort(np.random.RandomState(90).uniform(
+        0, 1, (4096, 3)).astype(np.float32), axis=0), device=cuda_device)
+    band = tsim._suggest_band(mix, spec, 0.02, chunk=4096)
+    tb.reset_launches()
+    with torch.no_grad():
+        got = tsim.rk4_pos_stages(tsim._stage_velocity(mix, spec, band), x,
+                                  -0.02)
+        m64 = tf.mixture_of({k: p.double() for k, p in
+                             mix.params().items()}, mix.alive)
+        want = tsim.rk4_pos_stages(
+            lambda q: tf.value_dense(m64, spec, q), x.double(), -0.02)
+    assert tb.launches["gsr_value_banded"] == 4
+    assert float((got.double() - want).abs().max()) <= 1e-5
+    assert float((want - x.double()).abs().max()) > 1e-4   # it moved

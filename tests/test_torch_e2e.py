@@ -125,3 +125,39 @@ def test_entry_point_flags(capsys):
                  ["--profile", "/tmp/p"]):
         with pytest.raises(SystemExit):
             advance2d.main(["--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_parsers_give_the_jax_defaults(dim):
+    """Every flag of the port's 2D and 3D parsers defaults as the JAX
+    package's does (its parser is built without ``parse_args_*``, which
+    would also set up JAX's compilation cache)."""
+    import argparse
+    from gaussian_fluids_torch import cli as tcli
+    from gaussian_fluids_tpu import cli as jcli
+    want = vars(jcli._common(argparse.ArgumentParser(), dim).parse_args([]))
+    assert vars(tcli._parser(dim).parse_args([])) == want
+    assert want["init_cond"] == ("taylor_vortex" if dim == 2 else
+                                 "leapfrog")
+
+
+def test_density_entry_point_flags(monkeypatch):
+    """``-m gaussian_fluids_torch.advance_density3d`` hands the replay its
+    flags, and refuses the flags the port has not got."""
+    from gaussian_fluids_torch import advance_density3d
+    seen = {}
+    monkeypatch.setattr(advance_density3d, "advance_density",
+                        lambda *a, **k: seen.update(args=a, kw=k))
+    advance_density3d.main(["--device", "cpu", "--init_cond",
+                            "ring_collide", "--dir", "D", "--dt", ".05",
+                            "--density_res_multiplier", "2",
+                            "--start_frame", "3"])
+    assert seen["args"] == ("ring_collide", "D", 0.05)
+    assert seen["kw"] == {"res_multiplier": 2, "start_frame": 3,
+                          "device": "cpu"}
+    advance_density3d.main([])
+    assert seen["kw"]["res_multiplier"] == 4
+    assert seen["kw"]["device"] == "cuda:0"
+    for flag in (["--mesh", "2"], ["--profile", "/tmp/p"]):
+        with pytest.raises(SystemExit):
+            advance_density3d.main(["--device", "cpu"] + flag)

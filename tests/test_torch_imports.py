@@ -49,8 +49,13 @@ def test_guard_sees_the_whole_package():
             "gaussian_fluids_torch/ops/spatial.py",
             "gaussian_fluids_torch/solver/project.py",
             "gaussian_fluids_torch/solver/simulate3d.py",
-            "gaussian_fluids_torch/scenes/fields3d.py"} <= rel
-    for src in ("gsr_centered.cu", "gsr_cells.cu", "gsr_tile.cuh"):
+            "gaussian_fluids_torch/scenes/fields3d.py",
+            "gaussian_fluids_torch/ops/gsr_banded.py",
+            "gaussian_fluids_torch/ops/interp.py",
+            "gaussian_fluids_torch/io/vti.py",
+            "gaussian_fluids_torch/advance_density3d.py"} <= rel
+    for src in ("gsr_centered.cu", "gsr_cells.cu", "gsr_banded.cu",
+                "gsr_tile.cuh"):
         assert os.path.exists(os.path.join(PKG, "csrc", src))
 
 
@@ -61,6 +66,10 @@ def test_importing_the_port_loads_no_jax():
             "gaussian_fluids_torch.solver.simulate3d, "
             "gaussian_fluids_torch.advance3d, "
             "gaussian_fluids_torch.initialize3d, "
+            "gaussian_fluids_torch.advance_density3d, "
+            "gaussian_fluids_torch.ops.gsr_banded, "
+            "gaussian_fluids_torch.ops.interp, "
+            "gaussian_fluids_torch.io.vti, "
             "gaussian_fluids_torch.epoch_profile\n"
             "bad = [m for m in ('jax', 'gaussian_fluids_tpu', 'matplotlib')"
             " if m in sys.modules]\n"

@@ -164,13 +164,20 @@ def test_grid_points_match():
                                   jgrid(0, 1, -2, 2, 7, 5))
 
 
-@pytest.mark.parametrize("name", ["leapfrog", "taylor_green"])
+@pytest.mark.parametrize("name", ["leapfrog", "taylor_green",
+                                  "taylor_vortex"])
 def test_scene_fields_match(name):
     js, ts = jscene(name), tscene(name)
     assert ts.scaling_factor == js.scaling_factor
     assert ts.particle_count == js.particle_count
+    assert ts.initialize_domain == js.initialize_domain
+    assert ts.advance_domain == js.advance_domain
+    assert ts.visualize_res == js.visualize_res
+    assert ts.info == js.info
+    for k in ("boundary_sampler_1", "boundary_sampler_2"):
+        assert (getattr(ts, k) is None) == (getattr(js, k) is None), k
     x = R(6).uniform(0, 10, (128, 2)).astype(np.float32) - \
-        (5.0 if name == "leapfrog" else 0.0)
+        (0.0 if name == "taylor_green" else 5.0)
     close(ts.target_velocity(t(x)), js.target_velocity(jnp.asarray(x)))
     close(ts.target_velocity_jac(t(x)),
           js.target_velocity_jac(jnp.asarray(x)), 1e-5)
