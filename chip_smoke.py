@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line with its wall seconds:
-  build         compile csrc/gsr_centered.cu, csrc/gsr_cells.cu and
-                csrc/gsr_banded.cu with nvcc into gaussian_fluids_torch/_build/,
-                one nvcc per source, started together (skipped when already
-                built)
+  build         compile csrc/gsr_centered.cu, csrc/gsr_cells.cu,
+                csrc/gsr_banded.cu and csrc/rk4_fused.cu with nvcc into
+                gaussian_fluids_torch/_build/, one nvcc per source, started
+                together (skipped when already built)
   kernels       each centered kernel at Leapfrog-2D shapes (B=512 queries,
                 N=6144 Gaussian rows, d=2, vdim=2) against its plain
                 PyTorch version on the card; median time over 30 launches
@@ -20,6 +20,12 @@ Phases, each printing one JSON line with its wall seconds:
                 x-plane nearest 0.5, on the seeded Ring-Collide state) against
                 its plain version, and its guard's full sweep (band 1)
                 against the sufficient band's output, bitwise
+  kernels_2d_rest  the dL/dx kernel, the triple-cotangent backward and the
+                fused RK4 backtrace at Karman-2D shapes (B=512, N=24,576,
+                the seeded Karman state; the triple backward over 512 data
+                rows and the scene's 3072 boundary rows), and the dL/dx
+                kernel again at Leapfrog-3D shapes (B=8192, N=1024), each
+                against its plain version
   initialize    the leapfrog scene fitted at 71x71 = 5041 Gaussians through
                 the entry point ``gaussian_fluids_torch.initialize2d``
   advance       two frames (clone -> advect -> project) at dt .025 through
@@ -27,6 +33,22 @@ Phases, each printing one JSON line with its wall seconds:
                 divergence residual per frame
   check         the final 2D field through the kernels against the plain
                 dense field evaluation in float64
+  karman_init   the karman scene (400x60 = 24,000 Gaussians, capacity
+                24,576, B=512) through ``initialize2d``: the inflow fit and
+                the zero-dt projection that carves the cylinder
+  karman        one frame at dt .01 through ``advance2d`` with
+                GF_FUSED_RK4=1 (the covector target through the fused RK4
+                kernel); losses, the divergence residual, the seconds of
+                clone, advect and project, the advance domain after the frame
+                against ``advance_domain_at(1, dt)``, and the final field
+                against the dense one in float64
+  covector_fused  on the Karman frame's mixture and one projection batch,
+                the covector target with GF_FUSED_RK4=1 against =0 (the
+                staged, tile-culled evaluations): agreement and both times
+  epoch_heads   ``field.epoch_heads_grads`` at the Karman projection
+                geometry (512 data rows, the cylinder's 512 and the edges'
+                2560 boundary rows) against ``two_head_grads`` plus a
+                separate boundary value backward: losses, gradients, times
   initialize3d  3D scenes fitted through ``gaussian_fluids_torch.initialize3d``:
                 leapfrog (10^3 = 1000 Gaussians, the centered kernels at
                 d=3) and ring_collide (40^3 = 64,000 Gaussians, capacity
@@ -36,6 +58,15 @@ Phases, each printing one JSON line with its wall seconds:
                 128^3 test grid; losses and the divergence residual
   check3d       the final Ring-Collide field through the kernels against
                 the dense plain evaluation in float64 on 4096 points
+  query_grad    dL/dx through ``field.value_and_jac`` (Jacobian summed) and
+                ``field.value`` on the card (the dL/dx kernel) against
+                float64 dense autograd: on the Karman frame's mixture (d=2,
+                one projection batch of 512 points) and the Leapfrog-3D
+                frame's (d=3, 1024 points). dL/dx jumps where a pair crosses
+                the support edge g = clamp, and f32 and f64 can place a pair
+                within ~1e-6 of the edge on two sides (expected ~0.03 such
+                pairs per 1e5 support pairs); the batches are kept at the
+                scenes' widths and small in count
   density3d     the smoke replay through ``gaussian_fluids_torch.advance_density3d``
                 (--density_res_multiplier 1: 128^3 nodes) on ring_collide's
                 checkpoints 0 and 1: densities a and b, two steps each, .vti
@@ -50,10 +81,11 @@ Phases, each printing one JSON line with its wall seconds:
                 (torch.profiler)
 Launches are counted per path: each path's counts are set to 0 just
 before it and read just after; the 2D lines of the kernel summary carry
-the 2D path's launches, the d=3 and cells lines the 3D path's. The run
-fails if a kernel of a path was not launched there, or if a cells work
-list overflowed at the default capacity. The banded kernel's path is the
-replay (density3d). Then the per-kernel summary, the
+the Leapfrog-2D path's launches, the d=3 and cells lines the 3D path's.
+The run fails if a kernel of a path was not launched there, or if a cells
+work list overflowed at the default capacity. The banded kernel's path is
+the replay (density3d), the fused RK4 kernel's the Karman frame, the
+triple backward's epoch_heads, the dL/dx kernel's query_grad. Then the per-kernel summary, the
 card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Solver output goes to a temporary
 directory outside the checkout, deleted at the end. Any failure raises;
@@ -102,6 +134,24 @@ OPS_SUPPORT = {(2, "fwd"): 17, (2, "bwd_dn"): 74, (2, "bwd_dn2"): 126,
 # an FMA: 18) and the cut compare (1); pairs inside the support also pay
 # -quad/2, the exp and the support compare (3), then g - c and 3 FMAs (7).
 OPS_BANDED_WINDOW, OPS_BANDED_SUPPORT = 22, 10
+# The last three kernels, counted the same way from csrc/gsr_tile.cuh
+# (pair_cotangents, pair_dx) and csrc/rk4_fused.cu. dL/dx, per pair in the
+# support with njac = d: the value and Jacobian cotangents against v
+# (VDIM (1 + d) FMAs), gg (d FMAs), gquad and gpd (2 + d), dx_k (2 + 2 d
+# each) and the sums. The triple backward's data tiles pay the dual
+# backward's count, its boundary tiles the value-only backward's: s1 (2
+# VDIM), gquad (2), dv (1 + 2 VDIM), dmu (3 d), the precisions and the bias
+# (3 d + 4 per off-diagonal + 1). The fused RK4 kernel: every pair of
+# every stage pays the geometry; in the support a stage pays g - c and
+# VDIM FMAs (1 + 2 VDIM), the endpoint's Jacobian stage the forward's.
+OPS_SUPPORT.update({(2, "bwd_dx"): 36, (3, "bwd_dx"): 65,
+                    (2, "bwd_dn_val"): 28, (3, "bwd_dn_val"): 46,
+                    (2, "rk4_stage"): 5, (3, "rk4_stage"): 7})
+KARMAN_INIT_EPOCHS = 200     # fit and the zero-dt projection; default 10000
+KARMAN_ADVANCE_EPOCHS = 200  # per phase; the default is 20000
+KARMAN_DT = 0.01             # the 2D CLI's default
+COVECTOR_RTOL, COVECTOR_ATOL = 1e-3, 1e-5  # fused vs staged target, as the
+#                                            JAX package's test holds them
 
 DENSITY_DT = 0.02
 DENSITY_TOL_POS = 1e-5    # backtrace positions, domain units: f32 grid
@@ -122,10 +172,14 @@ REPLACES = {
     "cells_bwd_dn": PALLAS + "gsr_cells.py:228",
     "cells_bwd_dn2": PALLAS + "gsr_cells.py:199",
     "gsr_value_banded": PALLAS + "gsr_centered.py:701",
+    "gsr_bwd_dx": PALLAS + "gsr_centered.py:473",
+    "gsr_bwd_dn3": PALLAS + "gsr_centered.py:400",
+    "rk4_fused": PALLAS + "rk4_fused.py:110",
 }
 SOURCES = {"gsr": "gaussian_fluids_torch/csrc/gsr_centered.cu",
            "cells": "gaussian_fluids_torch/csrc/gsr_cells.cu",
-           "banded": "gaussian_fluids_torch/csrc/gsr_banded.cu"}
+           "banded": "gaussian_fluids_torch/csrc/gsr_banded.cu",
+           "rk4": "gaussian_fluids_torch/csrc/rk4_fused.cu"}
 NO_LIBRARY = ("no single PyTorch call computes the clamp-masked, "
               "tile-culled Gaussian sum and its Jacobian or cotangents")
 
@@ -185,7 +239,7 @@ def ptxas_summary(log):
     for ln in log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
-            t = re.search(r"\d([a-z][a-z_]*_kernel)ILi(\d)ELi(\d)E"
+            t = re.search(r"\d([a-z][a-z0-9_]*_kernel)ILi(\d)E(?:Li(\d)E)?"
                           r"(?:Li(\d)E)?", m.group(1))
             name = (f"{t.group(1)}<{','.join(g for g in t.groups()[1:] if g)}>"
                     if t else m.group(1))
@@ -412,6 +466,145 @@ def kernel_phase_3d(device):
     return stats, shapes
 
 
+def _rk4_stage_points(x, muT, ppT, v, dt, clamp):
+    """The five positions at which the fused RK4 kernel evaluates the field
+    (the plain version's stages)."""
+    from gaussian_fluids_torch.ops.gsr_centered import fwd_plain
+    live = torch.ones((x.shape[0], 1), dtype=torch.int32, device=x.device)
+    pts, vs = [x], []
+    for h in (0.5 * dt, 0.5 * dt, dt):
+        vs.append(fwd_plain(live, pts[-1], muT, ppT, v, clamp, 0))
+        pts.append(x + h * vs[-1])
+    vs.append(fwd_plain(live, pts[-1], muT, ppT, v, clamp, 0))
+    pts.append(x + dt / 6.0 * (vs[0] + 2.0 * vs[1] + 2.0 * vs[2] + vs[3]))
+    return pts
+
+
+def karman_boundary_rows(scene, gen, n, device):
+    """The scene's boundary batches as one projection epoch draws them (the
+    cylinder's n Dirichlet points, the edges' 5n flux points), sorted along
+    x as one segment, with the order that undoes the sort."""
+    adv = torch.tensor(scene.advance_domain, device=device)
+    b1 = scene.boundary_sampler_1(gen, n, adv)
+    b2 = scene.boundary_sampler_2(gen, n, adv)
+    pts = torch.cat([b1[0], b2[0]])
+    order = torch.argsort(pts[:, 0])
+    return pts[order].contiguous(), torch.argsort(order), b1, b2
+
+
+def kernel_phase_rest(device):
+    """Kernels 4, 9 and 10 at Karman-2D shapes on the seeded Karman state,
+    and kernel 4 at Leapfrog-3D shapes, against their plain versions."""
+    from gaussian_fluids_torch.utils.seeded_state import (karman_state,
+                                                          ring_collide_state)
+    from gaussian_fluids_torch.ops import field, gsr_centered as gc
+    from gaussian_fluids_torch.ops import rk4_fused as rk
+    from gaussian_fluids_torch.scenes import get_scene_2d
+
+    mix, spec, x = karman_state(device)
+    clamp = spec.clamp_threshold
+    mu_p, pp_p, v_p = field._padded_param_rows(mix, spec, gc.TN)
+    muT, ppT, v = (mu_p.T.contiguous(), pp_p.T.contiguous(),
+                   v_p.contiguous())
+    N = muT.shape[1]
+    par_bytes = 4 * (muT.numel() + ppT.numel() + v.numel())
+    rng = np.random.RandomState(5)
+    stats, shapes = {}, {}
+
+    def entry(name, src, key_ops, variants, nbytes, tag=""):
+        errs = [compare(f"{name}{tag}[{i}]", _flat(k()), _flat(p()), TOL)
+                for i, (k, p) in enumerate(variants)]
+        torch.cuda.synchronize()
+        kern, plain = variants[0]
+        stats[name + tag] = _entry(name + tag, src, errs, time_ms(kern),
+                                   time_ms(plain), key_ops, nbytes)
+
+    # kernel 4 at d = 2 and d = 3
+    for d, (m, sp, xq) in ((2, (mix, spec, x)),
+                           (3, ring_collide_state(device, side=10))):
+        x_p, _, _, mp, pp, vp, tmask = field._centered_prep(
+            m, sp, xq, gc.TB, gc.TN, presorted=True)
+        args = (tmask, x_p, mp.T.contiguous(), pp.T.contiguous(),
+                vp.contiguous())
+        B = x_p.shape[0]
+        dout = torch.as_tensor(rng.randn(B, (1 + d) * d).astype(np.float32)
+                               / B, device=device)
+        dval = dout[:, :d].contiguous()
+        live = int(tmask.sum()) * gc.TB * gc.TN
+        sup = _support_pairs(gc, tmask, *args[1:4], d, sp.clamp_threshold)
+        c = sp.clamp_threshold
+        entry("gsr_bwd_dx", "gsr",
+              OPS_GEOMETRY[d] * live + OPS_SUPPORT[(d, "bwd_dx")] * sup,
+              [(lambda a=args, o=dout, d=d, c=c: gc.gsr_bwd_dx(*a, o, c, d),
+                lambda a=args, o=dout, d=d, c=c: gc.bwd_dx_plain(*a, o, c,
+                                                                 d)),
+               (lambda a=args, o=dval, c=c: gc.gsr_bwd_dx(*a, o, c, 0),
+                lambda a=args, o=dval, c=c: gc.bwd_dx_plain(*a, o, c, 0))],
+              4 * (tmask.numel() + 2 * x_p.numel() + args[2].numel()
+                   + args[3].numel() + args[4].numel() + dout.numel()),
+              "" if d == 2 else "[d=3]")
+        shapes[f"bwd_dx_d{d}"] = {"B": B, "N": args[2].shape[1],
+                                  "live_pairs": live, "support_pairs": sup}
+
+    # kernel 10 over [512 data rows; the scene's 3072 boundary rows]
+    scene = get_scene_2d("karman")
+    gen = torch.Generator(device=device).manual_seed(6)
+    xb, _, _, _ = karman_boundary_rows(scene, gen, 512, device)
+    x_dp = field._pad_axis(x, gc.TB)
+    rows = x_dp.shape[0]
+    x_c, _, _, _, _, _, tmask = field._centered_prep(
+        mix, spec, torch.cat([x_dp, xb]), gc.TB, gc.TN, presorted=True)
+    B = x_c.shape[0]
+    douts = [torch.zeros((B, 6), device=device) for _ in range(2)]
+    for o in douts:
+        o[:x.shape[0]] = torch.as_tensor(
+            rng.randn(x.shape[0], 6).astype(np.float32) / 512, device=device)
+    dout3 = torch.zeros((B, 2), device=device)
+    dout3[rows:rows + xb.shape[0]] = torch.as_tensor(
+        rng.randn(xb.shape[0], 2).astype(np.float32) / xb.shape[0],
+        device=device)
+    args = (tmask, x_c, muT, ppT, v)
+    live = int(tmask.sum()) * gc.TB * gc.TN
+    sup_d = _support_pairs(gc, tmask[:rows // gc.TB], x_c[:rows], muT, ppT,
+                           2, clamp)
+    sup_b = _support_pairs(gc, tmask[rows // gc.TB:], x_c[rows:], muT, ppT,
+                           2, clamp)
+    entry("gsr_bwd_dn3", "gsr",
+          OPS_GEOMETRY[2] * live + OPS_SUPPORT[(2, "bwd_dn2")] * sup_d
+          + OPS_SUPPORT[(2, "bwd_dn_val")] * sup_b,
+          [(lambda uv=uv: gc.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2,
+                                         rows, use_val12=uv),
+            lambda uv=uv: gc.bwd_dn3_plain(*args, *douts, dout3, clamp, 2,
+                                           rows, use_val12=uv))
+           for uv in (False, True)],
+          4 * (tmask.numel() + x_c.numel() + 2 * douts[0].numel()
+               + dout3.numel()) + par_bytes + 3 * 4 * N * (6 + 2))
+    shapes["bwd_dn3"] = {"B": B, "data_rows": rows,
+                         "boundary_rows": xb.shape[0], "N": N,
+                         "live_tile_fraction": float(tmask.float().mean()),
+                         "support_pairs_data": sup_d,
+                         "support_pairs_boundary": sup_b}
+
+    # kernel 9: the covector target's backtrace over -dt, every pair
+    dt = -KARMAN_DT
+    pts = _rk4_stage_points(x, muT, ppT, v, dt, clamp)
+    ones = torch.ones((x.shape[0], 1), dtype=torch.int32, device=device)
+    sup = [_support_pairs(gc, ones, p_, muT, ppT, 2, clamp) for p_ in pts]
+    pairs = x.shape[0] * N
+    entry("rk4_fused", "rk4",
+          5 * OPS_GEOMETRY[2] * pairs
+          + OPS_SUPPORT[(2, "rk4_stage")] * sum(sup[:4])
+          + OPS_SUPPORT[(2, "fwd")] * sup[4],
+          [(lambda nj=nj: rk.fused_rk4(x, muT, ppT, v, dt, clamp, nj),
+            lambda nj=nj: rk.rk4_plain(x, muT, ppT, v, dt, clamp, nj))
+           for nj in (2, 0)],
+          4 * x.numel() + par_bytes + 4 * x.shape[0] * (2 + 6))
+    shapes["rk4_fused"] = {"B": x.shape[0], "N": N, "dt": dt,
+                           "pairs_per_stage": pairs,
+                           "support_pairs_per_stage": sup}
+    return stats, shapes
+
+
 def _flat(out):
     if isinstance(out, torch.Tensor):
         return [out]
@@ -493,6 +686,260 @@ def run_2d(tmp):
     emit({"phase": "check", "seconds": time.perf_counter() - t0,
           **check_field(mix, spec, pts, f64=True)})
     return launches
+
+
+def wall_ms(fn, reps=TIMED_LAUNCHES):
+    """Median wall milliseconds of ``fn`` with a synchronise after each
+    call: what a caller waits for one call, host dispatch included."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(out)
+
+
+def _profile(fn, calls=10):
+    """Per call, under torch.profiler: wall and device ms, the device's busy
+    share, host operators and device launches."""
+    from gaussian_fluids_torch.epoch_profile import profile_epoch
+    prof = profile_epoch(fn, calls)
+    return {k.replace("epoch", "call"): prof[k] for k in (
+        "ms_per_epoch", "device_ms_per_epoch", "device_busy_share",
+        "host_ops_per_epoch", "device_launches_per_epoch")}
+
+
+def run_karman(tmp):
+    """initialize2d and one advance2d frame of karman at full width, the
+    frame under GF_FUSED_RK4=1; returns (final mixture, spec, the frame's
+    launches per wrapper)."""
+    from gaussian_fluids_torch import advance2d, initialize2d
+    from gaussian_fluids_torch.ops import gsr_centered, rk4_fused
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    from gaussian_fluids_torch.utils.grids import grid_points_2d
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**gsr_centered.launches, **rk4_fused.launches}
+
+    gsr_centered.reset_launches()
+    rk4_fused.reset_launches()
+    t0 = time.perf_counter()
+    mix, spec = initialize2d.main(
+        ["--init_cond", "karman", "--dir", tmp, "--max_epoch",
+         str(KARMAN_INIT_EPOCHS)])
+    init = counts()
+    emit({"phase": "karman_init", "seconds": time.perf_counter() - t0,
+          "epochs": {"fit": KARMAN_INIT_EPOCHS,
+                     "projection": KARMAN_INIT_EPOCHS},
+          "epochs_by_default": {"fit": 10000, "projection": 10000},
+          "n_gaussians": mix.n_alive(), "capacity": mix.capacity,
+          "batch": 512, "launches": init})
+    if (mix.n_alive(), mix.capacity) != (24000, 24576):
+        raise AssertionError(f"karman width {mix.n_alive()}/{mix.capacity}")
+    gsr_centered.reset_launches()
+    rk4_fused.reset_launches()
+    before = os.environ.get("GF_FUSED_RK4")
+    os.environ["GF_FUSED_RK4"] = "1"
+    try:
+        t0 = time.perf_counter()
+        mix, spec, frames = advance2d.main(
+            ["--init_cond", "karman", "--dir", tmp, "--dt", str(KARMAN_DT),
+             "--last_time", str(KARMAN_DT), "--max_epoch",
+             str(KARMAN_ADVANCE_EPOCHS)])
+        wall = time.perf_counter() - t0
+    finally:
+        if before is None:
+            os.environ.pop("GF_FUSED_RK4")
+        else:
+            os.environ["GF_FUSED_RK4"] = before
+    launches = counts()
+    check_frames(frames, 1, "karman")
+    scene = get_scene_2d("karman")
+    f = frames[0]
+    want_adv = scene.advance_domain_at(1, KARMAN_DT)
+    if tuple(f["advance_domain"]) != tuple(want_adv) \
+            or want_adv[0] <= scene.advance_domain[0]:
+        raise AssertionError(f"advance domain {f['advance_domain']} != "
+                             f"{want_adv}")
+    if launches["rk4_fused"] == 0:
+        raise AssertionError("the Karman frame never launched rk4_fused")
+    if sorted(os.listdir(tmp)) != ["gaussian_velocity_0.pt",
+                                   "gaussian_velocity_1.pt"]:
+        raise AssertionError(f"karman: checkpoints {os.listdir(tmp)}")
+    adv, sf = f["advance_domain"], scene.scaling_factor
+    pts = grid_points_2d(adv[0] * sf, adv[1] * sf, adv[2] * sf, adv[3] * sf,
+                         64, 32)
+    emit({"phase": "karman", "frame": f["frame"], "seconds": wall,
+          "frame_seconds": f["seconds"], "clone_seconds": f["clone_seconds"],
+          "advect_seconds": f["advect_seconds"],
+          "project_seconds": f["project_seconds"],
+          "epochs_per_phase": KARMAN_ADVANCE_EPOCHS,
+          "epochs_per_phase_by_default": 20000,
+          "n_gaussians": f["n_alive"], "capacity": f["capacity"],
+          "advance_domain": list(adv), "clone": f["clone"],
+          "project": f["project"],
+          "divergence_residual": f["project"]["loss_div"],
+          "launches": launches, **{"check_" + k: v for k, v in check_field(
+              mix, spec, pts, f64=True).items()}})
+    return mix, spec, launches
+
+
+def _projection_batch(mix, spec, seed):
+    """One projection epoch's data batch (512 points uniform in the
+    frame's scaled advance domain, sorted along x) and the domain's scaled
+    bounds."""
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    from gaussian_fluids_torch.solver.fit import uniform_batch
+    scene = get_scene_2d("karman")
+    adv, sf = scene.advance_domain_at(1, KARMAN_DT), scene.scaling_factor
+    lo = torch.tensor([adv[0] * sf, adv[2] * sf], device=mix.device)
+    hi = torch.tensor([adv[1] * sf, adv[3] * sf], device=mix.device)
+    gen = torch.Generator(device=mix.device).manual_seed(seed)
+    x = uniform_batch(gen, 512, lo, hi)
+    return x[torch.argsort(x[:, 0])].contiguous(), lo, hi, gen
+
+
+def covector_fused(mix, spec):
+    """The covector target on one projection batch with the fused RK4
+    kernel against the staged, tile-culled evaluations."""
+    from gaussian_fluids_torch.solver import covector
+
+    x, lo, hi, _ = _projection_batch(mix, spec, 7)
+    before = os.environ.get("GF_FUSED_RK4")
+    out, ms = {}, {}
+    try:
+        for flag in ("1", "0"):
+            os.environ["GF_FUSED_RK4"] = flag
+
+            def target():
+                return covector.advected_vorticity_2d(
+                    mix, spec, x, KARMAN_DT, lo, hi, presorted=True)
+            out[flag] = target()
+            ms[flag] = (wall_ms(target), _profile(target))
+    finally:
+        if before is None:
+            os.environ.pop("GF_FUSED_RK4", None)
+        else:
+            os.environ["GF_FUSED_RK4"] = before
+    fused, staged = out["1"].double(), out["0"].double()
+    err = float((fused - staged).abs().max())
+    bad = (fused - staged).abs() > COVECTOR_ATOL + COVECTOR_RTOL * staged.abs()
+    if bool(bad.any()) or not torch.isfinite(fused).all():
+        raise AssertionError(f"fused covector target off the staged one: "
+                             f"max abs err {err}, {int(bad.sum())} points")
+    emit({"phase": "covector_fused", "batch": x.shape[0],
+          "max_abs_err": err, "rtol": COVECTOR_RTOL, "atol": COVECTOR_ATOL,
+          "max_abs_target": float(staged.abs().max()),
+          "fused_wall_ms": ms["1"][0], "staged_wall_ms": ms["0"][0],
+          "fused_profile": ms["1"][1], "staged_profile": ms["0"][1]})
+
+
+def epoch_heads(mix, spec):
+    """field.epoch_heads_grads at the Karman projection geometry against
+    two_head_grads plus a separate boundary value backward; returns the
+    triple backward's launches in its first call."""
+    from gaussian_fluids_torch.models.mixture import mixture_of
+    from gaussian_fluids_torch.ops import field, gsr_centered
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    from gaussian_fluids_torch.solver import covector, losses
+
+    x, lo, hi, gen = _projection_batch(mix, spec, 8)
+    scene = get_scene_2d("karman")
+    xb, inv, b1, b2 = karman_boundary_rows(scene, gen, 512, mix.device)
+    n1 = b1[0].shape[0]
+    ref = covector.advected_vorticity_2d(mix, spec, x, KARMAN_DT, lo, hi,
+                                         presorted=True)
+
+    def head_vor(val, jac):
+        return losses.vorticity_loss_2d(jac, ref)
+
+    def head_div(val, jac):
+        return losses.divergence_loss(jac)
+
+    def head_bnd(vb):
+        vb = vb[inv]
+        return (losses.boundary_dirichlet_loss(vb[:n1], b1[1])
+                + losses.boundary_flux_loss(vb[n1:], b2[1], b2[2]))
+
+    params = mix.params()
+
+    def fused():
+        return field.epoch_heads_grads(params, mix.alive, spec, x, xb,
+                                       head_vor, head_div, head_bnd)
+
+    def separate():
+        (l1, l2), (g1, g2) = field.two_head_grads(params, mix.alive, spec, x,
+                                                  head_vor, head_div)
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in params.items()}
+        with torch.enable_grad():
+            lb = head_bnd(field.value(mixture_of(leaves, mix.alive), spec,
+                                      xb, presorted=True, need_dx=False))
+            gb = torch.autograd.grad(lb, list(leaves.values()),
+                                     allow_unused=True,
+                                     materialize_grads=True)
+        return (l1, l2, lb.detach()), (g1, g2, dict(zip(leaves, gb)))
+
+    gsr_centered.reset_launches()
+    (ls, gs) = fused()
+    torch.cuda.synchronize()
+    launches = dict(gsr_centered.launches)
+    (wl, wg) = separate()
+    errs = [compare("epoch_heads losses", list(ls), list(wl), TOL)]
+    for i, (a, b) in enumerate(zip(gs, wg)):
+        for k in b:
+            errs.append(compare(f"epoch_heads g{i + 1}.{k}", [a[k]], [b[k]],
+                                TOL))
+    emit({"phase": "epoch_heads", "data_rows": x.shape[0],
+          "boundary_rows": xb.shape[0],
+          "losses": [float(v) for v in ls],
+          "max_abs_err": max(e for e, _ in errs),
+          "max_rel_err": max(r for _, r in errs), "tolerance": TOL,
+          "fused_wall_ms": wall_ms(fused),
+          "separate_wall_ms": wall_ms(separate),
+          "fused_profile": _profile(fused),
+          "separate_profile": _profile(separate),
+          "launches_fused_call": launches})
+    return launches
+
+
+def query_grad(mixes):
+    """dL/dx through field.value_and_jac (Jacobian summed) and field.value
+    on the card against float64 dense autograd, per (mixture, spec, points);
+    returns the dL/dx kernel's launches per dimension."""
+    from gaussian_fluids_torch.models.mixture import mixture_of
+    from gaussian_fluids_torch.ops import field, gsr_centered
+
+    out = {}
+    for mix, spec, x in mixes:
+        d = spec.d
+        m64 = mixture_of({k: p.double() for k, p in mix.params().items()},
+                         mix.alive)
+        gsr_centered.reset_launches()
+        res = {}
+        for name, f, f64 in (
+                ("value_and_jac", lambda q: field.value_and_jac(
+                    mix, spec, q)[1].sum(),
+                 lambda q: field.value_and_jac_dense(m64, spec, q)[1].sum()),
+                ("value", lambda q: field.value(mix, spec, q).sum(),
+                 lambda q: field.value_dense(m64, spec, q).sum())):
+            xg = x.detach().clone().requires_grad_(True)
+            (gx,) = torch.autograd.grad(f(xg), [xg])
+            x64 = x.detach().double().requires_grad_(True)
+            (want,) = torch.autograd.grad(f64(x64), [x64])
+            err, rel = compare(f"query_grad d={d} {name}", [gx], [want], TOL)
+            res[name] = {"max_abs_err": err, "max_rel_err": rel,
+                         "max_abs_grad": float(want.abs().max())}
+        torch.cuda.synchronize()
+        out[d] = dict(gsr_centered.launches)
+        emit({"phase": "query_grad", "d": d, "points": x.shape[0],
+              "n_gaussians": mix.n_alive(), "tolerance": TOL, **res,
+              "launches": out[d]})
+    return out
 
 
 def run_3d(tmp):
@@ -795,7 +1242,9 @@ def main():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script runs only on a CUDA GPU")
     from gaussian_fluids_torch.ops import (cuda_build, gsr_banded, gsr_cells,
-                                           gsr_centered)
+                                           gsr_centered, rk4_fused)
+    from gaussian_fluids_torch.io import checkpoint
+    from gaussian_fluids_torch.scenes import get_scene_3d
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -805,10 +1254,11 @@ def main():
 
     t0 = time.perf_counter()
     built = cuda_build.build(gsr_centered.SOURCE, gsr_cells.SOURCE,
-                             gsr_banded.SOURCE)
+                             gsr_banded.SOURCE, rk4_fused.SOURCE)
     gsr_centered._lib()
     gsr_cells._lib()
     gsr_banded._lib()
+    rk4_fused._lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: os.path.relpath(p) for k, (p, _) in built.items()},
           "built_now": any(bool(log) for _, log in built.values()),
@@ -838,11 +1288,34 @@ def main():
                                          "max_rel_err", "tolerance", "ms",
                                          "plain_ms", "bound_ms", "bound_by")}
                       for s in stats_d.values()]})
+    t0 = time.perf_counter()
+    stats_r, shapes_r = kernel_phase_rest(device)
+    emit({"phase": "kernels_2d_rest", "seconds": time.perf_counter() - t0,
+          "card": card, "shapes": shapes_r,
+          "kernels": [{k: s[k] for k in ("name", "max_abs_err",
+                                         "max_rel_err", "tolerance", "ms",
+                                         "plain_ms", "bound_ms", "bound_by")}
+                      for s in stats_r.values()]})
 
     tmp = tempfile.mkdtemp(prefix="gf_torch_smoke_")
     try:
         launches_2d = run_2d(os.path.join(tmp, "2d"))
+        kmix, kspec, launches_karman = run_karman(os.path.join(tmp,
+                                                               "karman"))
+        t0 = time.perf_counter()
+        covector_fused(kmix, kspec)
+        launches_heads = epoch_heads(kmix, kspec)
+        emit({"phase": "karman_ab", "seconds": time.perf_counter() - t0})
         launches_3d = run_3d(os.path.join(tmp, "3d"))
+        lmix, lspec = checkpoint.load_checkpoint(
+            os.path.join(tmp, "3d", "leapfrog", "gaussian_velocity_1.pt"),
+            device=device)
+        lo, hi = np.float32(get_scene_3d("leapfrog").domain).reshape(3, 2).T
+        pts3 = torch.as_tensor(np.random.RandomState(9).uniform(
+            lo, hi, (1024, 3)).astype(np.float32), device=device)
+        launches_dx = query_grad(
+            [(kmix, kspec, _projection_batch(kmix, kspec, 10)[0]),
+             (lmix, lspec, pts3)])
         ring = os.path.join(tmp, "3d", "ring_collide")
         launches_density = run_density(ring)
         check_density(ring, device)
@@ -856,13 +1329,17 @@ def main():
         s["launches"] = launches_3d[name.split("[")[0]]
     for name, s in stats_d.items():
         s["launches"] = launches_density[name]
-    missing = [n for n, s in {**stats, **stats3, **stats_d}.items()
-               if s["launches"] == 0]
+    stats_r["gsr_bwd_dx"]["launches"] = launches_dx[2]["gsr_bwd_dx"]
+    stats_r["gsr_bwd_dx[d=3]"]["launches"] = launches_dx[3]["gsr_bwd_dx"]
+    stats_r["gsr_bwd_dn3"]["launches"] = launches_heads["gsr_bwd_dn3"]
+    stats_r["rk4_fused"]["launches"] = launches_karman["rk4_fused"]
+    missing = [n for n, s in {**stats, **stats3, **stats_d,
+                              **stats_r}.items() if s["launches"] == 0]
     if missing:
         raise AssertionError(f"not launched on their main path: {missing}")
     print(f"total seconds: {time.perf_counter() - t_all:.1f}")
     emit({"kernels": list(stats.values()) + list(stats3.values())
-           + list(stats_d.values())})
+           + list(stats_d.values()) + list(stats_r.values())})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,8 @@ def _parser(dim: int) -> argparse.ArgumentParser:
     p.add_argument("--start_frame", type=int, default=0)
     p.add_argument("--init_cond", type=str,
                    default="taylor_vortex" if dim == 2 else "leapfrog",
-                   help="scene: taylor_vortex, leapfrog or taylor_green"
+                   help="scene: taylor_vortex, leapfrog, taylor_green or "
+                        "karman"
                         if dim == 2 else
                         "scene: leapfrog, single_vortex_ring or "
                         "ring_collide")

@@ -1,12 +1,16 @@
 // Centered Gaussian-splatting field kernels for Hopper (sm_90a): the
 // tile-masked sweep, d = 2 and 3, vdim = 1, 2, 3.
 //
-// Replaces three Pallas TPU kernels of the JAX package
+// Replaces five Pallas TPU kernels of the JAX package
 // (gaussian_fluids_tpu/ops/pallas/gsr_centered.py):
 //   gsr_fwd_kernel     <- _fwd_kernel      (launched from _fwd)
 //   gsr_bwd_dn_kernel  <- _bwd_dn_kernel   (launched from _bwd)
 //                         _bwd_dn2_kernel  (launched from
 //                                           fused_gsr_centered_bwd2)
+//   gsr_bwd_dx_kernel  <- _bwd_dx_kernel   (launched from _bwd when the
+//                                           query points need a gradient)
+//   gsr_bwd_dn3_kernel <- _bwd_dn3_kernel  (launched from
+//                                           fused_gsr_centered_bwd3)
 // The math and layouts are in gsr_tile.cuh. tmask (B/TB, N/TN) int32:
 // 0 = the tile pair cannot interact and is skipped.
 //
@@ -25,6 +29,16 @@
 // order. No atomics: each output element has exactly one owner thread
 // (backward) or one fixed shuffle tree (forward), so sums are
 // deterministic, as the TPU kernels' sequential grid reductions are.
+//
+// The two backwards that no training epoch runs follow the same owners.
+// dL/dx (gsr_bwd_dx_kernel) has the forward's layout: a warp per query,
+// its lanes splitting each live Gaussian tile, one fixed shuffle tree at
+// the end; per pair it recomputes the geometry and the cotangents of the
+// parameter backward. The triple backward (gsr_bwd_dn3_kernel, the fused
+// [data; boundary] projection geometry) is the per-Gaussian owner of
+// gsr_bwd_dn_kernel with three accumulator blocks: query tiles below
+// data_tiles feed blocks 1 and 2 (the dual backward's tile step), the
+// boundary tiles after them feed block 3 with a value-only cotangent.
 
 #include "gsr_tile.cuh"
 
@@ -90,6 +104,95 @@ gsr_bwd_dn_kernel(const int* __restrict__ tmask, const float* __restrict__ x,
   bwd_store<D, VDIM, NCOT>(n, N, accm, accv, dmp1, dv1, dmp2, dv2);
 }
 
+template <int D, int VDIM>
+__global__ void __launch_bounds__(32 * TB)
+gsr_bwd_dx_kernel(const int* __restrict__ tmask, const float* __restrict__ x,
+                  const float* __restrict__ muT,
+                  const float* __restrict__ ppT, const float* __restrict__ v,
+                  const float* __restrict__ dout, float* __restrict__ dx,
+                  int N, int njac, float clamp) {
+  const int nnt = N / TN;
+  const int i = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int b = i * TB + threadIdx.y;
+  const int cols = (1 + njac) * VDIM;
+  float xq[D], drow[(1 + D) * VDIM];
+#pragma unroll
+  for (int k = 0; k < D; ++k) xq[k] = x[D * b + k];
+#pragma unroll
+  for (int k = 0; k < (1 + D) * VDIM; ++k)
+    drow[k] = k < cols ? dout[b * cols + k] : 0.f;
+  float acc[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) acc[k] = 0.f;
+  for (int j = 0; j < nnt; ++j) {
+    if (tmask[i * nnt + j] == 0) continue;
+    for (int n = j * TN + lane; n < (j + 1) * TN; n += 32) {
+      const Gauss<D> G = load_gauss<D>(muT, ppT, N, n);
+      const Geom<D> q = centered<D>(xq, G);
+      if (!(q.g >= clamp)) continue;
+      float vv[VDIM], s2[D], gpd[D];
+#pragma unroll
+      for (int a = 0; a < VDIM; ++a) vv[a] = v[n * VDIM + a];
+      const float gquad =
+          pair_cotangents<D, VDIM>(q, drow, vv, njac, 1, s2, gpd);
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        acc[k] += pair_dx<D>(q, gquad, gpd, G.p, njac, k);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < D; ++k)
+    for (int off = 16; off > 0; off >>= 1)
+      acc[k] += __shfl_down_sync(0xffffffffu, acc[k], off);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) dx[b * D + k] = acc[k];
+  }
+}
+
+template <int D, int VDIM>
+__global__ void __launch_bounds__(TN)
+gsr_bwd_dn3_kernel(const int* __restrict__ tmask, const float* __restrict__ x,
+                   const float* __restrict__ muT,
+                   const float* __restrict__ ppT, const float* __restrict__ v,
+                   const float* __restrict__ dout1,
+                   const float* __restrict__ dout2,
+                   const float* __restrict__ dout3, float* __restrict__ dmp1,
+                   float* __restrict__ dv1, float* __restrict__ dmp2,
+                   float* __restrict__ dv2, float* __restrict__ dmp3,
+                   float* __restrict__ dv3, int B, int N, int njac,
+                   int use_val12, int data_tiles, float clamp) {
+  constexpr int NMP = Dims<D>::NMP;
+  const int nbt = B / TB, nnt = N / TN;
+  const int j = blockIdx.x;
+  const int n = j * TN + threadIdx.x;
+  const Gauss<D> G = load_gauss<D>(muT, ppT, N, n);
+  float vv[VDIM];
+#pragma unroll
+  for (int a = 0; a < VDIM; ++a) vv[a] = v[n * VDIM + a];
+  float accm[3][NMP];
+  float accv[3][VDIM];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int k = 0; k < NMP; ++k) accm[c][k] = 0.f;
+#pragma unroll
+    for (int a = 0; a < VDIM; ++a) accv[c][a] = 0.f;
+  }
+  for (int i = 0; i < nbt; ++i) {
+    if (tmask[i * nnt + j] == 0) continue;
+    if (i < data_tiles)
+      bwd_tile<D, VDIM, 2>(i, x, G, vv, dout1, dout2, njac, use_val12, clamp,
+                           accm, accv);
+    else   // boundary rows: a value-only cotangent
+      bwd_tile<D, VDIM, 1>(i, x, G, vv, dout3, dout3, 0, 1, clamp, accm + 2,
+                           accv + 2);
+  }
+  bwd_store<D, VDIM, 2>(n, N, accm, accv, dmp1, dv1, dmp2, dv2);
+  bwd_store<D, VDIM, 1>(n, N, accm + 2, accv + 2, dmp3, dv3, dmp3, dv3);
+}
+
 struct FwdLaunch {
   const int* tm;
   const float *x, *mu, *pp, *v;
@@ -118,6 +221,37 @@ struct BwdLaunch {
     gsr_bwd_dn_kernel<D, VDIM, NCOT><<<dim3(N / TN), dim3(TN), 0, s>>>(
         tm, x, mu, pp, v, d1, d2, m1, v1, m2, v2, B, N, njac, use_val,
         clamp);
+    return cudaGetLastError();
+  }
+};
+
+struct DxLaunch {
+  const int* tm;
+  const float *x, *mu, *pp, *v, *dout;
+  float* dx;
+  int B, N, njac;
+  float clamp;
+  cudaStream_t s;
+  template <int D, int VDIM>
+  int run() const {
+    gsr_bwd_dx_kernel<D, VDIM><<<dim3(B / TB), dim3(32, TB), 0, s>>>(
+        tm, x, mu, pp, v, dout, dx, N, njac, clamp);
+    return cudaGetLastError();
+  }
+};
+
+struct Dn3Launch {
+  const int* tm;
+  const float *x, *mu, *pp, *v, *d1, *d2, *d3;
+  float *m1, *v1, *m2, *v2, *m3, *v3;
+  int B, N, njac, use_val12, data_tiles;
+  float clamp;
+  cudaStream_t s;
+  template <int D, int VDIM>
+  int run() const {
+    gsr_bwd_dn3_kernel<D, VDIM><<<dim3(N / TN), dim3(TN), 0, s>>>(
+        tm, x, mu, pp, v, d1, d2, d3, m1, v1, m2, v2, m3, v3, B, N, njac,
+        use_val12, data_tiles, clamp);
     return cudaGetLastError();
   }
 };
@@ -184,6 +318,48 @@ int gsr_bwd_dn2(const void* tmask, const void* x, const void* muT,
                 int use_val, float clamp, void* stream) {
   return launch_bwd<2>(tmask, x, muT, ppT, v, dout1, dout2, dmp1, dv1, dmp2,
                        dv2, B, N, d, vdim, njac, use_val, clamp, stream);
+}
+
+int gsr_bwd_dx(const void* tmask, const void* x, const void* muT,
+               const void* ppT, const void* v, const void* dout, void* dx,
+               int B, int N, int d, int vdim, int njac, float clamp,
+               void* stream) {
+  if (bad_shape(B, N, d, vdim, njac)) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const DxLaunch f{static_cast<const int*>(tmask),
+                   static_cast<const float*>(x),
+                   static_cast<const float*>(muT),
+                   static_cast<const float*>(ppT),
+                   static_cast<const float*>(v),
+                   static_cast<const float*>(dout),
+                   static_cast<float*>(dx),
+                   B, N, njac, clamp, static_cast<cudaStream_t>(stream)};
+  return dispatch(d, vdim, f);
+}
+
+// Blocks 1 and 2 on the query tiles below data_rows / TB, block 3 (value
+// only, vdim columns) on the rest.
+int gsr_bwd_dn3(const void* tmask, const void* x, const void* muT,
+                const void* ppT, const void* v, const void* dout1,
+                const void* dout2, const void* dout3, void* dmp1, void* dv1,
+                void* dmp2, void* dv2, void* dmp3, void* dv3, int B, int N,
+                int d, int vdim, int njac, int use_val12, int data_rows,
+                float clamp, void* stream) {
+  if (bad_shape(B, N, d, vdim, njac) || (!use_val12 && njac == 0) ||
+      data_rows < 0 || data_rows > B || data_rows % TB)
+    return cudaErrorInvalidValue;
+  if (N == 0) return cudaSuccess;
+  const Dn3Launch f{
+      static_cast<const int*>(tmask),   static_cast<const float*>(x),
+      static_cast<const float*>(muT),   static_cast<const float*>(ppT),
+      static_cast<const float*>(v),     static_cast<const float*>(dout1),
+      static_cast<const float*>(dout2), static_cast<const float*>(dout3),
+      static_cast<float*>(dmp1),        static_cast<float*>(dv1),
+      static_cast<float*>(dmp2),        static_cast<float*>(dv2),
+      static_cast<float*>(dmp3),        static_cast<float*>(dv3),
+      B, N, njac, use_val12, data_rows / TB, clamp,
+      static_cast<cudaStream_t>(stream)};
+  return dispatch(d, vdim, f);
 }
 
 }  // extern "C"

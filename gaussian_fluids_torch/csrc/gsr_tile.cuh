@@ -1,9 +1,10 @@
 // Shared device code of the Gaussian-splatting field kernels for Hopper
 // (sm_90a): the centered geometry of one query-Gaussian pair, and the
 // per-tile forward and backward accumulations, for d = 2 and 3 and
-// vdim = 1, 2, 3. Included by gsr_centered.cu (the tile-masked sweep) and
-// gsr_cells.cu (the work-list walk); both compute the same sums over the
-// same pairs, in the same order within a tile.
+// vdim = 1, 2, 3. Included by gsr_centered.cu (the tile-masked sweep),
+// gsr_cells.cu (the work-list walk) and rk4_fused.cu (the fused RK4
+// backtrace); the first two compute the same sums over the same pairs, in
+// the same order within a tile.
 //
 // Math (the TPU kernels' _tile_quantities, all f32 on the CUDA cores):
 //   delta = x - mu;  Pd_k = sum_j P_kj delta_j;  quad = delta.Pd + bias
@@ -71,6 +72,13 @@ __device__ __forceinline__ Gauss<D> load_gauss(const float* __restrict__ muT,
   return G;
 }
 
+// The geometry is rounded as the plain PyTorch version rounds it: every
+// product and sum on its own (__fmul_rn, __fadd_rn: no FMA contraction),
+// in the same order, so quad, and with it the support test g >= clamp, is
+// bitwise the plain version's. A pair at the edge of the support
+// otherwise lands inside on one side and outside on the other, and the
+// terms that jump there (g Pd in the Jacobian and in every backward) put
+// one pair's whole contribution between the two.
 template <int D>
 __device__ __forceinline__ Geom<D> centered(const float* xq,
                                             const Gauss<D>& G) {
@@ -79,17 +87,20 @@ __device__ __forceinline__ Geom<D> centered(const float* xq,
   for (int k = 0; k < D; ++k) q.dx[k] = xq[k] - G.mu[k];
 #pragma unroll
   for (int k = 0; k < D; ++k) {
-    float acc = G.p[k] * q.dx[k];
+    float acc = __fmul_rn(G.p[k], q.dx[k]);
 #pragma unroll
     for (int c = 0; c < Dims<D>::NOFF; ++c) {
-      if (pair_i<D>(c) == k) acc += G.p[D + c] * q.dx[pair_j<D>(c)];
-      else if (pair_j<D>(c) == k) acc += G.p[D + c] * q.dx[pair_i<D>(c)];
+      if (pair_i<D>(c) == k)
+        acc = __fadd_rn(acc, __fmul_rn(G.p[D + c], q.dx[pair_j<D>(c)]));
+      else if (pair_j<D>(c) == k)
+        acc = __fadd_rn(acc, __fmul_rn(G.p[D + c], q.dx[pair_i<D>(c)]));
     }
     q.pd[k] = acc;
   }
-  float quad = G.bias + q.dx[0] * q.pd[0];
+  float quad = __fadd_rn(G.bias, __fmul_rn(q.dx[0], q.pd[0]));
 #pragma unroll
-  for (int k = 1; k < D; ++k) quad += q.dx[k] * q.pd[k];
+  for (int k = 1; k < D; ++k)
+    quad = __fadd_rn(quad, __fmul_rn(q.dx[k], q.pd[k]));
   q.g = expf(-0.5f * quad);
   return q;
 }
@@ -134,15 +145,14 @@ __device__ __forceinline__ void fwd_store(float* acc, int lane, int b,
   }
 }
 
-// One cotangent block's contribution of one query to one Gaussian, given
-// the shared geometry q (with g >= clamp). Mirrors _bwd_cotangents and
-// _dn_accumulate of the TPU kernels.
+// The cotangents of one pair with g >= clamp (the TPU kernels'
+// _bwd_cotangents): returns gquad = dL/dquad and fills gpd_k = dL/dPd_k
+// and s2_k = djac_k . v (zero when njac = 0, the value-only mode).
+// use_val = 0 promises a zero value cotangent.
 template <int D, int VDIM>
-__device__ __forceinline__ void dn_accumulate(
+__device__ __forceinline__ float pair_cotangents(
     const Geom<D>& q, const float* __restrict__ dout_row, const float* vv,
-    const float* p, int njac, int use_val, float clamp, float* accm,
-    float* accv) {
-  float s2[D];
+    int njac, int use_val, float* s2, float* gpd) {
 #pragma unroll
   for (int k = 0; k < D; ++k) {
     s2[k] = 0.f;
@@ -167,10 +177,40 @@ __device__ __forceinline__ void dn_accumulate(
 #pragma unroll
     for (int k = 1; k < D; ++k) gg -= s2[k] * q.pd[k];
   }
-  const float gquad = -0.5f * q.g * gg;
-  float gpd[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) gpd[k] = -q.g * s2[k];
+  return -0.5f * q.g * gg;
+}
+
+// dL/dx_k of one pair (the TPU kernels' _dxj_tile): dquad/dx_k = 2 Pd_k,
+// dPd_i/dx_k = P_ik; no Pd cotangents in the value-only mode.
+template <int D>
+__device__ __forceinline__ float pair_dx(const Geom<D>& q, float gquad,
+                                         const float* gpd, const float* p,
+                                         int njac, int k) {
+  float t = gquad * (2.f * q.pd[k]);
+  if (njac) {
+    t += gpd[k] * p[k];
+#pragma unroll
+    for (int c = 0; c < Dims<D>::NOFF; ++c) {
+      if (pair_i<D>(c) == k) t += gpd[pair_j<D>(c)] * p[D + c];
+      else if (pair_j<D>(c) == k) t += gpd[pair_i<D>(c)] * p[D + c];
+    }
+  }
+  return t;
+}
+
+// One cotangent block's contribution of one query to one Gaussian, given
+// the shared geometry q (with g >= clamp). Mirrors _bwd_cotangents and
+// _dn_accumulate of the TPU kernels.
+template <int D, int VDIM>
+__device__ __forceinline__ void dn_accumulate(
+    const Geom<D>& q, const float* __restrict__ dout_row, const float* vv,
+    const float* p, int njac, int use_val, float clamp, float* accm,
+    float* accv) {
+  float s2[D], gpd[D];
+  const float gquad =
+      pair_cotangents<D, VDIM>(q, dout_row, vv, njac, use_val, s2, gpd);
 
 #pragma unroll
   for (int a = 0; a < VDIM; ++a) {
@@ -185,18 +225,7 @@ __device__ __forceinline__ void dn_accumulate(
   }
   // dmu_k = -dL/dx_k
 #pragma unroll
-  for (int k = 0; k < D; ++k) {
-    float t = gquad * (2.f * q.pd[k]);
-    if (njac) {
-      t += gpd[k] * p[k];
-#pragma unroll
-      for (int c = 0; c < Dims<D>::NOFF; ++c) {
-        if (pair_i<D>(c) == k) t += gpd[pair_j<D>(c)] * p[D + c];
-        else if (pair_j<D>(c) == k) t += gpd[pair_i<D>(c)] * p[D + c];
-      }
-    }
-    accm[k] -= t;
-  }
+  for (int k = 0; k < D; ++k) accm[k] -= pair_dx<D>(q, gquad, gpd, p, njac, k);
   // diagonal precisions
 #pragma unroll
   for (int k = 0; k < D; ++k) {

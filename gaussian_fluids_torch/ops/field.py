@@ -24,6 +24,13 @@ plain twins), which is how the tests hold them against the JAX Pallas
 kernels. ``need_dx`` is the JAX signature's: it is False where the caller
 never differentiates the query points, which no port path does.
 
+``epoch_heads_grads`` (the projection heads and a boundary head from one
+forward and one triple-cotangent backward) and ``rk4_valjac_fused`` (the
+RK4 backtrace and the endpoint's value and Jacobian in one launch) are
+building blocks of the JAX package's that the port keeps with their
+kernels: the first has no caller in either solver, the second serves the
+2D covector target under ``GF_FUSED_RK4=1``.
+
 ``value_banded`` is the density replay's own path, called by name as in
 the JAX package: value only, queries and Gaussians sorted along x, each
 query tile summing a window of ``band`` Gaussian tiles (the kernel of
@@ -43,7 +50,7 @@ from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.models.mixture import (GaussianMixture,
                                                   mixture_of)
 from gaussian_fluids_torch.ops import (gsr_banded, gsr_cells, gsr_centered,
-                                       spatial)
+                                       rk4_fused, spatial)
 from gaussian_fluids_torch.ops import rotations as rotations_ops
 from gaussian_fluids_torch.utils.grids import default_chunk
 
@@ -471,6 +478,42 @@ def _grads(loss, leaves, retain):
     return dict(zip(leaves, g))
 
 
+def _heads_on_out(out: torch.Tensor, d: int, vdim: int, heads):
+    """(losses, cotangents, use_val) of scalar heads of (val, jac) on the
+    forward kernel's rows ``out``: one (rows, (1+d)*vdim) cotangent per
+    head, zero in the columns it does not read. The value and Jacobian
+    columns are separate leaves, so an unread one gets no gradient (known
+    on the host without a sync); ``use_val`` says whether any head reads
+    the value."""
+    b = out.shape[0]
+    cots, losses = [], []
+    for head in heads:
+        o = [out[:, :vdim].detach().requires_grad_(True),
+             out[:, vdim:].detach().requires_grad_(True)]
+        with torch.enable_grad():
+            loss = head(o[0], o[1].reshape(b, d, vdim).transpose(1, 2))
+            cots.append(torch.autograd.grad(loss, o, allow_unused=True))
+        losses.append(loss.detach())
+    use_val = any(c[0] is not None for c in cots)
+    douts = [torch.cat([torch.zeros_like(t) if g is None else g
+                        for g, t in zip(c, (out[:, :vdim], out[:, vdim:]))],
+                       1) for c in cots]
+    return losses, douts, use_val
+
+
+def _param_grads(prep, leaves, blocks):
+    """Each block of kernel cotangents (dmuT, dppT, dv) pulled back
+    through the packed-parameter preparation ``prep`` to the parameter
+    leaves."""
+    grads = []
+    for i, t in enumerate(blocks):
+        gs = torch.autograd.grad(prep, list(leaves.values()), grad_outputs=t,
+                                 retain_graph=i < len(blocks) - 1,
+                                 allow_unused=True, materialize_grads=True)
+        grads.append(dict(zip(leaves, gs)))
+    return tuple(grads)
+
+
 def _two_head_grads_kernels(params, alive, spec: FieldSpec, x: torch.Tensor,
                             head1, head2, cells: bool):
     """((l1, l2), (g1, g2)): two scalar heads of (val, jac) and their
@@ -502,21 +545,8 @@ def _two_head_grads_kernels(params, alive, spec: FieldSpec, x: torch.Tensor,
                                   d)[:b]
     else:
         out = gsr_centered.gsr_fwd(tmask, x_p, *args, clamp, d)[:b]
-    cots, losses = [], []
-    for head in (head1, head2):
-        # value and Jacobian columns as separate leaves: an unread one gets
-        # no gradient (None), known on the host without a sync
-        o = [out[:, :vdim].detach().requires_grad_(True),
-             out[:, vdim:].detach().requires_grad_(True)]
-        with torch.enable_grad():
-            loss = head(o[0], o[1].reshape(b, d, vdim).transpose(1, 2))
-            cots.append(torch.autograd.grad(loss, o, allow_unused=True))
-        losses.append(loss.detach())
-    use_val = any(c[0] is not None for c in cots)
-    douts = [_pad_axis(torch.cat([torch.zeros_like(t) if g is None else g
-                                  for g, t in zip(c, (out[:, :vdim],
-                                                      out[:, vdim:]))], 1),
-                       tb).contiguous() for c in cots]
+    losses, douts, use_val = _heads_on_out(out, d, vdim, (head1, head2))
+    douts = [_pad_axis(t, tb).contiguous() for t in douts]
     if cells:
         t1, t2 = gsr_cells.cells_bwd_dn2(
             gtiles, qtiles, ok, tmask, x_p, *args, douts[0], douts[1],
@@ -524,13 +554,7 @@ def _two_head_grads_kernels(params, alive, spec: FieldSpec, x: torch.Tensor,
     else:
         t1, t2 = gsr_centered.gsr_bwd_dn2(
             tmask, x_p, *args, douts[0], douts[1], clamp, d, use_val=use_val)
-    grads = []
-    for i, t in enumerate((t1, t2)):
-        gs = torch.autograd.grad(prep, list(leaves.values()), grad_outputs=t,
-                                 retain_graph=i == 0, allow_unused=True,
-                                 materialize_grads=True)
-        grads.append(dict(zip(leaves, gs)))
-    return tuple(losses), tuple(grads)
+    return tuple(losses), _param_grads(prep, leaves, (t1, t2))
 
 
 def two_head_grads_centered(params, alive, spec: FieldSpec, x: torch.Tensor,
@@ -566,6 +590,88 @@ def two_head_grads(params, alive, spec: FieldSpec, x: torch.Tensor,
         g1 = _grads(l1, leaves, retain=True)
         g2 = _grads(l2, leaves, retain=False)
     return (l1.detach(), l2.detach()), (g1, g2)
+
+
+def epoch_heads_grads_centered(params, alive, spec: FieldSpec,
+                               x: torch.Tensor, x_bnd: torch.Tensor, head1,
+                               head2, head_bnd):
+    """((l1, l2, lb), (g1, g2, gb)) for the fused projection-epoch
+    geometry: heads 1 and 2 (the PCGrad buckets) see (val, jac) at the data
+    rows ``x``, ``head_bnd`` sees the value at the boundary rows ``x_bnd``.
+    One forward over [x padded to the query tile; x_bnd] and one
+    triple-cotangent backward replace the separate boundary forward and
+    value backward. Both segments presorted in coordinate 0; no gradient
+    for the query points. Value use of heads 1 and 2 is found by
+    autograd, as in ``two_head_grads``."""
+    d, vdim = spec.d, spec.vdim
+    tb, tn = gsr_centered.TB, gsr_centered.TN
+    clamp = spec.clamp_threshold
+    bd_n, bb_n = x.shape[0], x_bnd.shape[0]
+    mix_sg = mixture_of({k: p.detach() for k, p in params.items()}, alive)
+    x_dp = _pad_axis(x, tb)
+    data_rows = x_dp.shape[0]
+    x_p, _, _, _, _, _, tmask = _centered_prep(
+        mix_sg, spec, torch.cat([x_dp, x_bnd]), tb, tn, presorted=True)
+    leaves = _grad_leaves(params)
+    with torch.enable_grad():
+        mu_p, pp_p, v_p = _padded_param_rows(mixture_of(leaves, alive), spec,
+                                             tn)
+        prep = (mu_p.T.contiguous(), pp_p.T.contiguous(), v_p.contiguous())
+    args = tuple(t.detach() for t in prep)
+    out = gsr_centered.gsr_fwd(tmask, x_p, *args, clamp, d)
+    bp = x_p.shape[0]
+    losses, douts, use_val12 = _heads_on_out(out[:bd_n], d, vdim,
+                                             (head1, head2))
+    douts = [torch.cat([t, t.new_zeros((bp - bd_n, t.shape[1]))])
+             for t in douts]
+    vb = out[data_rows:data_rows + bb_n, :vdim].detach().requires_grad_(True)
+    with torch.enable_grad():
+        lb = head_bnd(vb)
+        (gvb,) = torch.autograd.grad(lb, [vb])
+    losses.append(lb.detach())
+    dout3 = out.new_zeros((bp, vdim))
+    dout3[data_rows:data_rows + bb_n] = gvb
+    blocks = gsr_centered.gsr_bwd_dn3(tmask, x_p, *args, *douts, dout3,
+                                      clamp, d, data_rows,
+                                      use_val12=use_val12)
+    return tuple(losses), _param_grads(prep, leaves, blocks)
+
+
+def epoch_heads_grads(params, alive, spec: FieldSpec, x: torch.Tensor,
+                      x_bnd: torch.Tensor, head1, head2, head_bnd):
+    """Backend-dispatching :func:`epoch_heads_grads_centered`: on the dense
+    path three autograd pullbacks of one forward over the same heads. Like
+    the JAX package's, no solver runner calls it."""
+    if _use_kernel(x):
+        return epoch_heads_grads_centered(params, alive, spec, x, x_bnd,
+                                          head1, head2, head_bnd)
+    leaves = _grad_leaves(params)
+    with torch.enable_grad():
+        mix = mixture_of(leaves, alive)
+        val, jac = value_and_jac_dense(mix, spec, x)
+        vb = value_dense(mix, spec, x_bnd)
+        ls = (head1(val, jac), head2(val, jac), head_bnd(vb))
+        grads = tuple(_grads(l, leaves, retain=i < 2)
+                      for i, l in enumerate(ls))
+    return tuple(l.detach() for l in ls), grads
+
+
+def rk4_valjac_fused(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
+                     dt):
+    """(phi, val, jac): the RK4 endpoint of x through the velocity field
+    over ``dt`` and the value and Jacobian at the endpoint, in one launch
+    of the fused kernel (``ops/rk4_fused.py``; its plain twin on the CPU).
+    Forward only; velocity fields only (vdim == d)."""
+    _check_queries(mix, x)
+    d, vdim = mix.d, mix.vdim
+    b = x.shape[0]
+    with torch.no_grad():
+        mu_p, pp_p, v_p = _padded_param_rows(mix, spec, gsr_centered.TN)
+        phi, vj = rk4_fused.fused_rk4(
+            x.contiguous(), mu_p.T.contiguous(), pp_p.T.contiguous(),
+            v_p.contiguous(), float(dt), spec.clamp_threshold, d)
+    val, jac = _split_out(vj, b, d, vdim)
+    return phi, val, jac
 
 
 # ---- chunked evaluation ----

@@ -1,12 +1,16 @@
 """Centered Gaussian field kernels: CUDA wrappers and their plain twins.
 
-Ports three Pallas TPU kernels of ``gaussian_fluids_tpu/ops/pallas/
+Ports five Pallas TPU kernels of ``gaussian_fluids_tpu/ops/pallas/
 gsr_centered.py`` to CUDA C++ for Hopper (``csrc/gsr_centered.cu``):
 
   ``gsr_fwd``      <- ``_fwd_kernel``      value + Jacobian forward
   ``gsr_bwd_dn``   <- ``_bwd_dn_kernel``   per-Gaussian cotangents
   ``gsr_bwd_dn2``  <- ``_bwd_dn2_kernel``  the same for two cotangent
                                             blocks sharing one recompute
+  ``gsr_bwd_dx``   <- ``_bwd_dx_kernel``   dL/dx per query point
+  ``gsr_bwd_dn3``  <- ``_bwd_dn3_kernel``  three cotangent blocks: two on
+                                            the data rows, one value-only
+                                            on the boundary rows after them
 
 Each wrapper takes the kernels' layout — x (B, d), muT (d, N), packed
 precisions ppT (np, N) with the dead-row bias last, values (N, vdim) and
@@ -24,9 +28,10 @@ The shared library is built with ``nvcc`` at first use into
 ``launches`` counts kernel launches per wrapper, so a run can show that
 its main path went through the kernels.
 
-Not ported yet: the ``dL/dx`` backward (``_bwd_dx_kernel``); every solver
-phase treats the query points as constants, and the autograd function
-raises if a gradient for them is requested.
+The autograd function ``fused_gsr_centered`` differentiates the mixture
+parameters through ``gsr_bwd_dn`` and, only when the query points need a
+gradient (no solver phase asks for one), the query points through
+``gsr_bwd_dx``.
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ TB, TN = 8, 64
 
 SOURCE = cuda_build.CSRC / "gsr_centered.cu"
 
-launches: Dict[str, int] = {"gsr_fwd": 0, "gsr_bwd_dn": 0, "gsr_bwd_dn2": 0}
+launches: Dict[str, int] = {"gsr_fwd": 0, "gsr_bwd_dn": 0, "gsr_bwd_dn2": 0,
+                            "gsr_bwd_dx": 0, "gsr_bwd_dn3": 0}
 
 
 def reset_launches() -> None:
@@ -82,6 +88,10 @@ def _lib():
         lib.gsr_bwd_dn.restype = _I
         lib.gsr_bwd_dn2.argtypes = [_P] * 11 + [_I] * 6 + [_F, _P]
         lib.gsr_bwd_dn2.restype = _I
+        lib.gsr_bwd_dx.argtypes = [_P] * 7 + [_I] * 5 + [_F, _P]
+        lib.gsr_bwd_dx.restype = _I
+        lib.gsr_bwd_dn3.argtypes = [_P] * 14 + [_I] * 7 + [_F, _P]
+        lib.gsr_bwd_dn3.restype = _I
         tb, tn = _I(), _I()
         lib.gsr_tile_sizes(ctypes.byref(tb), ctypes.byref(tn))
         if (tb.value, tn.value) != (TB, TN):
@@ -193,7 +203,9 @@ _PLAIN_ROWS = 1024
 
 def _row_blocks(tmask, x, *douts):
     """(tmask, x, douts) for successive whole query tiles of <= _PLAIN_ROWS
-    rows."""
+    rows (none for no rows)."""
+    if tmask.shape[0] == 0:
+        return
     tb = x.shape[0] // tmask.shape[0]
     step = max(tb, _PLAIN_ROWS // tb * tb)
     for s in range(0, x.shape[0], step):
@@ -217,10 +229,11 @@ def _fwd_plain_block(tmask, x, muT, ppT, values, clamp, njac):
     return torch.cat(cols, dim=1)
 
 
-def _dn_accumulate(q, ppT, dout, v, d, vdim, clamp, njac, use_val):
-    """(dmp (d + np, N), dv (N, vdim)) for one cotangent block — the TPU
-    kernels' _bwd_cotangents + _dn_accumulate on whole planes."""
-    delta, g, m, pd = q
+def _cotangents(q, dout, v, vdim, njac, use_val):
+    """(gquad, gpd list, mg): dL/dquad and dL/dPd_k on whole planes — the
+    TPU kernels' _bwd_cotangents. ``use_val=False`` promises a zero value
+    cotangent."""
+    _, g, m, pd = q
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
     s2 = [dout[:, (1 + k) * vdim:(2 + k) * vdim] @ v.T for k in range(njac)]
     mg = torch.where(m, g, zero)
@@ -233,7 +246,29 @@ def _dn_accumulate(q, ppT, dout, v, d, vdim, clamp, njac, use_val):
         for k in range(1, njac):
             gg = gg - s2[k] * pd[k]
     gquad = torch.where(m, -0.5 * g * gg, zero)
-    gpd = [-mg * s2[k] for k in range(njac)]
+    return gquad, [-mg * s2[k] for k in range(njac)], mg
+
+
+def _dxj(gquad, gpd, pd, ppT, d, jdim):
+    """dL/dx_j on whole planes, before the sum over Gaussians — the TPU
+    kernels' _dxj_tile (``gpd`` is empty in the value-only mode)."""
+    t = gquad * (2.0 * pd[jdim])
+    if jdim < len(gpd):
+        t = t + gpd[jdim] * ppT[jdim:jdim + 1, :]
+    for c, (i, jj) in enumerate(_off_pairs(d)):
+        if i == jdim and jj < len(gpd):
+            t = t + gpd[jj] * ppT[d + c:d + c + 1, :]
+        elif jj == jdim and i < len(gpd):
+            t = t + gpd[i] * ppT[d + c:d + c + 1, :]
+    return t
+
+
+def _dn_accumulate(q, ppT, dout, v, d, vdim, clamp, njac, use_val):
+    """(dmp (d + np, N), dv (N, vdim)) for one cotangent block — the TPU
+    kernels' _bwd_cotangents + _dn_accumulate on whole planes."""
+    delta, g, m, pd = q
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    gquad, gpd, mg = _cotangents(q, dout, v, vdim, njac, use_val)
 
     if use_val:
         dv = torch.where(m, g - clamp, zero).T @ dout[:, :vdim]
@@ -243,17 +278,8 @@ def _dn_accumulate(q, ppT, dout, v, d, vdim, clamp, njac, use_val):
         dv = dv + (-mg * pd[k]).T @ dout[:, (1 + k) * vdim:(2 + k) * vdim]
 
     pairs = _off_pairs(d)
-    rows = []
-    for jdim in range(d):                       # dmu_j = -sum_b dL/dx_j
-        t = gquad * (2.0 * pd[jdim])
-        if jdim < len(gpd):
-            t = t + gpd[jdim] * ppT[jdim:jdim + 1, :]
-        for c, (i, jj) in enumerate(pairs):
-            if i == jdim and jj < len(gpd):
-                t = t + gpd[jj] * ppT[d + c:d + c + 1, :]
-            elif jj == jdim and i < len(gpd):
-                t = t + gpd[i] * ppT[d + c:d + c + 1, :]
-        rows.append(-t.sum(0))
+    # dmu_j = -sum_b dL/dx_j
+    rows = [-_dxj(gquad, gpd, pd, ppT, d, j).sum(0) for j in range(d)]
     for k in range(d):                          # diagonal precisions
         t = gquad * delta[k] * delta[k]
         if k < njac:
@@ -271,15 +297,16 @@ def _dn_accumulate(q, ppT, dout, v, d, vdim, clamp, njac, use_val):
 
 
 def _bwd_plain(tmask, x, muT, ppT, values, douts, clamp, njac, use_val):
-    """[(dmp, dv) per cotangent], summed over the query-row blocks."""
+    """[(dmp, dv) per cotangent], summed over the query-row blocks (zero
+    for no rows)."""
     d, vdim = x.shape[1], values.shape[1]
-    acc = None
+    acc = [(muT.new_zeros((d + ppT.shape[0], muT.shape[1])),
+            values.new_zeros(values.shape)) for _ in douts]
     for tm, xb, db in _row_blocks(tmask, x, *douts):
         q = _tile_quantities(tm, xb, muT, ppT, d, clamp)
         part = [_dn_accumulate(q, ppT, dout, values, d, vdim, clamp, njac,
                                use_val) for dout in db]
-        acc = part if acc is None else [(a[0] + p[0], a[1] + p[1])
-                                        for a, p in zip(acc, part)]
+        acc = [(a[0] + p[0], a[1] + p[1]) for a, p in zip(acc, part)]
     return acc
 
 
@@ -296,6 +323,33 @@ def bwd_dn2_plain(tmask, x, muT, ppT, values, dout1, dout2, clamp: float,
     d = x.shape[1]
     return tuple((dmp[:d], dmp[d:], dv) for dmp, dv in _bwd_plain(
         tmask, x, muT, ppT, values, (dout1, dout2), clamp, njac, use_val))
+
+
+def bwd_dn3_plain(tmask, x, muT, ppT, values, dout1, dout2, dout3,
+                  clamp: float, njac: int, data_rows: int,
+                  use_val12: bool = True):
+    """Blocks 1 and 2 over the first ``data_rows`` rows, block 3 (value
+    only) over the rest."""
+    d = x.shape[1]
+    i = data_rows // (x.shape[0] // tmask.shape[0])
+    r = slice(0, data_rows), slice(data_rows, None)
+    blocks = _bwd_plain(tmask[:i], x[r[0]], muT, ppT, values,
+                        (dout1[r[0]], dout2[r[0]]), clamp, njac, use_val12)
+    blocks += _bwd_plain(tmask[i:], x[r[1]], muT, ppT, values,
+                         (dout3[r[1]],), clamp, 0, True)
+    return tuple((dmp[:d], dmp[d:], dv) for dmp, dv in blocks)
+
+
+def bwd_dx_plain(tmask, x, muT, ppT, values, dout, clamp: float, njac: int):
+    """dL/dx (B, d) for the cotangent ``dout`` of the forward's columns."""
+    d, vdim = x.shape[1], values.shape[1]
+    parts = []
+    for tm, xb, (db,) in _row_blocks(tmask, x, dout):
+        q = _tile_quantities(tm, xb, muT, ppT, d, clamp)
+        gquad, gpd, _ = _cotangents(q, db, values, vdim, njac, True)
+        parts.append(torch.stack([_dxj(gquad, gpd, q[3], ppT, d, j).sum(1)
+                                  for j in range(d)], 1))
+    return torch.cat(parts) if parts else x.new_zeros(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -369,10 +423,67 @@ def gsr_bwd_dn2(tmask, x, muT, ppT, values, dout1, dout2, clamp: float,
     return (dmp1[:d], dmp1[d:], dv1), (dmp2[:d], dmp2[d:], dv2)
 
 
+def gsr_bwd_dx(tmask, x, muT, ppT, values, dout, clamp: float, njac: int):
+    """dL/dx (B, d) for the cotangent ``dout`` (B, (1+njac)*vdim)."""
+    d, vdim, B, N = _check(tmask, x, muT, ppT, values, njac, (dout,))
+    if not x.is_cuda:
+        return bwd_dx_plain(tmask, x, muT, ppT, values, dout, clamp, njac)
+    lib = _lib()
+    dx = torch.empty((B, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.gsr_bwd_dx(_ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
+                            _ptr(values), _ptr(dout), _ptr(dx), B, N, d,
+                            vdim, njac, float(clamp), _stream(x))
+    _raise_on(rc, "gsr_bwd_dx")
+    launches["gsr_bwd_dx"] += 1
+    return dx
+
+
+def gsr_bwd_dn3(tmask, x, muT, ppT, values, dout1, dout2, dout3,
+                clamp: float, njac: int, data_rows: int,
+                use_val12: bool = True):
+    """Three (dmuT, dppT, dv) blocks in one sweep over the fused [data;
+    boundary] rows: blocks 1 and 2 from the (val, jac) cotangents ``dout1``
+    and ``dout2`` on the first ``data_rows`` rows (a multiple of the query
+    tile), block 3 from the value-only cotangent ``dout3`` (B, vdim) on the
+    rows after them. ``use_val12=False`` promises zero value cotangents in
+    blocks 1 and 2."""
+    if not use_val12 and njac == 0:
+        raise ValueError("use_val12=False needs Jacobian columns")
+    d, vdim, B, N = _check(tmask, x, muT, ppT, values, njac, (dout1, dout2))
+    _check(tmask, x, muT, ppT, values, 0, (dout3,))
+    tb = B // tmask.shape[0]
+    if not (0 <= data_rows <= B and data_rows % TB == 0
+            and data_rows % tb == 0):
+        raise ValueError(f"data_rows {data_rows} must be a multiple of the "
+                         f"query tile ({TB}) in [0, B={B}]")
+    if not x.is_cuda:
+        return bwd_dn3_plain(tmask, x, muT, ppT, values, dout1, dout2,
+                             dout3, clamp, njac, data_rows, use_val12)
+    lib = _lib()
+    nmp = d + ppT.shape[0]
+    dmp = [torch.empty((nmp, N), dtype=torch.float32, device=x.device)
+           for _ in range(3)]
+    dv = [torch.empty((N, vdim), dtype=torch.float32, device=x.device)
+          for _ in range(3)]
+    with torch.cuda.device(x.device):
+        rc = lib.gsr_bwd_dn3(_ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
+                             _ptr(values), _ptr(dout1), _ptr(dout2),
+                             _ptr(dout3), _ptr(dmp[0]), _ptr(dv[0]),
+                             _ptr(dmp[1]), _ptr(dv[1]), _ptr(dmp[2]),
+                             _ptr(dv[2]), B, N, d, vdim, njac,
+                             int(use_val12), int(data_rows), float(clamp),
+                             _stream(x))
+    _raise_on(rc, "gsr_bwd_dn3")
+    launches["gsr_bwd_dn3"] += 1
+    return tuple((m[:d], m[d:], v) for m, v in zip(dmp, dv))
+
+
 class _FusedGsrCentered(torch.autograd.Function):
-    """Forward kernel with the per-Gaussian backward kernel as its VJP —
-    the port of the reference's ``fused_gsr_centered`` custom VJP with
-    ``need_dx=False``."""
+    """Forward kernel with the backward kernels as its VJP — the port of
+    the reference's ``fused_gsr_centered`` custom VJP. The dL/dx kernel
+    runs only when x needs a gradient (the reference's static
+    ``need_dx``)."""
 
     @staticmethod
     def forward(ctx, tmask, x, muT, ppT, values, clamp, njac):
@@ -382,16 +493,19 @@ class _FusedGsrCentered(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        if ctx.needs_input_grad[1]:
-            raise NotImplementedError(
-                "dL/dx (the reference's _bwd_dx_kernel) is not ported")
         tmask, x, muT, ppT, values = ctx.saved_tensors
-        dmuT, dppT, dv = gsr_bwd_dn(tmask, x, muT, ppT, values,
-                                    dout.contiguous(), ctx.clamp, ctx.njac)
-        return None, None, dmuT, dppT, dv, None, None
+        dout = dout.contiguous()
+        dx = dmuT = dppT = dv = None
+        if ctx.needs_input_grad[1]:
+            dx = gsr_bwd_dx(tmask, x, muT, ppT, values, dout, ctx.clamp,
+                            ctx.njac)
+        if any(ctx.needs_input_grad[2:5]):
+            dmuT, dppT, dv = gsr_bwd_dn(tmask, x, muT, ppT, values, dout,
+                                        ctx.clamp, ctx.njac)
+        return None, dx, dmuT, dppT, dv, None, None
 
 
 def fused_gsr_centered(tmask, x, muT, ppT, values, clamp: float, njac: int):
-    """Differentiable in (muT, ppT, values); x is a constant."""
+    """Differentiable in (muT, ppT, values) and in x."""
     return _FusedGsrCentered.apply(tmask, x, muT, ppT, values, float(clamp),
                                    int(njac))

@@ -1,14 +1,18 @@
-"""2D boundary samplers (the scenes of this port use the free-slip domain
-walls only).
+"""2D boundary samplers: the free-slip domain walls, and Karman's cylinder
+and inflow/outflow edges.
 
-A sampler is ``sample(gen, n, adv) -> (points, normals, target flux)`` in
-scaled (target) space; ``adv`` is the current unscaled advance domain as a
-(4,) tensor (x_min, x_max, y_min, y_max). The random draws come from the
-caller's ``torch.Generator``; ``sample_on_domain_boundary_2`` takes them
-as an argument, so tests can feed the JAX package's draws.
+Two sampler types, in scaled (target) space:
+  type-1 Dirichlet:   ``sample(gen, n, adv) -> (points, target velocity)``
+  type-2 normal flux: ``sample(gen, n, adv) -> (points, normals, flux)``
+``adv`` is the current unscaled advance domain as a (4,) tensor (x_min,
+x_max, y_min, y_max); Karman grows it every frame. The random draws come
+from the caller's ``torch.Generator``; the functions below the samplers
+take them as arguments, so tests can feed the JAX package's draws.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -38,12 +42,68 @@ def sample_on_domain_boundary_2(u, adv_domain, scaling_factor):
     return data, normal, zero
 
 
+def sample_on_sphere(u, x, y, r):
+    """(points, outward normals) on the circle of centre (x, y) and radius
+    r at angle fractions ``u`` in [0, 1)."""
+    theta = u * 2.0 * math.pi
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([r * c + x, r * s + y], -1), torch.stack([c, s], -1)
+
+
+def karman_cylinder(u, info, scaling_factor):
+    """Dirichlet u = 0 on the cylinder (reference 2D/init_cond.py:374-375):
+    n points at angle fractions ``u``."""
+    d, _ = sample_on_sphere(u, *info["obstacle_pos"], info["obstacle_radius"])
+    return d * scaling_factor, torch.zeros_like(d)
+
+
+def karman_edges(u1, u2, adv, info, scaling_factor):
+    """The 5-edge flux sampler with signed inflow and outflow (reference
+    2D/init_cond.py:377-405): 5n points at fractions ``u1`` along x (lower
+    and upper edges) and ``u2`` along y (left and right edges of the advance
+    domain and the left edge of the visualize domain)."""
+    x_min, x_max, y_min, y_max = adv[0], adv[1], adv[2], adv[3]
+    t = u1 * (x_max - x_min) + x_min
+    t2 = u2 * (y_max - y_min) + y_min
+    vmag = info["v_magnitude"]
+    zeros, ones = torch.zeros_like(t), torch.ones_like(t)
+    data = torch.cat([
+        torch.stack([t, y_min * ones], -1),                   # lower
+        torch.stack([t, y_max * ones], -1),                   # upper
+        torch.stack([x_min * ones, t2], -1),                  # left
+        torch.stack([x_max * ones, t2], -1),                  # right
+        torch.stack([info["visualize_x_min"] * ones, t2], -1),  # viz left
+    ])
+    normal = torch.cat([
+        torch.stack([zeros, ones], -1),
+        torch.stack([zeros, -ones], -1),
+        torch.stack([ones, zeros], -1),
+        torch.stack([-ones, zeros], -1),
+        torch.stack([ones, zeros], -1),
+    ])
+    nval = torch.cat([zeros, zeros, vmag * ones, -vmag * ones, vmag * ones])
+    return data * scaling_factor, normal, nval * scaling_factor
+
+
 def make_samplers(name, info, scaling_factor):
     """(sampler_1 | None, sampler_2 | None) for a scene."""
+    def uniform(gen, n, adv):
+        return torch.rand((n,), generator=gen, device=adv.device)
+
     def domain_only_2(gen, n, adv):
-        u = torch.rand((n,), generator=gen, device=adv.device)
-        return sample_on_domain_boundary_2(u, adv, scaling_factor)
+        return sample_on_domain_boundary_2(uniform(gen, n, adv), adv,
+                                           scaling_factor)
 
     if name in ("taylor_green", "taylor_vortex", "leapfrog"):
         return None, domain_only_2
+    if name == "karman":
+        def s1(gen, n, adv):
+            return karman_cylinder(uniform(gen, n, adv), info,
+                                   scaling_factor)
+
+        def s2(gen, n, adv):
+            u1 = uniform(gen, n, adv)
+            return karman_edges(u1, uniform(gen, n, adv), adv, info,
+                                scaling_factor)
+        return s1, s2
     raise KeyError(f"2D scene {name!r} is not ported yet")

@@ -64,6 +64,12 @@ def leapfrog_single(x, info):
     return out
 
 
+def karman_single(x, info):
+    """Uniform inflow (reference 2D/init_cond.py:252-255)."""
+    zero = 0.0 * x[0]
+    return torch.stack([zero + info["v_magnitude"], zero])
+
+
 def make_field(name, info):
     """(value_fn, jac_fn) batched over (B, 2) points."""
     if name == "taylor_green":
@@ -72,4 +78,6 @@ def make_field(name, info):
         return batched(partial(taylor_vortex_single, info=info))
     if name == "leapfrog":
         return batched(partial(leapfrog_single, info=info))
+    if name == "karman":
+        return batched(partial(karman_single, info=info))
     raise KeyError(f"2D field {name!r} is not ported yet")

@@ -1,7 +1,8 @@
 """2D scene registry: domains, particle counts, physics constants, fields
 and boundary samplers. The data are the JAX package's (reference
-2D/init_cond.py); the port has ``taylor_vortex``, ``leapfrog`` and
-``taylor_green``.
+2D/init_cond.py); the port has ``taylor_vortex``, ``leapfrog``,
+``taylor_green`` and ``karman``, whose advance domain grows with the
+inflow every frame (``Scene2D.extra_advect``, ``advance_domain_at``).
 """
 
 from __future__ import annotations
@@ -18,11 +19,14 @@ _INITIALIZE_DOMAIN = {
     "taylor_green": (0.0, 2.0 * PI, 0.0, 2.0 * PI),
     "taylor_vortex": (-5.0, 5.0, -5.0, 5.0),
     "leapfrog": (-5.0, 5.0, -5.0, 5.0),
+    "karman": (-6.10321, 1.906778, -0.598466, 0.60349),
 }
+_VISUALIZE_DOMAIN = dict(_INITIALIZE_DOMAIN)
+_VISUALIZE_DOMAIN["karman"] = (-1.10321, 1.906778, -0.598466, 0.60349)
 _PARTICLE_COUNT = {"taylor_green": (24, 24), "taylor_vortex": (71, 71),
-                   "leapfrog": (71, 71)}
+                   "leapfrog": (71, 71), "karman": (400, 60)}
 _VISUALIZE_RES = {"taylor_green": (200, 200), "taylor_vortex": (200, 200),
-                  "leapfrog": (200, 200)}
+                  "leapfrog": (200, 200), "karman": (501, 200)}
 _OTHER_INFO = {
     "taylor_green": {},
     "taylor_vortex": {
@@ -33,6 +37,12 @@ _OTHER_INFO = {
         "U": 0.5, "a": 0.3,
         "vortex_pos1": (-3.0, -3.0), "vortex_pos2": (-1.0, -3.0),
         "vortex_pos3": (1.0, -3.0), "vortex_pos4": (3.0, -3.0),
+    },
+    "karman": {
+        "v_magnitude": 0.5,
+        "obstacle_pos": (-0.80356845, -0.00502235),
+        "obstacle_radius": 0.04553178393357534,
+        "d0": PI / 15.0,
     },
 }
 
@@ -48,8 +58,8 @@ def _scaling_factor(domain) -> float:
 class Scene2D:
     name: str
     initialize_domain: Tuple[float, float, float, float]
-    # fixed for these scenes (Karman, not ported yet, grows it per frame)
-    advance_domain: Tuple[float, float, float, float]
+    advance_domain: Tuple[float, float, float, float]  # initial value
+    visualize_domain: Tuple[float, float, float, float]
     particle_count: Tuple[int, int]
     visualize_res: Tuple[int, int]
     info: Dict
@@ -68,17 +78,40 @@ class Scene2D:
     def target_velocity_jac(self, x):
         return self.velocity_jac(x / self.scaling_factor)
 
+    def extra_advect(self, adv_domain, dt):
+        """The advance domain after one more frame: Karman's grows with the
+        inflow up to the visualize domain (reference
+        2D/init_cond.py:267-271); the others keep theirs."""
+        if self.name != "karman":
+            return adv_domain
+        x0 = min(adv_domain[0] + dt * self.info["v_magnitude"],
+                 self.visualize_domain[0])
+        return (x0,) + tuple(adv_domain[1:])
+
+    def advance_domain_at(self, start_frame: int, dt: float):
+        """The advance domain at ``start_frame``, for a resume (reference
+        ``karman_extra_loader``, 2D/init_cond.py:284-298)."""
+        if self.name != "karman":
+            return self.advance_domain
+        x0 = min(self.initialize_domain[0]
+                 + start_frame * dt * self.info["v_magnitude"],
+                 self.visualize_domain[0])
+        return (x0,) + tuple(self.advance_domain[1:])
+
 
 def get_scene_2d(name: str) -> Scene2D:
     if name not in _INITIALIZE_DOMAIN:
         raise KeyError(f"unknown or not yet ported 2D scene {name!r}; "
                        f"valid: {sorted(_INITIALIZE_DOMAIN)}")
     info = dict(_OTHER_INFO[name])
+    if name == "karman":
+        info["visualize_x_min"] = _VISUALIZE_DOMAIN["karman"][0]
     vel, jac = fields2d.make_field(name, info)
     sf = _scaling_factor(_INITIALIZE_DOMAIN[name])
     s1, s2 = boundaries2d.make_samplers(name, info, sf)
     dom = _INITIALIZE_DOMAIN[name]
     return Scene2D(name=name, initialize_domain=dom, advance_domain=dom,
+                   visualize_domain=_VISUALIZE_DOMAIN[name],
                    particle_count=_PARTICLE_COUNT[name],
                    visualize_res=_VISUALIZE_RES[name], info=info,
                    velocity=vel, velocity_jac=jac,

@@ -9,9 +9,16 @@ positions, as in the reference.
 3D: the RK4 backtrace carries the deformation gradient dpsi of the flow
 map; the vorticity is pulled back through it, omega = (dpsi)^{-1} omega_b,
 and the helicity target is hel = v_b . omega_b.
+
+Under ``GF_FUSED_RK4=1`` (read at call time) the 2D target on the card
+takes the fused RK4 kernel: the backtrace and the endpoint's Jacobian in
+one launch, over every Gaussian, in place of five tile-culled field
+evaluations. The default is the staged path, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -36,6 +43,9 @@ def advected_vorticity_2d(vel_mix: GaussianMixture, spec: FieldSpec,
                           presorted: bool = False) -> torch.Tensor:
     """Target vorticity at x, (B,); adv_lo/adv_hi are the scaled
     advance-domain bounds as (2,) tensors."""
+    if field._use_kernel(x) and os.environ.get("GF_FUSED_RK4", "0") == "1":
+        bk_x, _, dv = field.rk4_valjac_fused(vel_mix, spec, x, -dt)
+        return _finish_2d(bk_x, dv, adv_lo, adv_hi)
     bk_x = rk4_pos_stages(
         lambda p: field.value(vel_mix, spec, p, presorted=presorted,
                               need_dx=False), x, -dt)

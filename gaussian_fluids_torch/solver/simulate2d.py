@@ -1,6 +1,7 @@
-"""2D end-to-end flows: initialization and the frame loop
-clone -> advect -> project -> save, as in the JAX package's
-``solver/simulate2d.py`` run with ``--no_viz`` (figures are not ported).
+"""2D end-to-end flows: initialization (with Karman's zero-dt projection)
+and the frame loop clone -> advect -> project -> save, as in the JAX
+package's ``solver/simulate2d.py`` run with ``--no_viz`` (figures are not
+ported).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.io import checkpoint
-from gaussian_fluids_torch.models.mixture import GaussianMixture
+from gaussian_fluids_torch.models.mixture import GaussianMixture, mixture_of
 from gaussian_fluids_torch.scenes import get_scene_2d
 from gaussian_fluids_torch.solver.advect_field import advect_covector_field_2d
 from gaussian_fluids_torch.solver.clone import clone_velocity_field
@@ -21,6 +22,9 @@ from gaussian_fluids_torch.solver.fit import (FIT_LRS_2D,
                                              fit_velocity_with_gradient)
 from gaussian_fluids_torch.solver.project import ProjectWeights, project_2d
 from gaussian_fluids_torch.utils.grids import grid_points_2d
+
+LR_RATIO = 1.201956  # reference 2D/initialize.py:118,163
+
 
 def _generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
@@ -42,13 +46,48 @@ def initialize_2d(init_cond: str, out_dir: str, max_epoch: int = 10000,
     spec = FieldSpec.create(lo, hi, pos.shape[0], d=2, vdim=2)
     mix = GaussianMixture.create(pos, spec, device=device).spatially_sorted()
     print(f"Particle count: {pos.shape[0]} ({x_n} x {y_n})")
-    mix = fit_velocity_with_gradient(
-        mix, spec, scene.target_velocity, scene.target_velocity_jac, lo, hi,
-        lrs=dict(FIT_LRS_2D), batch_size=batch_size, max_epoch=max_epoch,
-        gen=_generator(seed, device), verbose=verbose)
+    gen = _generator(seed, device)
+    if init_cond == "karman":
+        mix = _init_karman(mix, spec, scene, gen, max_epoch, batch_size,
+                           verbose)
+    else:
+        mix = fit_velocity_with_gradient(
+            mix, spec, scene.target_velocity, scene.target_velocity_jac, lo,
+            hi, lrs=dict(FIT_LRS_2D), batch_size=batch_size,
+            max_epoch=max_epoch, gen=gen, verbose=verbose)
     checkpoint.save_checkpoint(
         os.path.join(out_dir, "gaussian_velocity_0.pt"), mix, spec)
     return mix, spec
+
+
+def _init_karman(mix, spec, scene, gen, max_epoch, batch_size, verbose):
+    """Karman's initialization: fit the uniform inflow, then a zero-dt
+    projection against a frozen copy carves the cylinder (reference
+    2D/initialize.py:162-185)."""
+    sf = scene.scaling_factor
+    x0, x1, y0, y1 = scene.initialize_domain
+    lo, hi = (x0 * sf, y0 * sf), (x1 * sf, y1 * sf)
+    mix = fit_velocity_with_gradient(
+        mix, spec, scene.target_velocity, scene.target_velocity_jac, lo, hi,
+        lrs={"positions": 1.6e-3, "scalings": 5e-3,
+             "rotations": 5e-3 * LR_RATIO, "values": 5e-3},
+        batch_size=batch_size, max_epoch=max_epoch, gen=gen, verbose=verbose)
+    frozen = mixture_of({k: p.detach().clone()
+                         for k, p in mix.params().items()}, mix.alive)
+    xnv, ynv = scene.visualize_res
+    adv = scene.advance_domain
+    test_x = grid_points_2d(adv[0] * sf, adv[1] * sf, adv[2] * sf,
+                            adv[3] * sf, xnv, ynv)
+    return project_2d(
+        mix, spec, frozen, 0.0, scene=scene, adv_domain=adv, test_x=test_x,
+        gen=gen,
+        weights=ProjectWeights(vor=1.0, div=10.0, aniso=10.0, vol=10.0,
+                               delta_pos=0.0),
+        boundary_lambda=10.0,
+        lrs={"positions": 1e-4, "scalings": 1e-5,
+             "rotations": 1e-5 * LR_RATIO, "values": 1e-4},
+        batch_size=batch_size, max_epoch=min(10000, max_epoch),
+        patience=10000, verbose=verbose)[0]
 
 
 def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
@@ -57,12 +96,14 @@ def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
                test_res: Optional[tuple] = None, device="cuda"):
     """Frame loop from gaussian_velocity_{start_frame}.pt; writes one
     checkpoint per frame. Returns (mix, spec, frames), ``frames`` holding
-    per frame its number, alive count, seconds and the last test metrics
-    of the clone and projection phases."""
+    per frame its number, alive count, seconds (in all and per phase), the
+    advance domain after it and the last test metrics of the clone and
+    projection phases. The advance domain starts as the scene's at
+    ``start_frame`` and moves after each advect (Karman's inflow)."""
     device = torch.device(device)
     scene = get_scene_2d(init_cond)
     sf = scene.scaling_factor
-    adv_domain = scene.advance_domain
+    adv_domain = scene.advance_domain_at(start_frame, dt)
     mix, spec = checkpoint.load_checkpoint(
         os.path.join(out_dir, f"gaussian_velocity_{start_frame}.pt"),
         device=device)
@@ -85,6 +126,7 @@ def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
             verbose=verbose)
         ftc = time.perf_counter()
         new_mix = advect_covector_field_2d(new_mix, spec, dt)
+        adv_domain = scene.extra_advect(adv_domain, dt)
         fta = time.perf_counter()
         w = ProjectWeights(vor=1.0, div=1.0, aniso=10.0, vol=10.0,
                            delta_pos=0.5)
@@ -106,6 +148,10 @@ def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
                   f"(N={n_alive}/{mix.capacity})", flush=True)
         frames.append({"frame": cnt, "n_alive": n_alive,
                        "capacity": mix.capacity, "seconds": ft2 - ft0,
+                       "clone_seconds": ftc - ft0,
+                       "advect_seconds": fta - ftc,
+                       "project_seconds": ft1 - fta,
+                       "advance_domain": adv_domain,
                        "clone": clone_m, "project": proj_m})
         cnt += 1
         t += dt

@@ -1,5 +1,5 @@
-"""Seeded states at the sizes of the main paths — Leapfrog-2D and
-Ring-Collide (3D): the inputs at which the smoke run checks each CUDA
+"""Seeded states at the sizes of the main paths — Leapfrog-2D, Karman-2D
+and Ring-Collide (3D): the inputs at which the smoke run checks each CUDA
 kernel against its plain version, the card tests repeat those checks, and
 the epoch profiler times a training epoch."""
 
@@ -56,5 +56,34 @@ def ring_collide_state(device, seed: int = 0, n_queries: int = 8192,
         (0.1 * rng.randn(cap, 3)).astype(np.float32),
         device=device) * mix.alive[:, None]
     x = rng.uniform(0, 1, (n_queries, 3)).astype(np.float32)
+    x = torch.as_tensor(x[np.argsort(x[:, 0])], device=device)
+    return mix, spec, x
+
+
+def karman_state(device, seed: int = 0, n_queries: int = 512):
+    """A Karman-2D-sized mixture (the scene's 400x60 grid over its scaled
+    initialize domain, 24,000 Gaussians, capacity 24,576, sorted along x)
+    with seeded jitter of shapes and values around the uniform inflow, and
+    ``n_queries`` sorted query points in the domain (the scene's batch,
+    512, by default)."""
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    scene = get_scene_2d("karman")
+    sf = scene.scaling_factor
+    x0, x1, y0, y1 = scene.initialize_domain
+    lo, hi = (x0 * sf, y0 * sf), (x1 * sf, y1 * sf)
+    rng = np.random.RandomState(seed)
+    pos = grid_points_2d(lo[0], hi[0], lo[1], hi[1], *scene.particle_count)
+    spec = FieldSpec.create(lo, hi, pos.shape[0], d=2, vdim=2)
+    mix = GaussianMixture.create(pos, spec, device=device).spatially_sorted()
+    cap = mix.capacity
+    mix.scalings += torch.as_tensor(
+        rng.uniform(-0.3, 0.3, (cap, 2)).astype(np.float32), device=device)
+    mix.rotations += torch.as_tensor(
+        rng.uniform(-1, 1, cap).astype(np.float32), device=device)
+    inflow = np.float32([scene.info["v_magnitude"] * sf, 0.0])
+    mix.values = torch.as_tensor(
+        (0.1 * inflow[0] * rng.randn(cap, 2) + inflow).astype(np.float32),
+        device=device) * mix.alive[:, None]
+    x = rng.uniform(lo, hi, (n_queries, 2)).astype(np.float32)
     x = torch.as_tensor(x[np.argsort(x[:, 0])], device=device)
     return mix, spec, x

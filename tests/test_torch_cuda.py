@@ -3,8 +3,10 @@ PyTorch version — the centered kernels at Leapfrog-2D shapes and at d = 3,
 the work-list (cells) kernels at Ring-Collide shapes (B = 8192, N =
 75,776), with their overflow branch, and the banded value kernel of the
 density replay at its production chunk (262,144 grid nodes), with its
-guard's full sweep — the wrappers' refusals, the field through the
-kernels, one fit, clone and projection epoch, 2D and 3D, through the
+guard's full sweep, the dL/dx kernel at d = 2 and 3, the triple-cotangent
+backward and the fused RK4 backtrace at Karman-2D shapes (B = 512, N =
+24,576) — the wrappers' refusals, the field through the kernels, query
+gradients and the fused projection heads through the kernels, one fit, clone and projection epoch, 2D and 3D, through the
 kernels against the dense path in float64, and the replay's RK4 backtrace
 through the banded kernel against the dense one in float64. Skips without a
 GPU. Imports neither JAX nor the JAX package, so it runs on the card's
@@ -21,12 +23,14 @@ import numpy as np
 import pytest
 import torch
 
-from gaussian_fluids_torch.utils.seeded_state import (leapfrog_state,
+from gaussian_fluids_torch.utils.seeded_state import (karman_state,
+                                                      leapfrog_state,
                                                       ring_collide_state)
 from gaussian_fluids_torch.ops import field as tf
 from gaussian_fluids_torch.ops import gsr_banded as tb
 from gaussian_fluids_torch.ops import gsr_cells as tc
 from gaussian_fluids_torch.ops import gsr_centered as tk
+from gaussian_fluids_torch.ops import rk4_fused as tr
 from gaussian_fluids_torch.solver import simulate3d as tsim
 from gaussian_fluids_torch.utils.grids import axis_nodes
 
@@ -336,3 +340,174 @@ def test_density_backtrace_through_kernel_matches_dense_f64(cuda_device):
     assert tb.launches["gsr_value_banded"] == 4
     assert float((got.double() - want).abs().max()) <= 1e-5
     assert float((want - x.double()).abs().max()) > 1e-4   # it moved
+
+
+# ---- the last three kernels: dL/dx, the triple backward, fused RK4 ----
+
+def _inputs_dx(device, d):
+    """Centered-kernel inputs and a cotangent at d = 2 (Karman-2D shapes)
+    or d = 3 (Leapfrog-3D shapes: B = 8192, N = 1024)."""
+    if d == 2:
+        mix, spec, x = karman_state(device, seed=101)
+    else:
+        mix, spec, x = ring_collide_state(device, seed=102, side=10)
+    x_p, _, _, mu_p, pp_p, v_p, tmask = tf._centered_prep(
+        mix, spec, x, tk.TB, tk.TN, presorted=True)
+    dout = torch.as_tensor(np.random.RandomState(103).randn(
+        x_p.shape[0], (1 + d) * d).astype(np.float32), device=device)
+    return (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+            v_p.contiguous()), dout, spec.clamp_threshold
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("njac", [0, "d"])
+def test_bwd_dx_matches_plain(cuda_device, d, njac):
+    njac = d if njac == "d" else 0
+    args, dout, clamp = _inputs_dx(cuda_device, d)
+    dout = dout[:, :(1 + njac) * d].contiguous()
+    want = tk.bwd_dx_plain(*args, dout, clamp, njac)
+    assert float(want.abs().max()) > 0
+    _close([tk.gsr_bwd_dx(*args, dout, clamp, njac)], [want])
+
+
+def _karman_heads_inputs(device, n_bnd=3072):
+    """The fused [data; boundary] geometry at Karman-2D width: 512 data
+    rows, ``n_bnd`` sorted boundary rows along the domain's edges, and
+    cotangents laid out as ``field.epoch_heads_grads`` lays them out."""
+    mix, spec, x = karman_state(device, seed=104)
+    rng = np.random.RandomState(105)
+    lo, hi = np.float32(spec.lo), np.float32(spec.hi)
+    xb = rng.uniform(lo, hi, (n_bnd, 2)).astype(np.float32)
+    xb[: n_bnd // 2, 1] = lo[1]
+    xb = torch.as_tensor(xb[np.argsort(xb[:, 0])], device=device)
+    xc = torch.cat([tf._pad_axis(x, tk.TB), xb])
+    x_p, _, _, mu_p, pp_p, v_p, tmask = tf._centered_prep(
+        mix, spec, xc, tk.TB, tk.TN, presorted=True)
+    B = x_p.shape[0]
+    douts = [torch.zeros((B, 6), device=device) for _ in range(2)]
+    dout3 = torch.zeros((B, 2), device=device)
+    for o in douts:
+        o[:512] = torch.as_tensor(rng.randn(512, 6).astype(np.float32),
+                                  device=device)
+    dout3[512:512 + n_bnd] = torch.as_tensor(
+        rng.randn(n_bnd, 2).astype(np.float32), device=device)
+    return (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+            v_p.contiguous()), douts, dout3, spec.clamp_threshold
+
+
+@pytest.mark.parametrize("data_rows", [0, 512, "B"])
+@pytest.mark.parametrize("use_val12", [True, False])
+def test_bwd_dn3_matches_plain(cuda_device, data_rows, use_val12):
+    """Data rows at 0 (every tile a boundary tile), at the data segment's
+    end, and at B (no boundary tile)."""
+    args, douts, dout3, clamp = _karman_heads_inputs(cuda_device)
+    rows = args[1].shape[0] if data_rows == "B" else data_rows
+    got = tk.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2, rows,
+                         use_val12=use_val12)
+    want = tk.bwd_dn3_plain(*args, *douts, dout3, clamp, 2, rows,
+                            use_val12=use_val12)
+    _close([t for blk in got for t in blk], [t for blk in want for t in blk])
+
+
+def test_rk4_fused_matches_plain(cuda_device):
+    """Karman-2D width with dead Gaussian rows (killed, and moved out of
+    the domain) besides the capacity's padded tail, and padded query rows:
+    the kernel against its plain twin, forward and backward in time."""
+    mix, spec, x = karman_state(cuda_device, seed=106)
+    mix.alive[100:400] = False
+    mix.positions[500:520] = 1e3
+    mu_p, pp_p, v_p = tf._padded_param_rows(mix, spec, tk.TN)
+    args = (mu_p.T.contiguous(), pp_p.T.contiguous(), v_p.contiguous())
+    xq = tf._pad_axis(x, 64)
+    xq = torch.cat([xq, torch.zeros((5, 2), device=cuda_device)])
+    tr.reset_launches()
+    for dt in (-0.01, 0.02):
+        for njac in (2, 0):
+            got = tr.fused_rk4(xq, *args, dt, spec.clamp_threshold, njac)
+            want = tr.rk4_plain(xq, *args, dt, spec.clamp_threshold, njac)
+            assert float((want[0] - xq).abs().max()) > 1e-3   # it moved
+            _close(got, want)
+    assert tr.launches["rk4_fused"] == 4
+
+
+def test_rest_wrappers_refuse(cuda_device):
+    args, douts, dout3, clamp = _karman_heads_inputs(cuda_device, 512)
+    with pytest.raises(ValueError):          # data_rows off the query tile
+        tk.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2, 12)
+    with pytest.raises(ValueError):          # data_rows beyond B
+        tk.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2,
+                       args[1].shape[0] + 8)
+    _, x, muT, ppT, v = args
+    with pytest.raises(ValueError):          # not a velocity field
+        tr.fused_rk4(x, muT, ppT, v[:, :1].contiguous(), -0.01, clamp, 2)
+    with pytest.raises(ValueError):          # operands on two devices
+        tr.fused_rk4(x, muT.cpu(), ppT, v, -0.01, clamp, 2)
+    with pytest.raises(ValueError):          # not contiguous
+        tr.fused_rk4(x, muT, ppT, torch.cat([v, v], 1)[:, ::2], -0.01,
+                     clamp, 2)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_query_gradient_through_kernels_matches_dense_f64(cuda_device, d):
+    """dL/dx through field.value_and_jac (jac summed) and field.value on
+    the card (the dL/dx kernel) against float64 dense autograd: 1e-4 of
+    the largest entry."""
+    if d == 2:
+        mix, spec, x = karman_state(cuda_device, seed=107)
+    else:
+        mix, spec, x = ring_collide_state(cuda_device, seed=108, side=10,
+                                          n_queries=1024)
+    m64 = tf.mixture_of({k: p.double() for k, p in mix.params().items()},
+                        mix.alive)
+    for f, f64 in ((lambda m, q: tf.value_and_jac(m, spec, q)[1],
+                    lambda m, q: tf.value_and_jac_dense(m, spec, q)[1]),
+                   (lambda m, q: tf.value(m, spec, q),
+                    lambda m, q: tf.value_dense(m, spec, q))):
+        tk.reset_launches()
+        xg = x.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(f(mix, xg).sum(), [xg])
+        assert tk.launches["gsr_bwd_dx"] == 1
+        assert tk.launches["gsr_bwd_dn"] == 0
+        x64 = x.double().requires_grad_(True)
+        (want,) = torch.autograd.grad(f64(m64, x64).sum(), [x64])
+        _close([gx.double()], [want])
+
+
+def test_epoch_heads_grads_through_kernels(cuda_device):
+    """field.epoch_heads_grads on the card (one forward, one triple
+    backward) against two_head_grads plus a separate boundary value
+    backward on the same inputs: losses and gradients within 1e-4 of the
+    largest entry."""
+    mix, spec, x = karman_state(cuda_device, seed=109)
+    params = mix.params()
+    rng = np.random.RandomState(110)
+    xb = torch.as_tensor(np.sort(rng.uniform(
+        np.float32(spec.lo), np.float32(spec.hi), (1024, 2)).astype(
+            np.float32), axis=0), device=cuda_device)
+    ref = torch.as_tensor(rng.randn(512).astype(np.float32),
+                          device=cuda_device)
+
+    def head1(val, jac):
+        return ((jac[:, 1, 0] - jac[:, 0, 1] - ref) ** 2).mean()
+
+    def head2(val, jac):
+        return ((jac[:, 0, 0] + jac[:, 1, 1]) ** 2).mean()
+
+    def head_bnd(vb):
+        return (vb ** 2).sum(-1).mean()
+
+    tk.reset_launches()
+    (l1, l2, lb), (g1, g2, gb) = tf.epoch_heads_grads(
+        params, mix.alive, spec, x, xb, head1, head2, head_bnd)
+    assert tk.launches["gsr_bwd_dn3"] == 1 and tk.launches["gsr_fwd"] == 1
+    (w1, w2), (h1, h2) = tf.two_head_grads(params, mix.alive, spec, x,
+                                           head1, head2)
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    wb = head_bnd(tf.value(tf.mixture_of(leaves, mix.alive), spec, xb,
+                           presorted=True))
+    hb = dict(zip(leaves, torch.autograd.grad(
+        wb, list(leaves.values()), allow_unused=True,
+        materialize_grads=True)))
+    _close([l1, l2, lb], [w1, w2, wb.detach()])
+    for got, want in ((g1, h1), (g2, h2), (gb, hb)):
+        _close([got[k] for k in want], [want[k] for k in want])

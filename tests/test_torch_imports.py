@@ -53,9 +53,12 @@ def test_guard_sees_the_whole_package():
             "gaussian_fluids_torch/ops/gsr_banded.py",
             "gaussian_fluids_torch/ops/interp.py",
             "gaussian_fluids_torch/io/vti.py",
-            "gaussian_fluids_torch/advance_density3d.py"} <= rel
+            "gaussian_fluids_torch/advance_density3d.py",
+            "gaussian_fluids_torch/ops/rk4_fused.py",
+            "gaussian_fluids_torch/solver/covector.py",
+            "gaussian_fluids_torch/scenes/boundaries2d.py"} <= rel
     for src in ("gsr_centered.cu", "gsr_cells.cu", "gsr_banded.cu",
-                "gsr_tile.cuh"):
+                "rk4_fused.cu", "gsr_tile.cuh"):
         assert os.path.exists(os.path.join(PKG, "csrc", src))
 
 
@@ -70,6 +73,7 @@ def test_importing_the_port_loads_no_jax():
             "gaussian_fluids_torch.ops.gsr_banded, "
             "gaussian_fluids_torch.ops.interp, "
             "gaussian_fluids_torch.io.vti, "
+            "gaussian_fluids_torch.ops.rk4_fused, "
             "gaussian_fluids_torch.epoch_profile\n"
             "bad = [m for m in ('jax', 'gaussian_fluids_tpu', 'matplotlib')"
             " if m in sys.modules]\n"

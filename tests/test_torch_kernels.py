@@ -126,13 +126,26 @@ def test_autograd_function_matches_dense_autograd():
         close(gc[k], gd[k], 1e-4, err_msg=k)
 
 
-def test_no_gradient_for_query_points():
+def test_no_gradient_for_query_points(monkeypatch):
+    """Query points that do not ask for a gradient get none, and the dL/dx
+    backward is not run for them; points that ask get one (its value is
+    held against the JAX package in tests/test_torch_rest_kernels.py)."""
     jm, spec = jax_mixture(100, seed=53)
     mix, tspec = to_torch(jm, spec)
-    x = torch.zeros((8, 2), requires_grad=True)
-    v = tfield.value_centered(mix, tspec, x, presorted=True)
-    with pytest.raises(NotImplementedError):
-        v.sum().backward()
+    leaves = {k: p.clone().requires_grad_(True)
+              for k, p in mix.params().items()}
+    m = tfield.mixture_of(leaves, mix.alive)
+    calls = []
+    dx = tk.gsr_bwd_dx
+    monkeypatch.setattr(tk, "gsr_bwd_dx",
+                        lambda *a: calls.append(1) or dx(*a))
+    x = torch.zeros((8, 2))
+    tfield.value_centered(m, tspec, x, presorted=True).sum().backward()
+    assert x.grad is None and calls == []
+    assert all(p.grad is not None for p in leaves.values())
+    xg = torch.zeros((8, 2), requires_grad=True)
+    tfield.value_centered(mix, tspec, xg, presorted=True).sum().backward()
+    assert xg.grad is not None and calls == [1]
 
 
 def test_wrappers_validate_shapes():
@@ -155,4 +168,6 @@ def test_plain_path_counts_no_launches():
     tk.reset_launches()
     b = _torch(_inputs(seed=71))
     tk.gsr_fwd(b["tmask"], b["x"], b["muT"], b["ppT"], b["v"], b["clamp"], 2)
-    assert tk.launches == {"gsr_fwd": 0, "gsr_bwd_dn": 0, "gsr_bwd_dn2": 0}
+    assert tk.launches == {k: 0 for k in ("gsr_fwd", "gsr_bwd_dn",
+                                          "gsr_bwd_dn2", "gsr_bwd_dx",
+                                          "gsr_bwd_dn3")}

@@ -165,13 +165,14 @@ def test_grid_points_match():
 
 
 @pytest.mark.parametrize("name", ["leapfrog", "taylor_green",
-                                  "taylor_vortex"])
+                                  "taylor_vortex", "karman"])
 def test_scene_fields_match(name):
     js, ts = jscene(name), tscene(name)
     assert ts.scaling_factor == js.scaling_factor
     assert ts.particle_count == js.particle_count
     assert ts.initialize_domain == js.initialize_domain
     assert ts.advance_domain == js.advance_domain
+    assert ts.visualize_domain == js.visualize_domain
     assert ts.visualize_res == js.visualize_res
     assert ts.info == js.info
     for k in ("boundary_sampler_1", "boundary_sampler_2"):
@@ -187,7 +188,7 @@ def test_scene_fields_match(name):
 
 def test_unported_scene_is_refused():
     with pytest.raises(KeyError):
-        tscene("karman")
+        tscene("vortices_pass")
 
 
 def test_domain_boundary_sampler_matches():
