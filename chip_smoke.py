@@ -11,21 +11,30 @@ Phases, each printing one JSON line with its wall seconds:
   kernels       each centered kernel at Leapfrog-2D shapes (B=512 queries,
                 N=6144 Gaussian rows, d=2, vdim=2) against its plain
                 PyTorch version on the card; median time over 30 launches
-  kernels_3d    the three centered kernels at d=3 and the three work-list
-                (cells) kernels at Ring-Collide shapes (B=8192, N=75,776,
-                d=vdim=3) against their plain versions, with the live-pair
-                count and the live tile fraction
+  kernels_3d    the three centered kernels at d=3 where the 3D path runs
+                them (Leapfrog-3D: B=8192, N=1024), timed again at
+                Ring-Collide shapes (B=8192, N=75,776), and the three
+                work-list (cells) kernels at Ring-Collide shapes, d=vdim=3,
+                against their plain versions (the cells forward's overflow
+                branch too), with the live-pair count, the live tile
+                fraction, and the cells forward's box-tested pairs against
+                the pairs whose geometry it computes
   kernels_density  the banded value kernel of the density replay at its
                 production shapes (one 262,144-node chunk: the 512^3 grid's
-                x-plane nearest 0.5, on the seeded Ring-Collide state) against
-                its plain version, and its guard's full sweep (band 1)
-                against the sufficient band's output, bitwise
+                x-plane nearest 0.5, on the seeded Ring-Collide state,
+                slab-major as the replay orders it) against its plain
+                version, and its guard's full sweep (band 1) against the
+                sufficient band's output, bitwise; the window's tiles
+                tested against the tiles walked per query tile, and the
+                rows the warps walk; then the same chunk on the mixture
+                x-sorted, with its own band, timed beside it
   kernels_2d_rest  the dL/dx kernel, the triple-cotangent backward and the
                 fused RK4 backtrace at Karman-2D shapes (B=512, N=24,576,
                 the seeded Karman state; the triple backward over 512 data
                 rows and the scene's 3072 boundary rows), and the dL/dx
-                kernel again at Leapfrog-3D shapes (B=8192, N=1024), each
-                against its plain version
+                kernel again at Leapfrog-3D shapes (N=1024; B=1024 as the
+                path's query_grad runs it, and B=8192), each against its
+                plain version
   initialize    the leapfrog scene fitted at 71x71 = 5041 Gaussians through
                 the entry point ``gaussian_fluids_torch.initialize2d``
   advance       two frames (clone -> advect -> project) at dt .025 through
@@ -56,6 +65,9 @@ Phases, each printing one JSON line with its wall seconds:
   advance3d     one frame each (clone -> advect -> project) at dt .02
                 through ``gaussian_fluids_torch.advance3d`` on the scene's
                 128^3 test grid; losses and the divergence residual
+  epoch_3d      one Ring-Collide projection epoch (seeded state, B=8192)
+                under torch.profiler: device ms per epoch and the cells
+                forward's share
   check3d       the final Ring-Collide field through the kernels against
                 the dense plain evaluation in float64 on 4096 points
   query_grad    dL/dx through ``field.value_and_jac`` (Jacobian summed) and
@@ -76,17 +88,20 @@ Phases, each printing one JSON line with its wall seconds:
                 frame 1's mixture, and the density sampled there
   density512    one advected_density step of one density at the production
                 512^3 grid on frame 1's mixture, timed (fails on a guard
-                failure); one timed write of its .vti as the replay writes
-                it; and the card's busy share over a 128^3 step
-                (torch.profiler)
+                failure), with the banded kernel's device ms of such a step;
+                one timed write of its .vti as the replay writes it; and the
+                card's busy share over a 128^3 step (torch.profiler)
 Launches are counted per path: each path's counts are set to 0 just
 before it and read just after; the 2D lines of the kernel summary carry
 the Leapfrog-2D path's launches, the d=3 and cells lines the 3D path's.
 The run fails if a kernel of a path was not launched there, or if a cells
 work list overflowed at the default capacity. The banded kernel's path is
-the replay (density3d), the fused RK4 kernel's the Karman frame, the
-triple backward's epoch_heads, the dL/dx kernel's query_grad. Then the per-kernel summary, the
-card's name and power limit, and as the last line
+the replay (density3d and density512: its launches are their sum), the
+fused RK4 kernel's the Karman frame, the triple backward's epoch_heads,
+the dL/dx kernel's query_grad. Then the per-kernel summary (each bound
+counted on the pairs the inputs need, those with g >= c, with the bound
+of the pairs the kernel walks beside it), the card's name and power
+limit, and as the last line
 ``{"ok": true, "device": {...}}``. Solver output goes to a temporary
 directory outside the checkout, deleted at the end. Any failure raises;
 without a CUDA device the script exits non-zero before printing results.
@@ -129,9 +144,9 @@ PEAK_BYTES_PER_S = 3.35e12
 OPS_GEOMETRY = {2: 15, 3: 27}
 OPS_SUPPORT = {(2, "fwd"): 17, (2, "bwd_dn"): 74, (2, "bwd_dn2"): 126,
                (3, "fwd"): 34, (3, "bwd_dn"): 136, (3, "bwd_dn2"): 272}
-# The banded kernel (csrc/gsr_banded.cu, d = vdim = 3): every pair of a
-# window pays dx (3), the direct quadratic form (6 terms of a multiply and
-# an FMA: 18) and the cut compare (1); pairs inside the support also pay
+# The banded kernel (csrc/gsr_banded.cu, d = vdim = 3): a pair's geometry
+# is dx (3), the direct quadratic form (6 terms of a multiply and an FMA:
+# 18) and the cut compare (1); a pair inside the support also pays
 # -quad/2, the exp and the support compare (3), then g - c and 3 FMAs (7).
 OPS_BANDED_WINDOW, OPS_BANDED_SUPPORT = 22, 10
 # The last three kernels, counted the same way from csrc/gsr_tile.cuh
@@ -254,19 +269,40 @@ def ptxas_summary(log):
     return out
 
 
-def _entry(name, route_src, errs, ms, plain_ms, ops, nbytes,
-           note=NO_LIBRARY):
+def pair_ops(geometry, support_ops, walked_pairs, support_pairs):
+    """(ops the inputs need, ops of the pairs the kernel walks). Counted on
+    need, only a pair inside the support (g >= c) does work: its geometry
+    and its accumulation; a kernel pays at least the geometry of every
+    pair it walks. Every row's bound is the first, so a kernel that culls
+    better than its walk can never read faster than its bound."""
+    return ((geometry + support_ops) * support_pairs,
+            geometry * walked_pairs + support_ops * support_pairs)
+
+
+def _bound(ops, nbytes):
+    """(ms, 'operations' | 'bytes'): the larger of ops over the f32 peak
+    and bytes over the memory rate."""
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _entry(name, route_src, errs, ms, plain_ms, ops, nbytes, walked_pairs,
+           support_pairs, note=NO_LIBRARY):
+    """The summary line of one kernel: ``ops`` is ``pair_ops``'s (need,
+    walked) pair; the bound is on need, the walked bound beside it."""
+    bound_ms, bound_by = _bound(ops[0], nbytes)
     return {
         "name": name, "route": "cuda", "source": SOURCES[route_src],
         "replaces": REPLACES[name.split("[")[0]],
         "max_abs_err": max(e for e, _ in errs),
         "max_rel_err": max(r for _, r in errs), "tolerance": TOL,
         "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "library_note": note, "ops": ops,
-        "bytes": nbytes,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "library_note": note, "ops": ops[0],
+        "bytes": nbytes, "support_pairs": support_pairs,
+        "walked_pairs": walked_pairs, "walked_ops": ops[1],
+        "walked_bound_ms": _bound(ops[1], nbytes)[0],
     }
 
 
@@ -282,10 +318,11 @@ def _run_cases(cases, d, live_pairs, support_pairs, in_bytes, plain_reps,
         kern, plain = variants[0]
         ms = time_ms(kern)
         plain_ms = time_ms(plain, plain_reps)
-        ops = OPS_GEOMETRY[d] * live_pairs \
-            + OPS_SUPPORT[(d, key)] * support_pairs
+        ops = pair_ops(OPS_GEOMETRY[d], OPS_SUPPORT[(d, key)], live_pairs,
+                       support_pairs)
         stats[name + tag] = _entry(name + tag, src, errs, ms, plain_ms, ops,
-                                   in_bytes + extra_bytes + walk_bytes)
+                                   in_bytes + extra_bytes + walk_bytes,
+                                   live_pairs, support_pairs)
     return stats
 
 
@@ -352,32 +389,87 @@ def kernel_phase(device):
                    "live_tile_fraction": float(tmask.float().mean())}
 
 
+def _centered_cases_3d(tmask, x_p, muT, ppT, v, clamp, dout, dout_val):
+    """The three centered kernels at d = 3, each with its variants."""
+    from gaussian_fluids_torch.ops import gsr_centered as gc
+    B, N = x_p.shape[0], muT.shape[1]
+    mask_bytes = 4 * tmask.numel()
+    out_fwd, out_bwd = 4 * B * 12, 4 * N * (3 + 10 + 3)
+
+    def pair(kern, plain):
+        return (lambda: _flat(kern()), lambda: _flat(plain()))
+
+    a = (tmask, x_p, muT, ppT, v)
+    return {
+        "gsr_fwd": ("gsr", "fwd",
+            [pair(lambda nj=nj: gc.gsr_fwd(*a, clamp, nj),
+                  lambda nj=nj: gc.fwd_plain(*a, clamp, nj))
+             for nj in (3, 0)],
+            out_fwd + mask_bytes, 0),
+        "gsr_bwd_dn": ("gsr", "bwd_dn",
+            [pair(lambda: gc.gsr_bwd_dn(*a, dout[0], clamp, 3),
+                  lambda: gc.bwd_dn_plain(*a, dout[0], clamp, 3)),
+             pair(lambda: gc.gsr_bwd_dn(*a, dout_val, clamp, 0),
+                  lambda: gc.bwd_dn_plain(*a, dout_val, clamp, 0))],
+            4 * dout[0].numel() + out_bwd + mask_bytes, 0),
+        "gsr_bwd_dn2": ("gsr", "bwd_dn2",
+            [pair(lambda uv=uv: gc.gsr_bwd_dn2(*a, dout[0], dout[1], clamp,
+                                               3, use_val=uv),
+                  lambda uv=uv: gc.bwd_dn2_plain(*a, dout[0], dout[1], clamp,
+                                                 3, use_val=uv))
+             for uv in (True, False)],
+            4 * 2 * dout[0].numel() + 2 * out_bwd + mask_bytes, 0),
+    }
+
+
+def _douts_3d(B, seed, device):
+    rng = np.random.RandomState(seed)
+    dout = [torch.as_tensor(rng.randn(B, 12).astype(np.float32) / B,
+                            device=device) for _ in range(2)]
+    dout_val = torch.as_tensor(rng.randn(B, 3).astype(np.float32) / B,
+                               device=device)
+    return dout, dout_val
+
+
+def _box_pairs(tmask, x_p, muT, rad, tb, tn, rows=256):
+    """Pairs of the live tiles whose query lies inside the row's dilated
+    box: the pairs whose geometry the cells forward computes."""
+    n = 0
+    mu = muT.T
+    live_rows = tmask.bool().repeat_interleave(tn, dim=1)
+    for s in range(0, x_p.shape[0], rows):
+        inb = ((x_p[s:s + rows, None, :] - mu[None]).abs()
+               <= rad[None, :, None]).all(-1)
+        n += int((inb & live_rows[s // tb:(s + rows) // tb]
+                  .repeat_interleave(tb, dim=0)).sum())
+    return n
+
+
 def kernel_phase_3d(device):
-    """The centered kernels at d=3 and the cells kernels at Ring-Collide
-    shapes, on the seeded Ring-Collide state."""
+    """The centered kernels at d=3 where the 3D path runs them (the
+    Leapfrog-3D shape: B = 8192, N = 1024), timed again at Ring-Collide
+    shapes, and the cells kernels at Ring-Collide shapes (B = 8192,
+    N = 75,776), on the seeded states."""
     from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
     from gaussian_fluids_torch.ops import (field, gsr_cells as gk,
                                            gsr_centered as gc)
 
     mix, spec, x = ring_collide_state(device)
     clamp = spec.clamp_threshold
-    x_p, _, tmask, (rows, cols, gt, qt, ok) = field._cells_prep(mix, spec, x)
+    x_p, _, tmask, (rows, cols, gt, qt, ok), rad = field._cells_prep(
+        mix, spec, x)
     if not int(ok):
         raise AssertionError("the Ring-Collide work list overflowed")
     mu_p, pp_p, v_p = field._padded_param_rows(mix, spec, gk.TN)
     muT, ppT, v = (mu_p.T.contiguous(), pp_p.T.contiguous(),
                    v_p.contiguous())
     B, N = x_p.shape[0], muT.shape[1]
-    rng = np.random.RandomState(2)
-    dout = [torch.as_tensor(rng.randn(B, 12).astype(np.float32) / B,
-                            device=device) for _ in range(2)]
-    dout_val = torch.as_tensor(rng.randn(B, 3).astype(np.float32) / B,
-                               device=device)
+    dout, dout_val = _douts_3d(B, 2, device)
     live_tiles = int(tmask.sum())
     live_pairs = live_tiles * gk.TB * gk.TN
     support_pairs = _support_pairs(gc, tmask, x_p, muT, ppT, 3, clamp)
+    box_pairs = _box_pairs(tmask, x_p, muT, rad, gk.TB, gk.TN)
     par_bytes = 4 * (x_p.numel() + muT.numel() + ppT.numel() + v.numel())
-    mask_bytes = 4 * tmask.numel()
     # the items a cells kernel walks: each live pair's (head, item)
     list_bytes = 2 * 4 * live_tiles
     out_fwd, out_bwd = 4 * B * 12, 4 * N * (3 + 10 + 3)
@@ -385,41 +477,12 @@ def kernel_phase_3d(device):
     lt = (gt, qt, ok)
 
     def pair(kern, plain):
-        return (lambda: [t for t in _flat(kern())],
-                lambda: [t for t in _flat(plain())])
+        return (lambda: _flat(kern()), lambda: _flat(plain()))
 
-    centered = {
-        "gsr_fwd": ("gsr", "fwd",
-            [pair(lambda nj=nj: gc.gsr_fwd(tmask, x_p, muT, ppT, v, clamp,
-                                           nj),
-                  lambda nj=nj: gc.fwd_plain(tmask, x_p, muT, ppT, v, clamp,
-                                             nj))
-             for nj in (3, 0)],
-            out_fwd + mask_bytes, 0),
-        "gsr_bwd_dn": ("gsr", "bwd_dn",
-            [pair(lambda: gc.gsr_bwd_dn(tmask, x_p, muT, ppT, v, dout[0],
-                                        clamp, 3),
-                  lambda: gc.bwd_dn_plain(tmask, x_p, muT, ppT, v, dout[0],
-                                          clamp, 3)),
-             pair(lambda: gc.gsr_bwd_dn(tmask, x_p, muT, ppT, v, dout_val,
-                                        clamp, 0),
-                  lambda: gc.bwd_dn_plain(tmask, x_p, muT, ppT, v, dout_val,
-                                          clamp, 0))],
-            4 * dout[0].numel() + out_bwd + mask_bytes, 0),
-        "gsr_bwd_dn2": ("gsr", "bwd_dn2",
-            [pair(lambda uv=uv: gc.gsr_bwd_dn2(
-                tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 3,
-                use_val=uv),
-                  lambda uv=uv: gc.bwd_dn2_plain(
-                tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 3,
-                use_val=uv))
-             for uv in (True, False)],
-            4 * 2 * dout[0].numel() + 2 * out_bwd + mask_bytes, 0),
-    }
     cells = {
         "cells_fwd": ("cells", "fwd",
             [pair(lambda nj=nj: gk.cells_fwd(*lv, tmask, x_p, muT, ppT, v,
-                                             clamp, nj),
+                                             clamp, nj, rad),
                   lambda nj=nj: gk.cells_fwd_plain(*lv, tmask, x_p, muT, ppT,
                                                    v, clamp, nj))
              for nj in (3, 0)],
@@ -447,22 +510,56 @@ def kernel_phase_3d(device):
     # the overflow branch: the same lists flagged as overflowed must give
     # the same field by sweeping the whole mask
     bad = torch.zeros_like(ok)
-    compare("cells_fwd[overflow]",
-            [gk.cells_fwd(rows, cols, bad, tmask, x_p, muT, ppT, v, clamp,
-                          3)],
-            [gc.fwd_plain(tmask, x_p, muT, ppT, v, clamp, 3)], TOL)
-    stats = _run_cases(centered, 3, live_pairs, support_pairs, par_bytes,
-                       PLAIN_LAUNCHES_3D, tag="[d=3]")
-    stats.update(_run_cases(cells, 3, live_pairs, support_pairs, par_bytes,
-                            PLAIN_LAUNCHES_3D))
+    for nj in (3, 0):
+        compare(f"cells_fwd[overflow,{nj}]",
+                [gk.cells_fwd(rows, cols, bad, tmask, x_p, muT, ppT, v,
+                              clamp, nj, rad)],
+                [gc.fwd_plain(tmask, x_p, muT, ppT, v, clamp, nj)], TOL)
+    # the centered kernels at d = 3 where they run (Leapfrog-3D), and at
+    # Ring-Collide shapes as a second number
+    lmix, lspec, lx = ring_collide_state(device, side=10)
+    lx_p, _, _, lmu, lpp, lv_p, ltm = field._centered_prep(
+        lmix, lspec, lx, gc.TB, gc.TN, presorted=True)
+    lmuT, lppT, lvv = lmu.T.contiguous(), lpp.T.contiguous(), \
+        lv_p.contiguous()
+    ldout, ldout_val = _douts_3d(lx_p.shape[0], 12, device)
+    l_live = int(ltm.sum()) * gc.TB * gc.TN
+    l_sup = _support_pairs(gc, ltm, lx_p, lmuT, lppT, 3, clamp)
+    stats = _run_cases(
+        _centered_cases_3d(ltm, lx_p, lmuT, lppT, lvv, clamp, ldout,
+                           ldout_val), 3, l_live, l_sup,
+        4 * (lx_p.numel() + lmuT.numel() + lppT.numel() + lvv.numel()),
+        PLAIN_LAUNCHES_3D, tag="[d=3]")
+    at_rc = _run_cases(
+        _centered_cases_3d(tmask, x_p, muT, ppT, v, clamp, dout, dout_val),
+        3, live_pairs, support_pairs, par_bytes, PLAIN_LAUNCHES_3D,
+        tag="[d=3]")
+    for name, s_ in stats.items():
+        s_.update(shape="Leapfrog-3D", B=lx_p.shape[0], N=lmuT.shape[1],
+                  live_tile_fraction=float(ltm.float().mean()),
+                  ring_collide={k: at_rc[name][k] for k in (
+                      "ms", "plain_ms", "bound_ms", "walked_bound_ms",
+                      "max_rel_err", "support_pairs", "walked_pairs")})
+    cstats = _run_cases(cells, 3, live_pairs, support_pairs, par_bytes,
+                        PLAIN_LAUNCHES_3D)
+    cstats["cells_fwd"].update(box_pairs=box_pairs)
+    for s_ in cstats.values():
+        s_.update(shape="Ring-Collide", B=B, N=N,
+                  live_tile_fraction=live_tiles / tmask.numel())
+    stats.update(cstats)
     shapes = {"B": B, "N": N, "tiles": list(tmask.shape),
               "live_tiles": live_tiles, "live_pairs": live_pairs,
               "support_pairs": support_pairs,
+              "cells_fwd_box_tested_pairs": live_pairs,
+              "cells_fwd_geometry_pairs": box_pairs,
+              "live_tiles_per_query_tile_mean": live_tiles / tmask.shape[0],
+              "live_tiles_per_query_tile_max": int(tmask.sum(1).max()),
               "live_tile_fraction": live_tiles / tmask.numel(),
-              "list_capacity": rows.numel()}
-    for s in stats.values():
-        s.update(live_pairs=live_pairs,
-                 live_tile_fraction=shapes["live_tile_fraction"])
+              "list_capacity": rows.numel(),
+              "leapfrog_3d": {"B": lx_p.shape[0], "N": lmuT.shape[1],
+                              "live_pairs": l_live, "support_pairs": l_sup,
+                              "live_tile_fraction":
+                                  float(ltm.float().mean())}}
     return stats, shapes
 
 
@@ -511,16 +608,21 @@ def kernel_phase_rest(device):
     rng = np.random.RandomState(5)
     stats, shapes = {}, {}
 
-    def entry(name, src, key_ops, variants, nbytes, tag=""):
+    def entry(name, src, ops, variants, nbytes, walked, support, tag=""):
         errs = [compare(f"{name}{tag}[{i}]", _flat(k()), _flat(p()), TOL)
                 for i, (k, p) in enumerate(variants)]
         torch.cuda.synchronize()
         kern, plain = variants[0]
         stats[name + tag] = _entry(name + tag, src, errs, time_ms(kern),
-                                   time_ms(plain), key_ops, nbytes)
+                                   time_ms(plain), ops, nbytes, walked,
+                                   support)
 
-    # kernel 4 at d = 2 and d = 3
+    # kernel 4 at d = 2 (Karman, B = 512) and at d = 3 where the path runs
+    # it (the Leapfrog-3D frame's mixture, 1024 query points), with the
+    # d = 3 time at B = 8192 as a second number
     for d, (m, sp, xq) in ((2, (mix, spec, x)),
+                           (3, ring_collide_state(device, side=10,
+                                                  n_queries=1024)),
                            (3, ring_collide_state(device, side=10))):
         x_p, _, _, mp, pp, vp, tmask = field._centered_prep(
             m, sp, xq, gc.TB, gc.TN, presorted=True)
@@ -533,8 +635,10 @@ def kernel_phase_rest(device):
         live = int(tmask.sum()) * gc.TB * gc.TN
         sup = _support_pairs(gc, tmask, *args[1:4], d, sp.clamp_threshold)
         c = sp.clamp_threshold
+        tag = "" if d == 2 else ("[d=3]" if B == 1024 else "[d=3,B=8192]")
         entry("gsr_bwd_dx", "gsr",
-              OPS_GEOMETRY[d] * live + OPS_SUPPORT[(d, "bwd_dx")] * sup,
+              pair_ops(OPS_GEOMETRY[d], OPS_SUPPORT[(d, "bwd_dx")], live,
+                       sup),
               [(lambda a=args, o=dout, d=d, c=c: gc.gsr_bwd_dx(*a, o, c, d),
                 lambda a=args, o=dout, d=d, c=c: gc.bwd_dx_plain(*a, o, c,
                                                                  d)),
@@ -542,9 +646,13 @@ def kernel_phase_rest(device):
                 lambda a=args, o=dval, c=c: gc.bwd_dx_plain(*a, o, c, 0))],
               4 * (tmask.numel() + 2 * x_p.numel() + args[2].numel()
                    + args[3].numel() + args[4].numel() + dout.numel()),
-              "" if d == 2 else "[d=3]")
-        shapes[f"bwd_dx_d{d}"] = {"B": B, "N": args[2].shape[1],
-                                  "live_pairs": live, "support_pairs": sup}
+              live, sup, tag)
+        shapes[f"bwd_dx_d{d}_B{B}"] = {"B": B, "N": args[2].shape[1],
+                                       "live_pairs": live,
+                                       "support_pairs": sup}
+    second = stats.pop("gsr_bwd_dx[d=3,B=8192]")
+    stats["gsr_bwd_dx[d=3]"]["at_B8192"] = {k: second[k] for k in (
+        "ms", "plain_ms", "bound_ms", "walked_bound_ms", "max_rel_err")}
 
     # kernel 10 over [512 data rows; the scene's 3072 boundary rows]
     scene = get_scene_2d("karman")
@@ -569,16 +677,19 @@ def kernel_phase_rest(device):
                            2, clamp)
     sup_b = _support_pairs(gc, tmask[rows // gc.TB:], x_c[rows:], muT, ppT,
                            2, clamp)
-    entry("gsr_bwd_dn3", "gsr",
-          OPS_GEOMETRY[2] * live + OPS_SUPPORT[(2, "bwd_dn2")] * sup_d
-          + OPS_SUPPORT[(2, "bwd_dn_val")] * sup_b,
+    need_d, walk_d = pair_ops(OPS_GEOMETRY[2], OPS_SUPPORT[(2, "bwd_dn2")],
+                              live, sup_d)
+    need_b, walk_b = pair_ops(OPS_GEOMETRY[2],
+                              OPS_SUPPORT[(2, "bwd_dn_val")], 0, sup_b)
+    entry("gsr_bwd_dn3", "gsr", (need_d + need_b, walk_d + walk_b),
           [(lambda uv=uv: gc.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2,
                                          rows, use_val12=uv),
             lambda uv=uv: gc.bwd_dn3_plain(*args, *douts, dout3, clamp, 2,
                                            rows, use_val12=uv))
            for uv in (False, True)],
           4 * (tmask.numel() + x_c.numel() + 2 * douts[0].numel()
-               + dout3.numel()) + par_bytes + 3 * 4 * N * (6 + 2))
+               + dout3.numel()) + par_bytes + 3 * 4 * N * (6 + 2),
+          live, sup_d + sup_b)
     shapes["bwd_dn3"] = {"B": B, "data_rows": rows,
                          "boundary_rows": xb.shape[0], "N": N,
                          "live_tile_fraction": float(tmask.float().mean()),
@@ -591,14 +702,16 @@ def kernel_phase_rest(device):
     ones = torch.ones((x.shape[0], 1), dtype=torch.int32, device=device)
     sup = [_support_pairs(gc, ones, p_, muT, ppT, 2, clamp) for p_ in pts]
     pairs = x.shape[0] * N
+    stage_ops = [pair_ops(OPS_GEOMETRY[2], OPS_SUPPORT[(2, "rk4_stage")],
+                          pairs, n) for n in sup[:4]] \
+        + [pair_ops(OPS_GEOMETRY[2], OPS_SUPPORT[(2, "fwd")], pairs, sup[4])]
     entry("rk4_fused", "rk4",
-          5 * OPS_GEOMETRY[2] * pairs
-          + OPS_SUPPORT[(2, "rk4_stage")] * sum(sup[:4])
-          + OPS_SUPPORT[(2, "fwd")] * sup[4],
+          tuple(sum(o[i] for o in stage_ops) for i in range(2)),
           [(lambda nj=nj: rk.fused_rk4(x, muT, ppT, v, dt, clamp, nj),
             lambda nj=nj: rk.rk4_plain(x, muT, ppT, v, dt, clamp, nj))
            for nj in (2, 0)],
-          4 * x.numel() + par_bytes + 4 * x.shape[0] * (2 + 6))
+          4 * x.numel() + par_bytes + 4 * x.shape[0] * (2 + 6),
+          5 * pairs, sum(sup))
     shapes["rk4_fused"] = {"B": x.shape[0], "N": N, "dt": dt,
                            "pairs_per_stage": pairs,
                            "support_pairs_per_stage": sup}
@@ -999,11 +1112,75 @@ def run_3d(tmp):
     return total
 
 
+def _banded_culling(x, B, prep, jlo, ok, band, tb, tn, warp=32):
+    """What the banded kernel walks on these inputs, counted on the card
+    with the kernel's own tests: per query tile the window's tiles (tested)
+    and those whose box meets the tile's (staged and walked); and the rows
+    of those tiles whose box meets a warp's queries' box (the rows a warp
+    evaluates)."""
+    nbt, nnt = B // tb, prep["lo"].shape[1]
+    xb = x[:B].reshape(nbt, tb, -1)
+    meet = ((prep["lo"].T[None] <= xb.amax(1)[:, None])
+            & (prep["hi"].T[None] >= xb.amin(1)[:, None])).all(-1)
+    j = torch.arange(nnt, device=x.device)[None]
+    start = jlo.long().clamp(0, nnt - band)[:, None]
+    width = band if int(ok) else nnt
+    if int(ok):
+        tested = (j >= start) & (j < start + width)
+    else:
+        tested = torch.ones_like(meet)
+    walked = meet & tested
+    mu, r = prep["muT"], prep["rad"]
+    rows = 0
+    wb = x[:B].reshape(B // warp, warp, -1)
+    wlo, whi = wb.amin(1), wb.amax(1)
+    for s in range(0, B // warp, 512):
+        rmeet = ((wlo[s:s + 512, :, None] <= mu[None] + r)
+                 & (whi[s:s + 512, :, None] >= mu[None] - r)).all(1) \
+            & (r >= 0)[None]
+        tiles = walked[s * warp // tb:(s + 512) * warp // tb] \
+            .repeat_interleave(tb // warp, dim=0).repeat_interleave(tn, 1)
+        rows += int((rmeet & tiles).sum())
+    n_walked = walked.sum(1).float()
+    return {"tiles_tested_per_query_tile": float(tested.sum(1).float()
+                                                 .mean()),
+            "tiles_walked_per_query_tile_mean": float(n_walked.mean()),
+            "tiles_walked_per_query_tile_max": int(n_walked.max()),
+            "walked_pairs": int(walked.sum()) * tb * tn,
+            "warp_row_pairs": rows * warp}
+
+
+def _x_sorted_chunk(mix, spec, x, plain):
+    """The banded kernel on one chunk with the mixture x-sorted (the JAX
+    package's order) and its own band: held against the plain version on
+    the slab-major mixture (the same function, summed in another order),
+    timed, and its culling."""
+    from gaussian_fluids_torch.ops import field, gsr_banded as gb
+    from gaussian_fluids_torch.solver.simulate3d import _suggest_band
+
+    xmix = mix.x_sorted()
+    band = _suggest_band(xmix, spec, DENSITY_DT)
+    prep = field.banded_prep(xmix, spec)
+    B = x.shape[0]
+    jlo, ok = field.band_window(x, B, prep["nlo"], prep["nhi"], band, gb.TB)
+    if not int(ok):
+        raise AssertionError(f"x-sorted band {band} fails the guard")
+    kern = lambda: gb.gsr_value_banded(  # noqa: E731
+        jlo, ok, x, prep["muT"], prep["ppT"], prep["v"], prep["rad"],
+        prep["lo"], prep["hi"], spec.clamp_threshold, band)
+    err = compare("gsr_value_banded[x-sorted]", [kern()], [plain()], TOL)
+    torch.cuda.synchronize()
+    return {"band": band, "ms": time_ms(kern), "max_abs_err": err[0],
+            **_banded_culling(x, B, prep, jlo, ok, band, gb.TB, gb.TN)}
+
+
 def kernel_phase_density(device):
     """The banded value kernel at the replay's production shapes: one
     262,144-node chunk (the 512^3 grid's x-plane nearest 0.5) against the
-    seeded Ring-Collide state, x-sorted, with the band the replay would
-    use; then band 1, which fails the guard and sweeps the whole axis."""
+    seeded Ring-Collide state, slab-major as the replay orders it, with
+    the band the replay would use; then band 1, which fails the guard and
+    sweeps the whole axis; then the mixture x-sorted, the order the
+    replay's is held against."""
     from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
     from gaussian_fluids_torch.ops import field, gsr_banded as gb
     from gaussian_fluids_torch.scenes import get_scene_3d
@@ -1012,7 +1189,7 @@ def kernel_phase_density(device):
     from gaussian_fluids_torch.utils.grids import axis_nodes
 
     mix, spec, _ = ring_collide_state(device)
-    mix = mix.x_sorted()
+    mix = mix.slab_sorted(spec.clamp_threshold)
     clamp = spec.clamp_threshold
     domain = get_scene_3d("ring_collide").domain
     xs = axis_nodes(domain[0], domain[1], 512)
@@ -1027,39 +1204,57 @@ def kernel_phase_density(device):
     if not int(ok):
         raise AssertionError(f"band {band} fails the guard at x = "
                              f"{xs[plane]}")
-    args = (x, prep["muT"], prep["ppT"], prep["v"], clamp)
-    kern = lambda: gb.gsr_value_banded(jlo, ok, *args, band)  # noqa: E731
+    args = (x, prep["muT"], prep["ppT"], prep["v"])
+    boxes = (prep["rad"], prep["lo"], prep["hi"])
+    kern = lambda: gb.gsr_value_banded(jlo, ok, *args, *boxes,  # noqa: E731
+                                       clamp, band)
     plain = lambda: gb.value_banded_plain(jlo, ok, *args,  # noqa: E731
-                                          band)
+                                          clamp, band)
     errs = [compare("gsr_value_banded", [kern()], [plain()], TOL)]
     jlo1, ok1 = field.band_window(x, B, prep["nlo"], prep["nhi"], 1, gb.TB)
     if int(ok1):
         raise AssertionError("band 1 passed the guard")
     before = gb.guard_failures()
-    swept = gb.gsr_value_banded(jlo1, ok1, *args, 1)
-    if not torch.equal(swept, kern()):
+    sweep = lambda: gb.gsr_value_banded(jlo1, ok1, *args,  # noqa: E731
+                                        *boxes, clamp, 1)
+    if not torch.equal(sweep(), kern()):
         raise AssertionError("the guard's full sweep differs from the "
                              "sufficient band's output")
     if gb.guard_failures() != before + 1:
         raise AssertionError("the guard counter missed the full sweep")
     torch.cuda.synchronize()
     ms = time_ms(kern)
-    sweep_ms = time_ms(lambda: gb.gsr_value_banded(jlo1, ok1, *args, 1), 5)
+    sweep_ms = time_ms(sweep, 5)
     plain_ms = time_ms(plain, PLAIN_LAUNCHES_3D)
     N = prep["muT"].shape[1]
     window_pairs = B * band * gb.TN
     support_pairs = sum(int((mgv > 0).sum()) for _, mgv in gb.window_weights(
         jlo, ok, x, prep["muT"], prep["ppT"], clamp, band))
-    ops = OPS_BANDED_WINDOW * window_pairs \
-        + OPS_BANDED_SUPPORT * support_pairs
+    cull = _banded_culling(x, B, prep, jlo, ok, band, gb.TB, gb.TN)
+    cull_sweep = _banded_culling(x, B, prep, jlo1, ok1, 1, gb.TB, gb.TN)
+    ops = pair_ops(OPS_BANDED_WINDOW, OPS_BANDED_SUPPORT,
+                   cull["walked_pairs"], support_pairs)
+    # the function's own inputs and output: the boxes and radii only
+    # help the kernel cull
     nbytes = 4 * (2 * x.numel() + jlo.numel() + prep["muT"].numel()
                   + prep["ppT"].numel() + prep["v"].numel())
     entry = _entry("gsr_value_banded", "banded", errs, ms, plain_ms, ops,
-                   nbytes, NO_LIBRARY_BANDED)
+                   nbytes, cull["walked_pairs"], support_pairs,
+                   NO_LIBRARY_BANDED)
     shapes = {"B": B, "N": N, "band": band, "band_of": N // gb.TN,
-              "window_rows": band * gb.TN, "window_pairs": window_pairs,
+              "order": "slab-major", "window_rows": band * gb.TN,
+              "window_pairs": window_pairs,
+              "window_bound_ms": _bound(pair_ops(
+                  OPS_BANDED_WINDOW, OPS_BANDED_SUPPORT, window_pairs,
+                  support_pairs)[1], nbytes)[0],
               "support_pairs": support_pairs, "plane_x": float(xs[plane]),
-              "full_sweep_ms": sweep_ms, "full_sweep_bitwise_equal": True}
+              **cull, "full_sweep_ms": sweep_ms,
+              "full_sweep_tiles_tested_per_query_tile":
+                  cull_sweep["tiles_tested_per_query_tile"],
+              "full_sweep_tiles_walked_per_query_tile_mean":
+                  cull_sweep["tiles_walked_per_query_tile_mean"],
+              "full_sweep_bitwise_equal": True,
+              "x_sorted": _x_sorted_chunk(mix, spec, x, plain)}
     entry.update(shapes)
     return {"gsr_value_banded": entry}, shapes
 
@@ -1125,7 +1320,7 @@ def check_density(d, device):
     t0 = time.perf_counter()
     mix, spec = checkpoint.load_checkpoint(
         os.path.join(d, "gaussian_velocity_1.pt"), device=device)
-    mix = mix.x_sorted()
+    mix = mix.slab_sorted(spec.clamp_threshold)
     domain = get_scene_3d("ring_collide").domain
     dens = torch.as_tensor(vti.read_vti_array(
         os.path.join(d, "density_a_1.vti")).copy(), device=device)
@@ -1180,14 +1375,14 @@ def density_512(d, device):
     step."""
     from gaussian_fluids_torch.epoch_profile import profile_epoch
     from gaussian_fluids_torch.io import checkpoint, vti
-    from gaussian_fluids_torch.ops import gsr_banded, interp
+    from gaussian_fluids_torch.ops import field, gsr_banded, interp
     from gaussian_fluids_torch.scenes import get_scene_3d
     from gaussian_fluids_torch.solver.simulate3d import (
         DENSITY_CHUNK, _grid_chunks_device, _suggest_band, advected_density)
 
     mix, spec = checkpoint.load_checkpoint(
         os.path.join(d, "gaussian_velocity_1.pt"), device=device)
-    mix = mix.x_sorted()
+    mix = mix.slab_sorted(spec.clamp_threshold)
     scene = get_scene_3d("ring_collide")
     domain = scene.domain
     r = scene.info["ring1"]
@@ -1206,6 +1401,44 @@ def density_512(d, device):
     seconds = time.perf_counter() - t0
     launches = gsr_banded.launches["gsr_value_banded"] - n0
     guard = gsr_banded.guard_failures() - g0
+    # the banded kernel's share: its launches of one step, timed alone
+    chunks, _ = _grid_chunks_device(tuple(domain), (512,) * 3,
+                                    DENSITY_CHUNK, device)
+
+    def kernels_ms(m):
+        prep = field.banded_prep(m, spec)
+        band = _suggest_band(m, spec, DENSITY_DT)
+        windows = [field.band_window(c, c.shape[0], prep["nlo"],
+                                     prep["nhi"], band, gsr_banded.TB)
+                   for c in chunks]
+        args = (prep["muT"], prep["ppT"], prep["v"], prep["rad"],
+                prep["lo"], prep["hi"], spec.clamp_threshold, band)
+
+        def step_kernels():
+            for c, (jlo, ok) in zip(chunks, windows):
+                for _ in range(4):
+                    gsr_banded.gsr_value_banded(jlo, ok, c, *args)
+        return time_ms(step_kernels, 3)
+    banded_ms = kernels_ms(mix)
+    # the order A/B: the step with the mixture x-sorted (the JAX package's
+    # order), the replay's slab-major order again after it (slab, x, x,
+    # slab), and the kernels' share
+    xmix = mix.x_sorted()
+    ab = {"slab_major_seconds": [seconds], "x_sorted_seconds": [],
+          "x_sorted_band": _suggest_band(xmix, spec, DENSITY_DT),
+          "x_sorted_banded_ms_per_step": kernels_ms(xmix)}
+    for name, m in (("x_sorted", xmix), ("x_sorted", xmix),
+                    ("slab_major", mix)):
+        g1 = gsr_banded.guard_failures()
+        t0 = time.perf_counter()
+        other = advected_density(dens, m, spec, domain, DENSITY_DT,
+                                 (512,) * 3)
+        torch.cuda.synchronize()
+        ab[name + "_seconds"].append(time.perf_counter() - t0)
+        if gsr_banded.guard_failures() != g1:
+            raise AssertionError(f"512^3 density, {name}: guard failure")
+        ab[name + "_max_abs_diff"] = float((other - out).abs().max())
+        del other
     host = out.cpu().numpy()
     after = _volume_stats(host)
     if not after["finite"] or after["max"] > 1 + 1e-5 or after["mass"] <= 0 \
@@ -1226,13 +1459,36 @@ def density_512(d, device):
     prof = profile_epoch(lambda: advected_density(
         small, mix, spec, domain, DENSITY_DT, (128,) * 3), 1)
     emit({"phase": "density512", "seconds": seconds, "setup_seconds": setup,
+          "banded_ms_per_step": banded_ms, "order_ab": ab,
           "vti_write_seconds": write_seconds, "vti_bytes": write_bytes,
           "grid": [512] * 3, "chunks": -(-512 ** 3 // DENSITY_CHUNK),
           "band": _suggest_band(mix, spec, DENSITY_DT),
           "launches": launches, "guard_failures": guard,
           "before": before, "after": after,
           "profile_128": {k: prof[k] for k in (
-              "ms_per_epoch", "device_ms_per_epoch", "device_busy_share",
+              "wall_ms_per_epoch", "ms_per_epoch", "device_ms_per_epoch",
+              "device_busy_share",
+              "host_ops_per_epoch", "device_launches_per_epoch",
+              "top_kernels_ms_per_epoch")}})
+    return launches
+
+
+def epoch_3d(device, epochs=10):
+    """The Ring-Collide projection epoch under torch.profiler (seeded
+    state, B = 8192, the cells kernels): device ms per epoch, the cells
+    forward's share of it, the busy share."""
+    from gaussian_fluids_torch.epoch_profile import _epochs_3d, profile_epoch
+    from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
+
+    mix, spec, _ = ring_collide_state(device)
+    prof = profile_epoch(_epochs_3d(mix, spec, device)["project"], epochs)
+    fwd = sum(ms for name, ms in prof["top_kernels_ms_per_epoch"]
+              if "cells_fwd_kernel" in name)
+    emit({"phase": "epoch_3d", "config": "ring_collide", "epoch": "project",
+          "epochs": epochs, "cells_fwd_device_ms_per_epoch": fwd,
+          **{k: prof[k] for k in (
+              "wall_ms_per_epoch", "ms_per_epoch", "device_ms_per_epoch",
+              "device_busy_share",
               "host_ops_per_epoch", "device_launches_per_epoch",
               "top_kernels_ms_per_epoch")}})
 
@@ -1307,6 +1563,7 @@ def main():
         launches_heads = epoch_heads(kmix, kspec)
         emit({"phase": "karman_ab", "seconds": time.perf_counter() - t0})
         launches_3d = run_3d(os.path.join(tmp, "3d"))
+        epoch_3d(device)
         lmix, lspec = checkpoint.load_checkpoint(
             os.path.join(tmp, "3d", "leapfrog", "gaussian_velocity_1.pt"),
             device=device)
@@ -1319,7 +1576,7 @@ def main():
         ring = os.path.join(tmp, "3d", "ring_collide")
         launches_density = run_density(ring)
         check_density(ring, device)
-        density_512(ring, device)
+        launches_512 = density_512(ring, device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1328,7 +1585,9 @@ def main():
     for name, s in stats3.items():
         s["launches"] = launches_3d[name.split("[")[0]]
     for name, s in stats_d.items():
-        s["launches"] = launches_density[name]
+        s.update(launches=launches_density[name] + launches_512,
+                 launches_replay_128=launches_density[name],
+                 launches_512_step=launches_512)
     stats_r["gsr_bwd_dx"]["launches"] = launches_dx[2]["gsr_bwd_dx"]
     stats_r["gsr_bwd_dx[d=3]"]["launches"] = launches_dx[3]["gsr_bwd_dx"]
     stats_r["gsr_bwd_dn3"]["launches"] = launches_heads["gsr_bwd_dn3"]

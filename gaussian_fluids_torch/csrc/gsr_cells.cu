@@ -15,12 +15,12 @@
 // The TPU grid walks the list in order and zeroes an output block at the
 // first item of each run of equal rows; CUDA blocks run in no order. Here
 // every output has one owner that walks its own run: the forward gives
-// query tile i a block (a warp per query), which finds the start of row
-// i's run by binary search in `rows` and walks it until the first -1;
-// the backward gives Gaussian tile j a block (a thread per Gaussian),
-// which does the same in `gtiles`. No atomics, a fixed order, and the
-// owner writes every output element, so the sums are deterministic and
-// need no zeroing pass.
+// query tile i a block (FWD_SLOTS threads per query, below), which finds
+// the start of row i's run by binary search in `rows` and walks it until
+// the first -1; the backward gives Gaussian tile j a block (a thread per
+// Gaussian), which does the same in `gtiles`. No atomics, a fixed order,
+// and the owner writes every output element, so the sums are
+// deterministic and need no zeroing pass.
 //
 // Overflow: `ok` (a device int) is 0 when the list's capacity was too
 // small to hold every live pair. The kernel reads it on the device and
@@ -35,11 +35,14 @@
 // ~1% of pairs inside the support (the forward ~40 more, the backward
 // ~100 more per cotangent) — about 2 GFLOP, 0.03 ms at the 67 TFLOP/s f32
 // peak. The bytes (parameters 4 MB, the lists' live items 1 MB, outputs
-// under 4 MB) take ~3 us at 3.35 TB/s. So they are operations-bound; the
-// design keeps every sum in registers and reads each parameter row once
-// per walk. The backward's occupancy (1184 blocks of 2 warps, a thread
-// walking ~100 query tiles) and the runs' imbalance are left to a later
-// pass.
+// under 4 MB) take ~3 us at 3.35 TB/s. So they are operations-bound on
+// the pairs they walk; counted on the pairs the work needs (those in the
+// support, ~0.4% of the walked ones) the bound is far lower, and the
+// forward's own walk (below) skips the geometry of every pair outside
+// its row's box. The backward keeps every sum in registers and reads each
+// parameter row once per walk; its occupancy (1184 blocks of 2 warps, a
+// thread walking ~100 query tiles) and the runs' imbalance are left to a
+// later pass.
 
 #include "gsr_tile.cuh"
 
@@ -59,39 +62,143 @@ __device__ __forceinline__ int run_start(const int* __restrict__ keys,
   return lo;
 }
 
+// The forward's own walk. Of the ~6e7 pairs of the live tiles at
+// Ring-Collide only ~1.3% have the query inside the Gaussian's support
+// box, and a warp that loads its tile from global memory itself has only
+// two pairs a lane before its next dependent load. So the block (FWD_SLOTS
+// threads per query, FWD_THREADS in all) reads its run's live tiles into
+// shared memory, FWD_THREADS items at a time, and stages each tile's rows
+// (mu, packed P and bias, dilated radius, v) there once, two later tiles
+// in flight by cp.async while the current one is evaluated
+// (gsr_tile.cuh walk_staged). Thread (q, s) takes query q against
+// FWD_ROWS = TN / FWD_SLOTS consecutive rows of every tile (independent
+// pairs). A pair first tests |x_k - mu_k| <= r on every axis (r the row's
+// radius dilated by 1e-3, -1 on dead rows): one that fails has g < c
+// however f32 rounds, so the test is a pure skip; one that passes takes
+// centered<D> unchanged, whose rounding keeps the support test bitwise
+// the plain version's. Each query's FWD_SLOTS partial sums meet in one
+// fixed shuffle tree: deterministic, no atomics, one owner per output.
+constexpr int FWD_SLOTS = 16;
+constexpr int FWD_THREADS = TB * FWD_SLOTS;
+constexpr int FWD_ROWS = TN / FWD_SLOTS;
+constexpr int FWD_STAGES = 3;
+static_assert(FWD_ROWS % 4 == 0 && 32 % FWD_SLOTS == 0,
+              "rows in fours; a query's slots share one warp");
+
 template <int D, int VDIM>
-__global__ void __launch_bounds__(32 * TB)
+__global__ void __launch_bounds__(FWD_THREADS)
 cells_fwd_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
                  int cap, const int* __restrict__ ok,
                  const int* __restrict__ tmask, const float* __restrict__ x,
                  const float* __restrict__ muT,
-                 const float* __restrict__ ppT, const float* __restrict__ v,
+                 const float* __restrict__ ppT,
+                 const float* __restrict__ rad, const float* __restrict__ v,
                  float* __restrict__ out, int* __restrict__ overflows, int N,
                  int njac, float clamp) {
+  constexpr int NB = Dims<D>::NB;
+  using S = StagedTile<D, VDIM>;
+  __shared__ __align__(16) float stage[FWD_STAGES][S::FLOATS];
+  __shared__ int list[FWD_THREADS];
+  __shared__ int wcount[FWD_THREADS / 32];
   const int i = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int b = i * TB + threadIdx.y;
+  const int tid = threadIdx.x;
+  const int slot = tid % FWD_SLOTS;
+  const int b = i * TB + tid / FWD_SLOTS;
   float xq[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) xq[k] = x[D * b + k];
   float acc[(1 + D) * VDIM];
 #pragma unroll
   for (int k = 0; k < (1 + D) * VDIM; ++k) acc[k] = 0.f;
-  if (*ok) {
-    for (int w = run_start(rows, cap, i); w < cap && rows[w] == i; ++w) {
-      const int j = cols[w];
-      if (j < 0) break;   // keep-alive or padding: the run has no more
-      fwd_tile<D, VDIM>(xq, j, lane, muT, ppT, v, N, njac, clamp, acc);
+  const Stager<D, VDIM, FWD_THREADS> st(muT, ppT, rad, v, N);
+  // A staged tile: rows FWD_ROWS slot .. FWD_ROWS (slot + 1) - 1 are
+  // this thread's. Their box tests first (16-byte reads), then the
+  // geometry of the rows that pass, ascending: a warp runs the geometry as
+  // often as its busiest lane has passing rows, not once per row.
+  auto eval = [&](const float* s) {
+    float r[FWD_ROWS];
+#pragma unroll
+    for (int g = 0; g < FWD_ROWS / 4; ++g) {
+      const float4 r4 = *reinterpret_cast<const float4*>(
+          s + S::RAD + FWD_ROWS * slot + 4 * g);
+      r[4 * g] = r4.x;
+      r[4 * g + 1] = r4.y;
+      r[4 * g + 2] = r4.z;
+      r[4 * g + 3] = r4.w;
     }
-  } else {
-    const int nnt = N / TN;
-    for (int j = 0; j < nnt; ++j) {
-      if (tmask[i * nnt + j] == 0) continue;
-      fwd_tile<D, VDIM>(xq, j, lane, muT, ppT, v, N, njac, clamp, acc);
+    unsigned hit = (1u << FWD_ROWS) - 1u;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+#pragma unroll
+      for (int g = 0; g < FWD_ROWS / 4; ++g) {
+        const float4 m4 = *reinterpret_cast<const float4*>(
+            s + S::MU + k * TN + FWD_ROWS * slot + 4 * g);
+        const float m[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr)
+          if (!(fabsf(xq[k] - m[rr]) <= r[4 * g + rr]))
+            hit &= ~(1u << (4 * g + rr));
+      }
     }
-    if (i == 0 && lane == 0 && threadIdx.y == 0) *overflows += 1;
+    for (; hit; hit &= hit - 1) {   // outside a row's box: g < c, skipped
+      const int n = FWD_ROWS * slot + __ffs(hit) - 1;
+      Gauss<D> G;
+#pragma unroll
+      for (int k = 0; k < D; ++k) G.mu[k] = s[S::MU + k * TN + n];
+#pragma unroll
+      for (int k = 0; k < NB; ++k) G.p[k] = s[S::PP + k * TN + n];
+      G.bias = s[S::PP + NB * TN + n];
+      const Geom<D> q = centered<D>(xq, G);
+      if (q.g >= clamp) {
+        const float gc = q.g - clamp;
+#pragma unroll
+        for (int a = 0; a < VDIM; ++a) {
+          const float va = s[S::V + n * VDIM + a];
+          acc[a] += gc * va;
+          if (njac) {
+#pragma unroll
+            for (int k = 0; k < D; ++k)
+              acc[(1 + k) * VDIM + a] += -q.g * q.pd[k] * va;
+          }
+        }
+      }
+    }
+  };
+
+  // the live tiles of query tile i, ascending: its run of the work list
+  // up to the first -1, or, when the list overflowed, its mask row
+  const bool listed = *ok != 0;
+  const int nnt = N / TN;
+  const int w0 = listed ? run_start(rows, cap, i) : 0;
+  if (!listed && i == 0 && tid == 0) *overflows += 1;
+  for (int base = 0;; base += FWD_THREADS) {
+    bool live;
+    int j;
+    if (listed) {
+      const int w = w0 + base + tid;
+      live = w < cap && rows[w] == i;
+      j = live ? cols[w] : -1;
+      live = live && j >= 0;
+    } else {
+      j = base + tid;
+      live = j < nnt && tmask[i * nnt + j] != 0;
+    }
+    const int cnt = compact_block<FWD_THREADS>(live, j, list, wcount);
+    walk_staged<D, VDIM, FWD_STAGES, FWD_THREADS>(list, cnt, stage, st,
+                                                  eval);
+    // a run's live items come first: a short chunk is its last
+    if (listed ? cnt < FWD_THREADS : base + FWD_THREADS >= nnt) break;
   }
-  fwd_store<D, VDIM>(acc, lane, b, njac, out);
+
+  // the query's FWD_SLOTS partial sums, one fixed butterfly tree
+#pragma unroll
+  for (int k = 0; k < (1 + D) * VDIM; ++k)
+    for (int off = FWD_SLOTS / 2; off > 0; off >>= 1)
+      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+  if (slot == 0) {
+    const int ncol = (1 + njac) * VDIM;
+    for (int k = 0; k < ncol; ++k) out[b * ncol + k] = acc[k];
+  }
 }
 
 template <int D, int VDIM, int NCOT>
@@ -150,7 +257,7 @@ struct FwdLaunch {
   const int *rows, *cols;
   int cap;
   const int *ok, *tm;
-  const float *x, *mu, *pp, *v;
+  const float *x, *mu, *pp, *rad, *v;
   float* out;
   int* over;
   int B, N, njac;
@@ -158,8 +265,9 @@ struct FwdLaunch {
   cudaStream_t s;
   template <int D, int VDIM>
   int run() const {
-    cells_fwd_kernel<D, VDIM><<<dim3(B / TB), dim3(32, TB), 0, s>>>(
-        rows, cols, cap, ok, tm, x, mu, pp, v, out, over, N, njac, clamp);
+    cells_fwd_kernel<D, VDIM><<<dim3(B / TB), dim3(FWD_THREADS), 0, s>>>(
+        rows, cols, cap, ok, tm, x, mu, pp, rad, v, out, over, N, njac,
+        clamp);
     return cudaGetLastError();
   }
 };
@@ -219,9 +327,9 @@ int cells_tile_sizes(int* tb, int* tn) {
 
 int cells_fwd(const void* rows, const void* cols, int cap, const void* ok,
               const void* tmask, const void* x, const void* muT,
-              const void* ppT, const void* v, void* out, void* overflows,
-              int B, int N, int d, int vdim, int njac, float clamp,
-              void* stream) {
+              const void* ppT, const void* rad, const void* v, void* out,
+              void* overflows, int B, int N, int d, int vdim, int njac,
+              float clamp, void* stream) {
   if (bad_shape(B, N, d, vdim, njac) || cap < 1)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
@@ -233,6 +341,7 @@ int cells_fwd(const void* rows, const void* cols, int cap, const void* ok,
                     static_cast<const float*>(x),
                     static_cast<const float*>(muT),
                     static_cast<const float*>(ppT),
+                    static_cast<const float*>(rad),
                     static_cast<const float*>(v),
                     static_cast<float*>(out),
                     static_cast<int*>(overflows),

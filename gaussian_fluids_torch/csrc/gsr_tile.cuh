@@ -1,10 +1,13 @@
 // Shared device code of the Gaussian-splatting field kernels for Hopper
-// (sm_90a): the centered geometry of one query-Gaussian pair, and the
+// (sm_90a): the centered geometry of one query-Gaussian pair, the
 // per-tile forward and backward accumulations, for d = 2 and 3 and
-// vdim = 1, 2, 3. Included by gsr_centered.cu (the tile-masked sweep),
-// gsr_cells.cu (the work-list walk) and rk4_fused.cu (the fused RK4
-// backtrace); the first two compute the same sums over the same pairs, in
-// the same order within a tile.
+// vdim = 1, 2, 3, and the staging of Gaussian tiles in shared memory by
+// cp.async with the block compaction of the tiles to stage. Included by
+// gsr_centered.cu (the tile-masked sweep), gsr_cells.cu (the work-list
+// walk), gsr_banded.cu (the replay's windowed value) and rk4_fused.cu (the
+// fused RK4 backtrace); the first two compute the same terms over the
+// same pairs (the cells forward skips those outside a row's box, which
+// add nothing).
 //
 // Math (the TPU kernels' _tile_quantities, all f32 on the CUDA cores):
 //   delta = x - mu;  Pd_k = sum_j P_kj delta_j;  quad = delta.Pd + bias
@@ -26,7 +29,7 @@
 
 namespace gsr {
 
-constexpr int TB = 8;   // queries per tile: one warp each in the forward
+constexpr int TB = 8;   // queries per tile: a warp each, centered forward
 constexpr int TN = 64;  // Gaussians per tile: one thread each in backward
 
 template <int D>
@@ -279,6 +282,121 @@ __device__ __forceinline__ void bwd_store(
     for (int k = 0; k < Dims<D>::NMP; ++k) dmp[k * N + n] = accm[c][k];
 #pragma unroll
     for (int a = 0; a < VDIM; ++a) dv[n * VDIM + a] = accv[c][a];
+  }
+}
+
+// Asynchronous 16-byte copies from global to shared memory (sm_80+
+// cp.async, L2 only): the staged kernels issue a later tile's copies,
+// commit them as one group, and wait for all but the newest groups before
+// the block reads the current tile (walk_staged below).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage Gaussian tile j (TN rows) into shared memory as a structure of
+// arrays of TN floats each: D rows mu_k, NP rows of ppT (P_kk, P_ij, the
+// bias), one row of dilated radii, then the TN x VDIM values. Every slice
+// is 256 contiguous bytes of a (., N) row (N a multiple of TN), so each
+// goes as 16 cp.async copies of 16 bytes. A thread of NT takes copies
+// tid, tid + NT, ...: their sources and destinations, apart from the
+// tile's offset, are computed once.
+template <int D, int VDIM>
+struct StagedTile {
+  static constexpr int MU = 0;
+  static constexpr int PP = D * TN;
+  static constexpr int RAD = (D + Dims<D>::NP) * TN;
+  static constexpr int V = RAD + TN;
+  static constexpr int FLOATS = V + TN * VDIM;
+};
+
+template <int D, int VDIM, int NT>
+struct Stager {
+  static constexpr int C = TN / 4;                   // copies per slice
+  static constexpr int ROWS = D + Dims<D>::NP + 1;   // mu, ppT, radius
+  static constexpr int TOTAL = ROWS * C + TN * VDIM / 4;
+  static constexpr int PER = (TOTAL + NT - 1) / NT;
+  const float* src[PER];
+  int step[PER], dst[PER];
+
+  __device__ __forceinline__ Stager(const float* __restrict__ muT,
+                                    const float* __restrict__ ppT,
+                                    const float* __restrict__ rad,
+                                    const float* __restrict__ v, int N) {
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int e = threadIdx.x + p * NT;
+      dst[p] = e < TOTAL ? 4 * e : -1;
+      if (e < ROWS * C) {
+        const int f = e / C, c = e % C;
+        src[p] = (f < D ? muT + f * N
+                        : (f < ROWS - 1 ? ppT + (f - D) * N : rad)) + 4 * c;
+        step[p] = TN;
+      } else {
+        src[p] = v + 4 * (e - ROWS * C);
+        step[p] = TN * VDIM;
+      }
+    }
+  }
+  __device__ __forceinline__ void stage(float* st, int j) const {
+#pragma unroll
+    for (int p = 0; p < PER; ++p)
+      if (dst[p] >= 0) cp_async16(st + dst[p], src[p] + j * step[p]);
+  }
+};
+
+// Block-wide stream compaction: the threads' (flag, value) pairs with
+// flag set go to list[0, count) in thread order (a ballot per warp, the
+// warps' counts in order); returns the count to every thread. Every
+// thread of the block (NT threads) calls it; the caller's earlier reads
+// of list and wcount must be behind a __syncthreads.
+template <int NT>
+__device__ __forceinline__ int compact_block(bool flag, int value,
+                                             int* list, int* wcount) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned bal = __ballot_sync(0xffffffffu, flag);
+  if (lane == 0) wcount[warp] = __popc(bal);
+  __syncthreads();
+  int off = 0, cnt = 0;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) {
+    off += w < warp ? wcount[w] : 0;
+    cnt += wcount[w];
+  }
+  if (flag) list[off + __popc(bal & ((1u << lane) - 1u))] = value;
+  __syncthreads();
+  return cnt;
+}
+
+// Walk the cnt Gaussian tiles of list (in shared memory) in order through
+// NSTAGE staging buffers: tile m + NSTAGE - 1 is in flight by cp.async
+// while eval(tile m's buffer) runs. Every thread of the block (NT) calls
+// it; it ends behind a __syncthreads, so list may be refilled after.
+template <int D, int VDIM, int NSTAGE, int NT, class Eval>
+__device__ __forceinline__ void walk_staged(
+    const int* list, int cnt, float (*stage)[StagedTile<D, VDIM>::FLOATS],
+    const Stager<D, VDIM, NT>& st, Eval eval) {
+#pragma unroll
+  for (int p = 0; p < NSTAGE - 1; ++p) {
+    if (p < cnt) st.stage(stage[p], list[p]);
+    cp_async_commit();
+  }
+  for (int m = 0; m < cnt; ++m) {
+    const int pf = m + NSTAGE - 1;
+    if (pf < cnt) st.stage(stage[pf % NSTAGE], list[pf]);
+    cp_async_commit();
+    cp_async_wait<NSTAGE - 1>();   // this thread's copies of tile m landed
+    __syncthreads();               // ... and every thread's
+    eval(stage[m % NSTAGE]);
+    __syncthreads();               // every thread is done with its buffer
   }
 }
 

@@ -2,13 +2,14 @@
 width.
 
     python -m gaussian_fluids_torch.epoch_profile [--epochs 20]
+        [--config leapfrog_2d|ring_collide] [--epoch fit|clone|project]
 
 For one fit, clone re-fit and projection epoch each (the three epoch
 kinds of the 2D and the 3D path), on a seeded Leapfrog-2D state (71x71 =
 5041 Gaussians, B = 512) and a seeded Ring-Collide state (40^3 = 64,000
 Gaussians, capacity 75,776, B = 8192; the 3D epochs run the cells
-kernels): the host wall time per epoch, and from
-``torch.profiler`` the device time per epoch, the device's busy share
+kernels): the wall time per epoch, unprofiled and under the profiler,
+and from ``torch.profiler`` the device time per epoch, the device's busy share
 (device time over wall time; kernels run on one stream, so this is their
 union), the operators the host dispatches and the device launches per
 epoch, and the device time by kernel name.
@@ -118,6 +119,11 @@ def profile_epoch(step, epochs: int) -> dict:
     for _ in range(3):                       # warm-up: allocator, caches
         step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        step()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -136,6 +142,7 @@ def profile_epoch(step, epochs: int) -> dict:
     top = sorted(dev, key=_device_us, reverse=True)[:8]
     return {
         "epochs": epochs,
+        "wall_ms_per_epoch": 1e3 * plain_wall / epochs,
         "ms_per_epoch": 1e3 * wall / epochs,
         "device_ms_per_epoch": dev_us / 1e3 / epochs,
         "device_busy_share": dev_us / 1e6 / wall,
@@ -149,6 +156,8 @@ def profile_epoch(step, epochs: int) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--epochs", type=int, default=20)
+    ap.add_argument("--config", choices=("leapfrog_2d", "ring_collide"))
+    ap.add_argument("--epoch", choices=("fit", "clone", "project"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("epoch_profile: needs a CUDA GPU")
@@ -158,8 +167,12 @@ def main(argv=None):
     configs = (("leapfrog_2d", leapfrog_state, _epochs),
                ("ring_collide", ring_collide_state, _epochs_3d))
     for name, state, epochs in configs:
+        if args.config not in (None, name):
+            continue
         mix, spec, _ = state(device)
         for kind, step in epochs(mix, spec, device).items():
+            if args.epoch not in (None, kind):
+                continue
             print(json.dumps({"config": name, "epoch": kind,
                               **profile_epoch(step, args.epochs)}),
                   flush=True)

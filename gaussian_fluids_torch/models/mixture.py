@@ -14,6 +14,7 @@ Training differentiates with respect to the 4-tensor parameter dict
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict
 
 import numpy as np
@@ -154,11 +155,38 @@ class GaussianMixture:
 
     def x_sorted(self) -> "GaussianMixture":
         """Reorder by coordinate 0, dead rows last, whatever the dimension
-        and whatever order ``spatially_sorted`` takes: the order the banded
-        kernel (``ops/field.value_banded``) needs for a narrow band. The
-        density replay re-sorts each loaded checkpoint through this."""
+        and whatever order ``spatially_sorted`` takes: the JAX package's
+        order for its banded kernel (``ops/field.value_banded``), where a
+        narrow band covers. The density replay takes ``slab_sorted``."""
         key = torch.where(self.alive, self.positions[:, 0], float("inf"))
         return self._reordered(torch.argsort(key, stable=True))
+
+    def slab_sorted(self, clamp: float) -> "GaussianMixture":
+        """Reorder slab-major, dead rows last: by x-slab, then y-cell, then
+        along the last axis (in 2D by x-slab, then y). Slabs and cells are
+        twice the largest live support radius at ``clamp`` wide
+        (``ops/field.support_radius``), measured from the smallest live
+        coordinate. The density replay's order: a tile of consecutive rows
+        is then a short run along z inside one (slab, cell) column, so the
+        banded kernel, which walks only the tiles whose box meets a query
+        tile's, skips most of an x-slab's tiles; an x-sorted tile spans
+        the whole y-z plane. Host-free: every step stays on the device."""
+        d = self.d
+        r = math.sqrt(-2.0 * math.log(clamp)) \
+            * torch.exp(-self.scalings.min(dim=-1).values)
+        width = 2.0 * torch.where(self.alive, r, 0.0).amax()
+        width = torch.where(width > 0, width, 1.0)
+        live = self.alive[:, None]
+        lo = torch.where(live, self.positions, float("inf")).amin(dim=0)
+        cells = torch.floor((self.positions[:, :d - 1] - lo[:d - 1])
+                            / width).long().clamp(0, (1 << 20) - 1)
+        key = cells[:, 0]
+        for k in range(1, d - 1):
+            key = (key << 20) + cells[:, k]
+        key = torch.where(self.alive, key, torch.iinfo(torch.int64).max)
+        order = torch.argsort(self.positions[:, d - 1], stable=True)
+        order = order[torch.argsort(key[order], stable=True)]
+        return self._reordered(order)
 
     def compact(self) -> "GaussianMixture":
         """Drop padding."""

@@ -32,10 +32,11 @@ kernels: the first has no caller in either solver, the second serves the
 2D covector target under ``GF_FUSED_RK4=1``.
 
 ``value_banded`` is the density replay's own path, called by name as in
-the JAX package: value only, queries and Gaussians sorted along x, each
-query tile summing a window of ``band`` Gaussian tiles (the kernel of
-``ops/gsr_banded.py``), with a device-side guard that sweeps the whole
-axis when a window would miss a tile.
+the JAX package: value only, queries sorted along x and Gaussians
+slab-major (x-slab first), each query tile summing a window of ``band``
+Gaussian tiles (the kernel of ``ops/gsr_banded.py``, which walks only the
+window's tiles whose box meets the query tile's), with a device-side
+guard that sweeps the whole axis when a window would miss a tile.
 """
 
 from __future__ import annotations
@@ -197,6 +198,32 @@ def support_radius(scalings: torch.Tensor, clamp: float) -> torch.Tensor:
         * torch.exp(-scalings.min(dim=-1).values)
 
 
+BOX_MARGIN = 1e-3   # relative, as gsr_banded.support_cut's margin on quad
+
+
+def _row_support(mix: GaussianMixture, spec: FieldSpec, tn: int):
+    """(dead, r), each (N_p,) per tn-padded row: dead or padded, and the
+    support radius; what the tile mask and the box tests share."""
+    dead = _pad_axis(~in_domain_mask(mix, spec), tn, fill=True)
+    return dead, support_radius(_pad_axis(mix.scalings, tn),
+                                spec.clamp_threshold)
+
+
+def _dilated(dead: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    return torch.where(dead, -1.0, r * (1.0 + BOX_MARGIN)).contiguous()
+
+
+@torch.no_grad()
+def row_radius(mix: GaussianMixture, spec: FieldSpec, tn: int):
+    """(N_p,) per tn-padded row: its support radius dilated by
+    ``BOX_MARGIN``, -1 on dead and padded rows. A pair with
+    |x_k - mu_k| > this on some axis k has g < clamp however f32 rounds
+    (quad >= (1 + 2e-3) (-2 ln c) exactly, far beyond f32's error), so a
+    kernel's box test on it is a pure skip that never decides the
+    support; a dead row fails every test."""
+    return _dilated(*_row_support(mix, spec, tn))
+
+
 def _packed_precisions(mix: GaussianMixture,
                        dead: torch.Tensor) -> torch.Tensor:
     """(N, d(d+1)/2 + 1): P diagonal, P off-diagonals, dead-row bias."""
@@ -206,8 +233,8 @@ def _packed_precisions(mix: GaussianMixture,
     return torch.cat([pk, bias[:, None]], dim=-1)
 
 
-def _tile_mask(x_p, valid_b, mu_p, dead_n, scalings_p, spec: FieldSpec,
-               tb: int, tn: int) -> torch.Tensor:
+def _tile_mask(x_p, valid_b, mu_p, dead_n, r_n, tb: int,
+               tn: int) -> torch.Tensor:
     """(B//tb, N//tn) int32: 1 where a query tile's bounding box meets a
     Gaussian tile's bounding box, each row dilated by its own support
     radius. Exact: skipped tiles cannot contribute."""
@@ -219,7 +246,7 @@ def _tile_mask(x_p, valid_b, mu_p, dead_n, scalings_p, spec: FieldSpec,
     bhi = torch.where(vb, xb, -_INF).amax(dim=1)
     mun = mu_p.reshape(nnt, tn, d)
     dn = dead_n.reshape(nnt, tn, 1)
-    rr = support_radius(scalings_p, spec.clamp_threshold).reshape(nnt, tn, 1)
+    rr = r_n.reshape(nnt, tn, 1)
     nlo = torch.where(dn, _INF, mun - rr).amin(dim=1)
     nhi = torch.where(dn, -_INF, mun + rr).amax(dim=1)
     ok = ((bhi[:, None, :] >= nlo[None, :, :])
@@ -245,13 +272,14 @@ def _padded_param_rows(mix: GaussianMixture, spec: FieldSpec, tn: int):
 
 @torch.no_grad()
 def _tile_mask_of(mix: GaussianMixture, spec: FieldSpec, x_p, b: int,
-                  tb: int, tn: int) -> torch.Tensor:
+                  tb: int, tn: int, support=None) -> torch.Tensor:
     """The tile mask of tb-padded queries (``b`` real rows) against the
-    mixture's tn-padded rows."""
+    mixture's tn-padded rows (``support``: ``_row_support``'s, when the
+    caller has it)."""
     valid_b = torch.arange(x_p.shape[0], device=x_p.device) < b
-    dead_n = _pad_axis(~in_domain_mask(mix, spec), tn, fill=True)
+    dead_n, r_n = support or _row_support(mix, spec, tn)
     return _tile_mask(x_p, valid_b, _pad_axis(mix.positions, tn), dead_n,
-                      _pad_axis(mix.scalings, tn), spec, tb, tn)
+                      r_n, tb, tn)
 
 
 def _centered_prep(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
@@ -319,18 +347,21 @@ def _cells_lists(tmask: torch.Tensor, cap: int):
 
 
 def _cells_prep(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor):
-    """(x_p, b, tmask, lists) for the cells path: ``x`` (presorted by
+    """(x_p, b, tmask, lists, rad) for the cells path: ``x`` (presorted by
     ``spatial.sort_key``) padded to the kernels' query tile, the exact tile
-    mask at the kernels' tiles, and its work lists. The capacity's
-    Gaussian rows are a multiple of 512, so the Gaussian tile divides
-    them."""
+    mask at the kernels' tiles, its work lists, and the rows' dilated
+    radii of the forward's box test (``row_radius``, from the mask's own
+    radii). The capacity's Gaussian rows are a multiple of 512, so the
+    Gaussian tile divides them."""
     _check_queries(mix, x)
     with torch.no_grad():
         b = x.shape[0]
         x_p = _pad_axis(x.detach(), gsr_cells.TB).contiguous()
-        tmask = _tile_mask_of(mix, spec, x_p, b, gsr_cells.TB, gsr_cells.TN)
+        support = _row_support(mix, spec, gsr_cells.TN)
+        tmask = _tile_mask_of(mix, spec, x_p, b, gsr_cells.TB, gsr_cells.TN,
+                              support)
         lists = _cells_lists(tmask, _cells_cap(*tmask.shape))
-    return x_p, b, tmask, lists
+    return x_p, b, tmask, lists, _dilated(*support)
 
 
 def _cells_value_jac(mix: GaussianMixture, spec: FieldSpec,
@@ -344,11 +375,11 @@ def _cells_value_jac(mix: GaussianMixture, spec: FieldSpec,
     inv = None
     if not presorted:
         x, inv = spatial.sort_queries(x)
-    x_p, b, tmask, lists = _cells_prep(mix, spec, x)
+    x_p, b, tmask, lists, rad = _cells_prep(mix, spec, x)
     mu_p, pp_p, v_p = _padded_param_rows(mix, spec, gsr_cells.TN)
     out = gsr_cells.fused_gsr_cells(
         lists, tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
-        v_p.contiguous(), spec.clamp_threshold, njac)[:b]
+        v_p.contiguous(), rad, spec.clamp_threshold, njac)[:b]
     val, jac = _split_out(out, b, d, vdim) if njac else (out, None)
     if inv is not None:
         val = val[inv]
@@ -358,20 +389,29 @@ def _cells_value_jac(mix: GaussianMixture, spec: FieldSpec,
 
 # ---- banded value-only path (the density replay's CUDA kernel) ----
 
+@torch.no_grad()
+def gaussian_tile_boxes(mix: GaussianMixture, spec: FieldSpec, tn: int,
+                        rad=None):
+    """(lo, hi), each (d, nnt): per tn-row Gaussian tile, the box its live
+    rows reach, each row dilated by ``row_radius`` (+-inf for a tile with
+    no live row). A query tile whose box misses a Gaussian tile's holds no
+    pair with g >= c there. Host-free: tensors on the mixture's device."""
+    nnt = -(-mix.capacity // tn)
+    if rad is None:
+        rad = row_radius(mix, spec, tn)
+    r = rad.reshape(nnt, tn, 1)
+    mun = _pad_axis(mix.positions, tn).reshape(nnt, tn, mix.d)
+    lo = torch.where(r < 0, _INF, mun - r).amin(dim=1)
+    hi = torch.where(r < 0, -_INF, mun + r).amax(dim=1)
+    return lo.T.contiguous(), hi.T.contiguous()
+
+
 def gaussian_tile_extents(mix: GaussianMixture, spec: FieldSpec, tn: int):
-    """(nlo, nhi): per tn-row Gaussian tile, the x-range its live rows
-    reach, each row dilated by its own support radius (+-inf for a tile
-    with no live row). Host-free: tensors on the mixture's device."""
-    with torch.no_grad():
-        nnt = -(-mix.capacity // tn)
-        dead = _pad_axis(~in_domain_mask(mix, spec), tn, fill=True) \
-            .reshape(nnt, tn)
-        mun = _pad_axis(mix.positions[:, 0], tn).reshape(nnt, tn)
-        r = support_radius(_pad_axis(mix.scalings, tn), spec.clamp_threshold) \
-            .reshape(nnt, tn)
-        nlo = torch.where(dead, _INF, mun - r).amin(dim=1)
-        nhi = torch.where(dead, -_INF, mun + r).amax(dim=1)
-    return nlo, nhi
+    """(nlo, nhi): the x-ranges of ``gaussian_tile_boxes``, which the
+    banded window and its guard use, so that the window holds every tile
+    the kernel's box test can let through."""
+    lo, hi = gaussian_tile_boxes(mix, spec, tn)
+    return lo[0], hi[0]
 
 
 def band_window(x_p: torch.Tensor, b: int, nlo, nhi, band: int, tb: int):
@@ -397,14 +437,18 @@ def band_window(x_p: torch.Tensor, b: int, nlo, nhi, band: int, tb: int):
 def banded_prep(mix: GaussianMixture, spec: FieldSpec):
     """The Gaussian side of ``value_banded``, shared by every call on one
     mixture (the replay's four RK4 stages of every chunk): the kernel's
-    transposed, TN-padded rows and the tiles' x extents."""
+    transposed, TN-padded rows, each row's dilated radius (``rad``), the
+    tiles' boxes (``lo``, ``hi``: (d, nnt)) and their x extents (``nlo``,
+    ``nhi``), which set the window."""
     tn = gsr_banded.TN
     with torch.no_grad():
         mu_p, pp_p, v_p = _padded_param_rows(mix, spec, tn)
-        nlo, nhi = gaussian_tile_extents(mix, spec, tn)
+        rad = row_radius(mix, spec, tn)
+        lo, hi = gaussian_tile_boxes(mix, spec, tn, rad)
     return {"muT": mu_p.T.contiguous(), "ppT": pp_p.T.contiguous(),
-            "v": v_p.contiguous(), "nlo": nlo, "nhi": nhi,
-            "d": mix.d, "clamp": spec.clamp_threshold}
+            "v": v_p.contiguous(), "rad": rad, "lo": lo, "hi": hi,
+            "nlo": lo[0], "nhi": hi[0], "d": mix.d,
+            "clamp": spec.clamp_threshold}
 
 
 @torch.no_grad()
@@ -425,8 +469,8 @@ def value_banded_prepped(prep, x: torch.Tensor, band: int,
     band = min(band, prep["nlo"].shape[0])
     jlo, ok = band_window(x_p, b, prep["nlo"], prep["nhi"], band, tb)
     out = gsr_banded.gsr_value_banded(
-        jlo, ok, x_p, prep["muT"], prep["ppT"], prep["v"], prep["clamp"],
-        band)[:b]
+        jlo, ok, x_p, prep["muT"], prep["ppT"], prep["v"], prep["rad"],
+        prep["lo"], prep["hi"], prep["clamp"], band, nvalid=b)[:b]
     return out if inv is None else out[inv]
 
 
@@ -434,7 +478,9 @@ def value_banded(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
                  band: int, presorted: bool = False) -> torch.Tensor:
     """Value through the banded value-only kernel, for huge spatially
     coherent query sets (the density backtrace); no gradients. The
-    mixture must be x-sorted (``x_sorted``) for a narrow band to cover.
+    mixture must be x-sorted (``x_sorted``) or slab-major
+    (``slab_sorted``, the replay's order, which lets the kernel skip most
+    of a window) for a narrow band to cover.
     Queries are sorted along x here unless ``presorted``; query tile i sums
     the ``band`` Gaussian tiles from its first x-overlapping one. An
     insufficient band is safe: the guard, computed on the device, makes the
@@ -529,7 +575,7 @@ def _two_head_grads_kernels(params, alive, spec: FieldSpec, x: torch.Tensor,
     clamp = spec.clamp_threshold
     mix_sg = mixture_of({k: p.detach() for k, p in params.items()}, alive)
     if cells:
-        x_p, _, tmask, (rows, cols, gtiles, qtiles, ok) = _cells_prep(
+        x_p, _, tmask, (rows, cols, gtiles, qtiles, ok), rad = _cells_prep(
             mix_sg, spec, x)
     else:
         x_p, _, _, _, _, _, tmask = _centered_prep(mix_sg, spec, x, tb, tn,
@@ -542,7 +588,7 @@ def _two_head_grads_kernels(params, alive, spec: FieldSpec, x: torch.Tensor,
     args = tuple(t.detach() for t in prep)
     if cells:
         out = gsr_cells.cells_fwd(rows, cols, ok, tmask, x_p, *args, clamp,
-                                  d)[:b]
+                                  d, rad)[:b]
     else:
         out = gsr_centered.gsr_fwd(tmask, x_p, *args, clamp, d)[:b]
     losses, douts, use_val = _heads_on_out(out, d, vdim, (head1, head2))

@@ -10,13 +10,18 @@ Ports the Pallas TPU kernel ``_val_banded_kernel`` of
                                                      tiles per query tile
 
 It serves the density replay's RK4 stages (``ops/field.value_banded``):
-queries and Gaussians both sorted along x, query tile i sums the clamp-
-subtracted Gaussians of the ``band`` Gaussian tiles starting at
-``jlo[i]``. ``ok`` (an int32 device scalar) says whether every tile that
-can reach a query tile lies in its window; where it does not, the kernel
-sweeps the whole Gaussian axis in the same launch, so the result is exact
-either way and no host read is needed. ``guard_failures()`` reads how
-many launches took that branch (a device counter, read only when asked).
+queries sorted along x and Gaussians slab-major (``slab_sorted``), query
+tile i sums the clamp-subtracted Gaussians of the ``band`` Gaussian tiles
+starting at ``jlo[i]``. ``ok`` (an int32 device scalar) says whether
+every tile that can reach a query tile lies in its window; where it does
+not, the kernel sweeps the whole Gaussian axis in the same launch, so the
+result is exact either way and no host read is needed.
+``guard_failures()`` reads how many launches took that branch (a device
+counter, read only when asked). The kernel walks, of a window, only the
+tiles whose box (``lo``, ``hi``) meets the query tile's box, and of their
+rows only the pairs inside the row's dilated box (``rad``): pure skips of
+pairs with g < c, so the plain version, which sums the whole window,
+computes the same function.
 
 The wrapper dispatches on the device of ``x``: a CUDA tensor launches the
 kernel (after validation; any failure raises), a CPU tensor runs the plain
@@ -97,7 +102,8 @@ def _lib():
         lib = ctypes.CDLL(str(build()[0]))
         lib.banded_tile_sizes.argtypes = [ctypes.POINTER(_I)] * 2
         lib.banded_tile_sizes.restype = _I
-        lib.gsr_value_banded.argtypes = [_P] * 8 + [_I] * 5 + [_F, _F, _P]
+        lib.gsr_value_banded.argtypes = [_P] * 11 + [_I] * 6 \
+            + [_F, _F, _P]
         lib.gsr_value_banded.restype = _I
         tb, tn = _I(), _I()
         lib.banded_tile_sizes(ctypes.byref(tb), ctypes.byref(tn))
@@ -113,8 +119,7 @@ def _lib():
 # ---------------------------------------------------------------------------
 
 def _check(jlo, ok, x, muT, ppT, values, band):
-    """Shapes common to both paths; on CUDA also device, dtype and
-    layout. Returns (d, vdim, B, N)."""
+    """Shapes common to both paths. Returns (d, vdim, B, N)."""
     if x.dim() != 2 or muT.dim() != 2 or ppT.dim() != 2 \
             or values.dim() != 2 or jlo.dim() != 1:
         raise ValueError("x, muT, ppT, values must be 2-D and jlo 1-D")
@@ -134,20 +139,32 @@ def _check(jlo, ok, x, muT, ppT, values, band):
         raise ValueError("ok must hold one element")
     if not 1 <= band <= N // TN:
         raise ValueError(f"band {band} not in [1, {N // TN}]")
-    if x.is_cuda:
-        ts = (jlo, ok, x, muT, ppT, values)
-        if any(t.device != x.device for t in ts):
-            raise ValueError("all kernel operands must be on one device")
-        if jlo.dtype != torch.int32 or ok.dtype != torch.int32 or any(
-                t.dtype != torch.float32 for t in ts[2:]):
-            raise ValueError("kernel operands: int32 jlo and ok, float32 "
-                             "rest")
-        if not all(t.is_contiguous() for t in ts):
-            raise ValueError("kernel operands must be contiguous")
-        if d not in (2, 3) or vdim not in (1, 2, 3):
-            raise ValueError(f"the CUDA kernel takes d 2 or 3, vdim 1 to 3;"
-                             f" got d={d}, vdim={vdim}")
     return d, vdim, B, N
+
+
+def _check_kernel(jlo, ok, x, muT, ppT, values, rad, lo, hi, d, vdim, N):
+    """What only the CUDA kernel reads: device, dtype, layout, the rows'
+    radii and the tiles' boxes, and the 16-byte alignment of the rows its
+    asynchronous copies stage."""
+    if rad.shape != (N,) or lo.shape != (d, N // TN) \
+            or hi.shape != lo.shape:
+        raise ValueError(f"rad {tuple(rad.shape)}, lo {tuple(lo.shape)}, "
+                         f"hi {tuple(hi.shape)}: want ({N},) and "
+                         f"({d}, {N // TN})")
+    ts = (jlo, ok, x, muT, ppT, rad, values, lo, hi)
+    if any(t.device != x.device for t in ts):
+        raise ValueError("all kernel operands must be on one device")
+    if jlo.dtype != torch.int32 or ok.dtype != torch.int32 or any(
+            t.dtype != torch.float32 for t in ts[2:]):
+        raise ValueError("kernel operands: int32 jlo and ok, float32 "
+                         "rest")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("kernel operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in (muT, ppT, rad, values)):
+        raise ValueError("muT, ppT, rad and values must be 16-byte aligned")
+    if d not in (2, 3) or vdim not in (1, 2, 3):
+        raise ValueError(f"the CUDA kernel takes d 2 or 3, vdim 1 to 3;"
+                         f" got d={d}, vdim={vdim}")
 
 
 # ---------------------------------------------------------------------------
@@ -202,18 +219,26 @@ def value_banded_plain(jlo, ok, x, muT, ppT, values, clamp: float,
 # wrapper
 # ---------------------------------------------------------------------------
 
-def gsr_value_banded(jlo, ok, x, muT, ppT, values, clamp: float, band: int):
-    """(B, vdim) field values of x-sorted queries over their windows."""
+def gsr_value_banded(jlo, ok, x, muT, ppT, values, rad, lo, hi,
+                     clamp: float, band: int, nvalid=None):
+    """(B, vdim) field values of x-sorted queries over their windows.
+    ``rad`` (N,), ``lo`` and ``hi`` (d, N/TN) are the rows' dilated radii
+    and the tiles' boxes of ``field.banded_prep``; the first ``nvalid``
+    rows of x (all by default) are real queries and set each query tile's
+    box."""
     d, vdim, B, N = _check(jlo, ok, x, muT, ppT, values, band)
     if not x.is_cuda:
         return value_banded_plain(jlo, ok, x, muT, ppT, values, clamp, band)
+    _check_kernel(jlo, ok, x, muT, ppT, values, rad, lo, hi, d, vdim, N)
+    nvalid = B if nvalid is None else int(nvalid)
     lib = _lib()
     out = torch.empty((B, vdim), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.gsr_value_banded(
-            _ptr(jlo), _ptr(ok), _ptr(x), _ptr(muT), _ptr(ppT),
-            _ptr(values), _ptr(out), _ptr(_counter(x.device)), B, N, d,
-            vdim, int(band), float(clamp), support_cut(clamp), _stream(x))
+            _ptr(jlo), _ptr(ok), _ptr(x), _ptr(muT), _ptr(ppT), _ptr(rad),
+            _ptr(values), _ptr(lo), _ptr(hi), _ptr(out),
+            _ptr(_counter(x.device)), B, nvalid, N, d, vdim, int(band),
+            float(clamp), support_cut(clamp), _stream(x))
     _raise_on(rc, "gsr_value_banded")
     launches["gsr_value_banded"] += 1
     return out

@@ -90,7 +90,7 @@ def _lib():
         lib = ctypes.CDLL(str(build()[0]))
         lib.cells_tile_sizes.argtypes = [ctypes.POINTER(_I)] * 2
         lib.cells_tile_sizes.restype = _I
-        lib.cells_fwd.argtypes = [_P, _P, _I] + [_P] * 8 + [_I] * 5 \
+        lib.cells_fwd.argtypes = [_P, _P, _I] + [_P] * 9 + [_I] * 5 \
             + [_F, _P]
         lib.cells_fwd.restype = _I
         lib.cells_bwd_dn.argtypes = [_P, _P, _I] + [_P] * 10 + [_I] * 6 \
@@ -179,20 +179,30 @@ def cells_bwd_dn2_plain(gtiles, qtiles, ok, tmask, x, muT, ppT, values,
 # ---------------------------------------------------------------------------
 
 def cells_fwd(rows, cols, ok, tmask, x, muT, ppT, values, clamp: float,
-              njac: int):
-    """(B, (1+njac)*vdim) = [val | jac_0 | ... ] over the work list."""
+              njac: int, rad):
+    """(B, (1+njac)*vdim) = [val | jac_0 | ... ] over the work list.
+    ``rad`` (N,): each row's support radius dilated by 1e-3, -1 on dead
+    and padded rows (``field.row_radius``), which the kernel's box test
+    reads; the plain version does not need it."""
     d, vdim, B, N = gsr_centered._check(tmask, x, muT, ppT, values, njac)
     _check_lists(rows, cols, ok, x)
+    if rad.shape != (N,):
+        raise ValueError(f"rad {tuple(rad.shape)} != ({N},)")
     if not x.is_cuda:
         return cells_fwd_plain(rows, cols, ok, tmask, x, muT, ppT, values,
                                clamp, njac)
+    if rad.device != x.device or rad.dtype != torch.float32 \
+            or not rad.is_contiguous():
+        raise ValueError("rad: contiguous float32 on the queries' device")
+    if any(t.data_ptr() % 16 for t in (muT, ppT, rad, values)):
+        raise ValueError("muT, ppT, rad and values must be 16-byte aligned")
     lib = _lib()
     out = torch.empty((B, (1 + njac) * vdim), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.cells_fwd(_ptr(rows), _ptr(cols), rows.numel(), _ptr(ok),
                            _ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
-                           _ptr(values), _ptr(out),
+                           _ptr(rad), _ptr(values), _ptr(out),
                            _ptr(_counter(x.device, "cells_fwd")), B, N, d,
                            vdim, njac, float(clamp), _stream(x))
     _raise_on(rc, "cells_fwd")
@@ -265,13 +275,13 @@ class _FusedGsrCells(torch.autograd.Function):
     of the JAX package's ``_cells_core`` custom VJP. No gradient for x."""
 
     @staticmethod
-    def forward(ctx, lists, tmask, x, muT, ppT, values, clamp, njac):
+    def forward(ctx, lists, tmask, x, muT, ppT, values, rad, clamp, njac):
         rows, cols, gtiles, qtiles, ok = lists
         ctx.save_for_backward(gtiles, qtiles, ok, tmask, x, muT, ppT,
                               values)
         ctx.clamp, ctx.njac = clamp, njac
         return cells_fwd(rows, cols, ok, tmask, x, muT, ppT, values, clamp,
-                         njac)
+                         njac, rad)
 
     @staticmethod
     def backward(ctx, dout):
@@ -279,12 +289,13 @@ class _FusedGsrCells(torch.autograd.Function):
         dmuT, dppT, dv = cells_bwd_dn(gtiles, qtiles, ok, tmask, x, muT,
                                       ppT, values, dout.contiguous(),
                                       ctx.clamp, ctx.njac)
-        return None, None, None, dmuT, dppT, dv, None, None
+        return None, None, None, dmuT, dppT, dv, None, None, None
 
 
-def fused_gsr_cells(lists, tmask, x, muT, ppT, values, clamp: float,
+def fused_gsr_cells(lists, tmask, x, muT, ppT, values, rad, clamp: float,
                     njac: int):
     """Differentiable in (muT, ppT, values); x is a constant (the field's
-    cells path refuses queries that require a gradient)."""
+    cells path refuses queries that require a gradient). ``rad``: the
+    rows' dilated radii of the forward's box test (``cells_fwd``)."""
     return _FusedGsrCells.apply(tuple(lists), tmask, x, muT, ppT, values,
-                                float(clamp), int(njac))
+                                rad, float(clamp), int(njac))

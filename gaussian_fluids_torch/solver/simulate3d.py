@@ -153,8 +153,12 @@ def _suggest_band(mix: GaussianMixture, spec: FieldSpec, dt,
     its TPU tiles (tb = 1024, tn = 512); this computes it for the CUDA
     kernel's tiles (``gsr_banded.TB``, ``TN``) by the same scan, over the
     tile x extents the device guard holds the band to
-    (``field.gaussian_tile_extents``: each row dilated by its own radius,
-    where the JAX package dilates a tile by its largest). It is not
+    (``field.gaussian_tile_extents``: each row dilated by its own radius
+    and a 1e-3 margin, where the JAX package dilates a tile by its
+    largest), on the mixture as the replay orders it (slab-major, where
+    the JAX package sorts along x: a window then spans two or three
+    slabs' tiles, of which the kernel walks only those meeting a query
+    tile's box). It is not
     rounded up to a multiple of 8 as the JAX package rounds it (there, to
     avoid recompiles; the CUDA kernel takes the band at run time). A band
     that turns out too narrow for some stage is caught by the device guard
@@ -211,7 +215,8 @@ def advected_density(density: torch.Tensor, mix: GaussianMixture,
     On the card the stages go through the banded value kernel
     (``field.value_banded``): grid chunks are x-sorted, so each query tile
     visits only a window of Gaussian tiles; ``band`` is ``_suggest_band``'s
-    when None, and ``mix`` must be x-sorted. On the CPU the dense field
+    when None, and ``mix`` must be slab-major (``slab_sorted``) or
+    x-sorted. On the CPU the dense field
     runs on the JAX package's N-bounded chunk. Every chunk is dispatched
     before anything is read back; the result stays on the device."""
     xn, yn, zn = grid_shape
@@ -252,7 +257,7 @@ def advected_density_n(density0: torch.Tensor, out_dir: str, spec_domain,
     for i in range(n_frames - 1, -1, -1):
         mix, spec = checkpoint.load_checkpoint(
             os.path.join(out_dir, f"gaussian_velocity_{i}.pt"), device=dev)
-        mix = mix.x_sorted()
+        mix = mix.slab_sorted(spec.clamp_threshold)
         band, fchunk = None, chunk
         if dev.type == "cuda":
             band = _suggest_band(mix, spec, dt, chunk=chunk)
@@ -430,7 +435,8 @@ def advance_density(init_cond: str, out_dir: str, dt: float,
         if not os.path.exists(path):
             break
         mix, spec = checkpoint.load_checkpoint(path, device=device)
-        mix = mix.x_sorted()   # the banded kernel's window needs x-order
+        # the banded kernel's window needs x-slabs; its culling, y-cells
+        mix = mix.slab_sorted(spec.clamp_threshold)
         band = (_suggest_band(mix, spec, dt) if device.type == "cuda"
                 else None)
         frame += 1

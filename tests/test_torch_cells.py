@@ -171,7 +171,7 @@ def test_cells_cap_overflow_falls_back_exactly(cells_env, monkeypatch):
     monkeypatch.setenv("GF_CELLS_CAP", "0.0001")
     jm, spec, tm, tspec = _state(7)
     x = sorted_queries_3d(8, 128)
-    x_p, _, tmask, lists = tf._cells_prep(tm, tspec, t(x))
+    x_p, _, tmask, lists, _ = tf._cells_prep(tm, tspec, t(x))
     assert int(lists[4]) == 0                       # overflowed
     jv, jj = jf.value_and_jac(jm, spec, jnp.asarray(x), presorted=True,
                               need_dx=False)
@@ -190,17 +190,18 @@ def test_overflowed_list_takes_the_mask_branch():
     the mask: the result equals the centered sweep exactly."""
     jm, spec, tm, tspec = _state(14)
     x = t(sorted_queries_3d(15, 64))
-    x_p, _, tmask, (rows, cols, gt, qt, ok) = tf._cells_prep(tm, tspec, x)
+    x_p, _, tmask, (rows, cols, gt, qt, ok), rad = tf._cells_prep(tm, tspec,
+                                                                  x)
     mu_p, pp_p, v_p = tf._padded_param_rows(tm, tspec, tc.TN)
     args = (x_p, mu_p.T.contiguous(), pp_p.T.contiguous(), v_p)
     c = tspec.clamp_threshold
     trunc = (rows[:3].contiguous(), cols[:3].contiguous())
     bad = torch.zeros_like(ok)
     want = tk.fwd_plain(tmask, *args, c, 3)
-    torch.testing.assert_close(tc.cells_fwd(*trunc, bad, tmask, *args, c, 3),
-                               want, rtol=0, atol=0)
+    torch.testing.assert_close(tc.cells_fwd(*trunc, bad, tmask, *args, c, 3,
+                                            rad), want, rtol=0, atol=0)
     torch.testing.assert_close(tc.cells_fwd(rows, cols, ok, tmask, *args, c,
-                                            3), want, rtol=0, atol=0)
+                                            3, rad), want, rtol=0, atol=0)
     dout = torch.as_tensor(np.random.RandomState(16).randn(
         x_p.shape[0], 12).astype(np.float32))
     got = tc.cells_bwd_dn(gt[:3].contiguous(), qt[:3].contiguous(), bad,
@@ -219,14 +220,17 @@ def test_cells_path_gives_no_gradient_for_queries():
 def test_cells_wrappers_validate_lists():
     jm, spec, tm, tspec = _state(19, n=200)
     x = t(sorted_queries_3d(20, 32))
-    x_p, _, tmask, (rows, cols, gt, qt, ok) = tf._cells_prep(tm, tspec, x)
+    x_p, _, tmask, (rows, cols, gt, qt, ok), rad = tf._cells_prep(tm, tspec,
+                                                                  x)
     mu_p, pp_p, v_p = tf._padded_param_rows(tm, tspec, tc.TN)
     args = (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(), v_p)
     c = tspec.clamp_threshold
     with pytest.raises(ValueError):                  # lists of two lengths
-        tc.cells_fwd(rows, cols[:-1], ok, *args, c, 3)
+        tc.cells_fwd(rows, cols[:-1], ok, *args, c, 3, rad)
     with pytest.raises(ValueError):                  # njac neither 0 nor d
-        tc.cells_fwd(rows, cols, ok, *args, c, 2)
+        tc.cells_fwd(rows, cols, ok, *args, c, 2, rad)
+    with pytest.raises(ValueError):                  # radii of other rows
+        tc.cells_fwd(rows, cols, ok, *args, c, 3, rad[:-64])
     with pytest.raises(ValueError):                  # cotangent rows
         tc.cells_bwd_dn(gt, qt, ok, *args, torch.zeros(3, 12), c, 3)
     with pytest.raises(ValueError):

@@ -1,15 +1,18 @@
 """On the card only: each CUDA kernel of the port against its plain
 PyTorch version — the centered kernels at Leapfrog-2D shapes and at d = 3,
 the work-list (cells) kernels at Ring-Collide shapes (B = 8192, N =
-75,776), with their overflow branch, and the banded value kernel of the
-density replay at its production chunk (262,144 grid nodes), with its
-guard's full sweep, the dL/dx kernel at d = 2 and 3, the triple-cotangent
-backward and the fused RK4 backtrace at Karman-2D shapes (B = 512, N =
-24,576) — the wrappers' refusals, the field through the kernels, query
-gradients and the fused projection heads through the kernels, one fit, clone and projection epoch, 2D and 3D, through the
-kernels against the dense path in float64, and the replay's RK4 backtrace
-through the banded kernel against the dense one in float64. Skips without a
-GPU. Imports neither JAX nor the JAX package, so it runs on the card's
+75,776), with their overflow branch and the cells forward's support
+edge (pairs within a few 1e-6 of the clamp), and the banded value kernel
+of the density replay at its production chunk (262,144 grid nodes), on
+the slab-major and the x-sorted order, with its guard's full sweep and a
+batch that is not a whole number of query tiles, the dL/dx kernel at
+d = 2 and 3, the triple-cotangent backward and the fused RK4 backtrace
+at Karman-2D shapes (B = 512, N = 24,576) — the wrappers' refusals, the
+field through the kernels, query gradients and the fused projection
+heads through the kernels, one fit, clone and projection epoch, 2D and
+3D, through the kernels against the dense path in float64, and the
+replay's RK4 backtrace through the banded kernel against the dense one
+in float64. Skips without a GPU. Imports neither JAX nor the JAX package, so it runs on the card's
 machine:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -142,27 +145,27 @@ def test_epoch_through_kernels_matches_dense_f64(cuda_device, monkeypatch,
 
 def _inputs_3d(device):
     mix, spec, x = ring_collide_state(device, seed=84)
-    x_p, _, tmask, lists = tf._cells_prep(mix, spec, x)
+    x_p, _, tmask, lists, rad = tf._cells_prep(mix, spec, x)
     mu_p, pp_p, v_p = tf._padded_param_rows(mix, spec, tc.TN)
     rng = np.random.RandomState(85)
     douts = [torch.as_tensor(rng.randn(x_p.shape[0], 12).astype(np.float32)
                              / 8192, device=device) for _ in range(2)]
     return (lists, (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
-                    v_p.contiguous()), douts, spec.clamp_threshold)
+                    v_p.contiguous()), douts, spec.clamp_threshold, rad)
 
 
 @pytest.mark.parametrize("njac", [0, 3])
 def test_fwd_kernels_d3_match_plain(cuda_device, njac):
-    (rows, cols, _, _, ok), args, _, clamp = _inputs_3d(cuda_device)
+    (rows, cols, _, _, ok), args, _, clamp, rad = _inputs_3d(cuda_device)
     assert int(ok) == 1
     want = [tk.fwd_plain(*args, clamp, njac)]
     _close([tk.gsr_fwd(*args, clamp, njac)], want)
-    _close([tc.cells_fwd(rows, cols, ok, *args, clamp, njac)], want)
+    _close([tc.cells_fwd(rows, cols, ok, *args, clamp, njac, rad)], want)
 
 
 @pytest.mark.parametrize("njac", [0, 3])
 def test_bwd_dn_kernels_d3_match_plain(cuda_device, njac):
-    (_, _, gt, qt, ok), args, douts, clamp = _inputs_3d(cuda_device)
+    (_, _, gt, qt, ok), args, douts, clamp, _ = _inputs_3d(cuda_device)
     dout = douts[0][:, :(1 + njac) * 3].contiguous()
     want = tk.bwd_dn_plain(*args, dout, clamp, njac)
     _close(tk.gsr_bwd_dn(*args, dout, clamp, njac), want)
@@ -171,7 +174,7 @@ def test_bwd_dn_kernels_d3_match_plain(cuda_device, njac):
 
 @pytest.mark.parametrize("use_val", [True, False])
 def test_bwd_dn2_kernels_d3_match_plain(cuda_device, use_val):
-    (_, _, gt, qt, ok), args, douts, clamp = _inputs_3d(cuda_device)
+    (_, _, gt, qt, ok), args, douts, clamp, _ = _inputs_3d(cuda_device)
     want = tk.bwd_dn2_plain(*args, *douts, clamp, 3, use_val=use_val)
     got = tk.gsr_bwd_dn2(*args, *douts, clamp, 3, use_val=use_val)
     _close(got[0] + got[1], want[0] + want[1])
@@ -184,11 +187,12 @@ def test_cells_overflow_branch_sweeps_the_mask(cuda_device):
     """Flagged as overflowed, every cells kernel ignores its (here
     truncated) list and sweeps the whole fine mask: the same result, and
     the device counter sees each such launch."""
-    (rows, cols, gt, qt, ok), args, douts, clamp = _inputs_3d(cuda_device)
+    (rows, cols, gt, qt, ok), args, douts, clamp, rad = \
+        _inputs_3d(cuda_device)
     bad = torch.zeros_like(ok)
     rows, cols, gt, qt = (a[:5].contiguous() for a in (rows, cols, gt, qt))
     tc.reset_launches()
-    _close([tc.cells_fwd(rows, cols, bad, *args, clamp, 3)],
+    _close([tc.cells_fwd(rows, cols, bad, *args, clamp, 3, rad)],
            [tk.fwd_plain(*args, clamp, 3)])
     _close(tc.cells_bwd_dn(gt, qt, bad, *args, douts[0], clamp, 3),
            tk.bwd_dn_plain(*args, douts[0], clamp, 3))
@@ -197,6 +201,65 @@ def test_cells_overflow_branch_sweeps_the_mask(cuda_device):
     _close(got[0] + got[1], want[0] + want[1])
     assert tc.overflows() == {k: 1 for k in tc.NAMES}
     assert tc.launches == {k: 1 for k in tc.NAMES}
+
+
+def _support_edge_queries(mix, spec, n_gauss=256, seed=107):
+    """Queries at the support edge of ``n_gauss`` live Gaussians of
+    ``mix``: x = mu + t e along a seeded direction e, with t set in float64
+    so that g = c (1 + delta), delta spread over [-1e-6, 1e-6] (rounding x
+    to f32 moves g by a few 1e-6 more). Returns (x sorted along x, the
+    float64 g / c - 1 of each query's own pair at the f32 x)."""
+    rng = np.random.RandomState(seed)
+    live = np.flatnonzero(tf.in_domain_mask(mix, spec).cpu().numpy())
+    pick = rng.choice(live, n_gauss, replace=False)
+    P = mix.precisions()[pick].double().cpu().numpy()
+    mu = mix.positions[pick].double().cpu().numpy()
+    e = rng.randn(n_gauss, 3)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    delta = np.linspace(-1e-6, 1e-6, n_gauss)
+    quad = -2.0 * np.log(spec.clamp_threshold * (1.0 + delta))
+    t = np.sqrt(quad / np.einsum("ni,nij,nj->n", e, P, e))
+    x = (mu + t[:, None] * e).astype(np.float32)
+    dx = x.astype(np.float64) - mu
+    g = np.exp(-0.5 * np.einsum("ni,nij,nj->n", dx, P, dx))
+    order = np.argsort(x[:, 0], kind="stable")
+    return (torch.as_tensor(x[order], device=mix.device),
+            g[order] / spec.clamp_threshold - 1.0)
+
+
+def test_cells_fwd_support_edge_matches_plain(cuda_device):
+    """Pairs with g within 1e-6 relative of the clamp, inside and outside:
+    the cells forward's box test only skips, and its geometry rounds as
+    the plain version's, so both put every such pair on the same side of
+    the support. A pair on two sides would differ by its whole Jacobian
+    term g Pd v, far above the 1e-4 of the largest entry allowed."""
+    mix, spec, _ = ring_collide_state(cuda_device, seed=108, side=10)
+    x, rel = _support_edge_queries(mix, spec)
+    edge = rel[np.abs(rel) <= 1e-6]
+    assert (edge < 0).sum() >= 8 and (edge > 0).sum() >= 8
+    x_p, _, tmask, (rows, cols, _, _, ok), rad = tf._cells_prep(mix, spec,
+                                                                x)
+    mu_p, pp_p, v_p = tf._padded_param_rows(mix, spec, tc.TN)
+    args = (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+            v_p.contiguous())
+    c = spec.clamp_threshold
+    for nj in (0, 3):
+        want = tk.fwd_plain(*args, c, nj)
+        got = tc.cells_fwd(rows, cols, ok, *args, c, nj, rad)
+        _close([got], [want])
+        bad = torch.zeros_like(ok)
+        _close([tc.cells_fwd(rows, cols, bad, *args, c, nj, rad)], [want])
+
+
+def test_cells_fwd_refuses_radii_it_cannot_read(cuda_device):
+    (rows, cols, _, _, ok), args, _, clamp, rad = _inputs_3d(cuda_device)
+    with pytest.raises(ValueError):          # radii for other rows
+        tc.cells_fwd(rows, cols, ok, *args, clamp, 3, rad[:-64])
+    with pytest.raises(ValueError):          # on the host
+        tc.cells_fwd(rows, cols, ok, *args, clamp, 3, rad.cpu())
+    with pytest.raises(ValueError):          # not 16-byte aligned
+        tc.cells_fwd(rows, cols, ok, *args, clamp, 3,
+                     torch.cat([rad[:1], rad])[1:])
 
 
 def test_cells_field_dispatch_at_ring_collide(cuda_device):
@@ -258,9 +321,10 @@ def _plane(device, x0, n=512):
     return torch.stack([torch.full_like(Y, x0), Y, Z], -1).reshape(-1, 3)
 
 
-def _banded(device, seed=87):
+def _banded(device, seed=87, order="slab"):
     mix, spec, _ = ring_collide_state(device, seed=seed)
-    mix = mix.x_sorted()
+    mix = mix.slab_sorted(spec.clamp_threshold) if order == "slab" \
+        else mix.x_sorted()
     return mix, spec, tf.banded_prep(mix, spec), \
         tsim._suggest_band(mix, spec, 0.02)
 
@@ -268,17 +332,23 @@ def _banded(device, seed=87):
 def _banded_call(prep, x, band, kernel=True):
     jlo, ok = tf.band_window(x, x.shape[0], prep["nlo"], prep["nhi"], band,
                              tb.TB)
-    f = tb.gsr_value_banded if kernel else tb.value_banded_plain
-    return f(jlo, ok, x, prep["muT"], prep["ppT"], prep["v"],
-             prep["clamp"], band), int(ok)
+    args = (jlo, ok, x, prep["muT"], prep["ppT"], prep["v"])
+    if kernel:
+        out = tb.gsr_value_banded(*args, prep["rad"], prep["lo"], prep["hi"],
+                                  prep["clamp"], band)
+    else:
+        out = tb.value_banded_plain(*args, prep["clamp"], band)
+    return out, int(ok)
 
 
+@pytest.mark.parametrize("order", ["slab", "x"])
 @pytest.mark.parametrize("where", ["plane", "stage"])
-def test_banded_kernel_matches_plain(cuda_device, where):
+def test_banded_kernel_matches_plain(cuda_device, where, order):
     """A 262,144-node chunk at Ring-Collide width, on the grid plane and
     moved as an RK4 stage moves it (x + dt/2 u, no longer one plane, not
-    re-sorted): kernel and plain twin within 1e-4 of the largest entry."""
-    mix, spec, prep, band = _banded(cuda_device)
+    re-sorted), on the mixture slab-major (the replay's order) and
+    x-sorted: kernel and plain twin within 1e-4 of the largest entry."""
+    mix, spec, prep, band = _banded(cuda_device, order=order)
     x = _plane(cuda_device, 0.4985)
     if where == "stage":
         u = tf.value_banded_prepped(prep, x, band, presorted=True)
@@ -290,10 +360,11 @@ def test_banded_kernel_matches_plain(cuda_device, where):
     _close([got], [want])
 
 
-def test_banded_guard_sweep_is_bitwise(cuda_device):
+@pytest.mark.parametrize("order", ["slab", "x"])
+def test_banded_guard_sweep_is_bitwise(cuda_device, order):
     """Band 1 fails the device guard: the kernel sweeps the whole axis,
     bitwise equal to the sufficient band's output, and counts it."""
-    mix, spec, prep, band = _banded(cuda_device, seed=88)
+    mix, spec, prep, band = _banded(cuda_device, seed=88, order=order)
     x = _plane(cuda_device, 0.25)
     tb.reset_launches()
     want, ok = _banded_call(prep, x, band)
@@ -303,12 +374,30 @@ def test_banded_guard_sweep_is_bitwise(cuda_device):
     assert tb.guard_failures() == 1 and tb.launches["gsr_value_banded"] == 2
 
 
+def test_banded_padded_queries_match_plain(cuda_device):
+    """A batch that is not a whole number of query tiles: the padded rows
+    stay out of the last tile's box (``nvalid``), and the real rows match
+    the plain twin within 1e-4 of the largest entry."""
+    mix, spec, prep, band = _banded(cuda_device, seed=109)
+    x = _plane(cuda_device, 0.6, n=100)[:9950]
+    tb.reset_launches()
+    got = tf.value_banded_prepped(prep, x, band, presorted=True)
+    assert tb.launches["gsr_value_banded"] == 1
+    x_p = tf._pad_axis(x, tb.TB)
+    jlo, ok = tf.band_window(x_p, x.shape[0], prep["nlo"], prep["nhi"],
+                             band, tb.TB)
+    want = tb.value_banded_plain(jlo, ok, x_p, prep["muT"], prep["ppT"],
+                                 prep["v"], prep["clamp"], band)[:9950]
+    _close([got], [want])
+
+
 def test_banded_wrapper_refuses(cuda_device):
     mix, spec, prep, band = _banded(cuda_device)
     x = _plane(cuda_device, 0.5, n=64)
     jlo, ok = tf.band_window(x, x.shape[0], prep["nlo"], prep["nhi"], band,
                              tb.TB)
-    args = (prep["muT"], prep["ppT"], prep["v"], prep["clamp"])
+    args = (prep["muT"], prep["ppT"], prep["v"], prep["rad"], prep["lo"],
+            prep["hi"], prep["clamp"])
     with pytest.raises(ValueError):          # starts for other tiles
         tb.gsr_value_banded(jlo[::2].contiguous(), ok, x, *args, band)
     with pytest.raises(ValueError):          # wrong dtype
@@ -318,6 +407,10 @@ def test_banded_wrapper_refuses(cuda_device):
     with pytest.raises(ValueError):          # not contiguous
         tb.gsr_value_banded(jlo, ok, torch.cat([x, x], 1)[:, ::2], *args,
                             band)
+    with pytest.raises(ValueError):          # boxes of other tiles
+        tb.gsr_value_banded(jlo, ok, x, prep["muT"], prep["ppT"], prep["v"],
+                            prep["rad"], prep["lo"][:, 1:].contiguous(),
+                            prep["hi"], prep["clamp"], band)
 
 
 def test_density_backtrace_through_kernel_matches_dense_f64(cuda_device):
@@ -325,7 +418,7 @@ def test_density_backtrace_through_kernel_matches_dense_f64(cuda_device):
     against the dense field in float64 on 4096 x-sorted points of a
     Leapfrog-3D-sized state: endpoints within 1e-5 in domain units."""
     mix, spec, _ = ring_collide_state(cuda_device, seed=89, side=10)
-    mix = mix.x_sorted()
+    mix = mix.slab_sorted(spec.clamp_threshold)
     x = torch.as_tensor(np.sort(np.random.RandomState(90).uniform(
         0, 1, (4096, 3)).astype(np.float32), axis=0), device=cuda_device)
     band = tsim._suggest_band(mix, spec, 0.02, chunk=4096)
