@@ -13,7 +13,12 @@ Phases, each printing one JSON line with its wall seconds:
                 PyTorch version on the card; median time over 30 launches
   kernels_3d    the three centered kernels at d=3 where the 3D path runs
                 them (Leapfrog-3D: B=8192, N=1024), timed again at
-                Ring-Collide shapes (B=8192, N=75,776), and the three
+                Ring-Collide shapes (B=8192, N=75,776) — the parameter
+                backwards at both, as at Leapfrog-2D, split along the query
+                axis: every split the kernel takes against the plain
+                version, two launches bitwise equal, each split timed, the
+                chosen split with its blocks and live query tiles per
+                worker — and the three
                 work-list (cells) kernels at Ring-Collide shapes, d=vdim=3,
                 against their plain versions (the cells forward's overflow
                 branch too), with the live-pair count, the live tile
@@ -79,6 +84,10 @@ Phases, each printing one JSON line with its wall seconds:
                 within ~1e-6 of the edge on two sides (expected ~0.03 such
                 pairs per 1e5 support pairs); the batches are kept at the
                 scenes' widths and small in count
+  kernels_fitted_3d  the parameter backwards at d=3 on the fitted
+                Leapfrog-3D mixture (frame 1) and a seeded batch of 8192
+                points in its domain: every split against the plain
+                version, each split timed
   density3d     the smoke replay through ``gaussian_fluids_torch.advance_density3d``
                 (--density_res_multiplier 1: 128^3 nodes) on ring_collide's
                 checkpoints 0 and 1: densities a and b, two steps each, .vti
@@ -248,14 +257,14 @@ def compare(name, got, want, tol):
 
 
 def ptxas_summary(log):
-    """['kernel<D,VDIM[,NCOT]>: R registers, S bytes spilled', ...] from
-    ptxas's -v report."""
+    """['kernel<D,VDIM[,NCOT][,STAGE]>: R registers, S bytes spilled', ...]
+    from ptxas's -v report."""
     out, name, spill = [], "?", 0
     for ln in log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
             t = re.search(r"\d([a-z][a-z0-9_]*_kernel)ILi(\d)E(?:Li(\d)E)?"
-                          r"(?:Li(\d)E)?", m.group(1))
+                          r"(?:Li(\d)E)?(?:Lb(\d)E)?", m.group(1))
             name = (f"{t.group(1)}<{','.join(g for g in t.groups()[1:] if g)}>"
                     if t else m.group(1))
             spill = 0
@@ -333,8 +342,51 @@ def _support_pairs(gc, tmask, x_p, muT, ppT, d, clamp):
     return n
 
 
+def _split_key(split):
+    return "chosen" if split is None else f"{split[0]}x{split[1]}"
+
+
+def split_reports(cases, tmask, names=("gsr_bwd_dn", "gsr_bwd_dn2")):
+    """Rows 2 and 3 at one shape, split along the query axis: every
+    variant at the chosen split and at every split the kernel takes
+    against its plain twin (TOL), two launches of each bitwise equal; the
+    main variant timed at every split in this call; the chosen split, the
+    blocks it launches and the live query tiles per worker (mean, max)."""
+    from gaussian_fluids_torch.ops import gsr_centered as gc
+    splits = [None] + [(w, s) for w in gc.SPLIT_W for s in gc.SPLIT_S]
+    chosen = gc.bwd_split(*tmask.shape, gc._sm_count(0))
+    shares = gc.worker_tiles(tmask, chosen).double()
+    out = {}
+    for name in names:
+        variants = cases[name][2]
+        errs = []
+        for i, (kern, plain) in enumerate(variants):
+            want = plain()
+            for split in splits:
+                a, b = kern(split=split), kern(split=split)
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(f"{name}[{i}] at split {split}: two "
+                                         f"launches differ")
+                errs.append(compare(f"{name}[{i}, {_split_key(split)}]", a,
+                                    want, TOL)[1])
+        torch.cuda.synchronize()
+        kern = variants[0][0]
+        ms = {_split_key(sp): time_ms(lambda sp=sp: kern(split=sp))
+              for sp in splits}
+        out[name] = {
+            "split": list(chosen), "blocks": tmask.shape[1] * chosen[1],
+            "threads_per_block": gc.TN * chosen[0],
+            "worker_tiles_mean": float(shares.mean()),
+            "worker_tiles_max": int(shares.max()),
+            "ms": ms["chosen"], "ms_1x1": ms["1x1"], "ms_by_split": ms,
+            "splits_checked": len(splits) * len(variants),
+            "max_rel_err_splits": max(errs), "bitwise_repeat": True}
+    return out
+
+
 def kernel_phase(device):
-    """PR 4's 2D kernel checks at Leapfrog-2D shapes (unchanged cases)."""
+    """PR 4's 2D kernel checks at Leapfrog-2D shapes (unchanged cases),
+    with rows 2 and 3 at every split."""
     from gaussian_fluids_torch.utils.seeded_state import leapfrog_state
     from gaussian_fluids_torch.ops import field, gsr_centered as gc
 
@@ -363,19 +415,19 @@ def kernel_phase(device):
              for nj in (2, 0)],
             B * 6 * 4, 0),
         "gsr_bwd_dn": ("gsr", "bwd_dn",
-            [(lambda: list(gc.gsr_bwd_dn(tmask, x_p, muT, ppT, v, dout[0],
-                                         clamp, 2)),
+            [(lambda split=None: list(gc.gsr_bwd_dn(
+                tmask, x_p, muT, ppT, v, dout[0], clamp, 2, split=split)),
               lambda: list(gc.bwd_dn_plain(tmask, x_p, muT, ppT, v, dout[0],
                                            clamp, 2))),
-             (lambda: list(gc.gsr_bwd_dn(tmask, x_p, muT, ppT, v, dout_val,
-                                         clamp, 0)),
+             (lambda split=None: list(gc.gsr_bwd_dn(
+                 tmask, x_p, muT, ppT, v, dout_val, clamp, 0, split=split)),
               lambda: list(gc.bwd_dn_plain(tmask, x_p, muT, ppT, v,
                                            dout_val, clamp, 0)))],
             4 * (dout[0].numel() + 6 * N + 2 * N), 0),
         "gsr_bwd_dn2": ("gsr", "bwd_dn2",
-            [(lambda uv=uv: [t for blk in gc.gsr_bwd_dn2(
+            [(lambda uv=uv, split=None: [t for blk in gc.gsr_bwd_dn2(
                 tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 2,
-                use_val=uv) for t in blk],
+                use_val=uv, split=split) for t in blk],
               lambda uv=uv: [t for blk in gc.bwd_dn2_plain(
                   tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 2,
                   use_val=uv) for t in blk])
@@ -384,6 +436,8 @@ def kernel_phase(device):
     }
     stats = _run_cases(cases, 2, live_pairs, support_pairs, in_bytes,
                        TIMED_LAUNCHES)
+    for name, rep in split_reports(cases, tmask).items():
+        stats[name]["split"] = rep
     return stats, {"B": B, "N": N, "live_pairs": live_pairs,
                    "support_pairs": support_pairs,
                    "live_tile_fraction": float(tmask.float().mean())}
@@ -399,6 +453,10 @@ def _centered_cases_3d(tmask, x_p, muT, ppT, v, clamp, dout, dout_val):
     def pair(kern, plain):
         return (lambda: _flat(kern()), lambda: _flat(plain()))
 
+    def pair_split(kern, plain):   # the kernel takes a forced split
+        return (lambda split=None: _flat(kern(split)),
+                lambda: _flat(plain()))
+
     a = (tmask, x_p, muT, ppT, v)
     return {
         "gsr_fwd": ("gsr", "fwd",
@@ -407,19 +465,49 @@ def _centered_cases_3d(tmask, x_p, muT, ppT, v, clamp, dout, dout_val):
              for nj in (3, 0)],
             out_fwd + mask_bytes, 0),
         "gsr_bwd_dn": ("gsr", "bwd_dn",
-            [pair(lambda: gc.gsr_bwd_dn(*a, dout[0], clamp, 3),
-                  lambda: gc.bwd_dn_plain(*a, dout[0], clamp, 3)),
-             pair(lambda: gc.gsr_bwd_dn(*a, dout_val, clamp, 0),
-                  lambda: gc.bwd_dn_plain(*a, dout_val, clamp, 0))],
+            [pair_split(lambda sp: gc.gsr_bwd_dn(*a, dout[0], clamp, 3,
+                                                 split=sp),
+                        lambda: gc.bwd_dn_plain(*a, dout[0], clamp, 3)),
+             pair_split(lambda sp: gc.gsr_bwd_dn(*a, dout_val, clamp, 0,
+                                                 split=sp),
+                        lambda: gc.bwd_dn_plain(*a, dout_val, clamp, 0))],
             4 * dout[0].numel() + out_bwd + mask_bytes, 0),
         "gsr_bwd_dn2": ("gsr", "bwd_dn2",
-            [pair(lambda uv=uv: gc.gsr_bwd_dn2(*a, dout[0], dout[1], clamp,
-                                               3, use_val=uv),
-                  lambda uv=uv: gc.bwd_dn2_plain(*a, dout[0], dout[1], clamp,
-                                                 3, use_val=uv))
+            [pair_split(lambda sp, uv=uv: gc.gsr_bwd_dn2(
+                *a, dout[0], dout[1], clamp, 3, use_val=uv, split=sp),
+                        lambda uv=uv: gc.bwd_dn2_plain(
+                *a, dout[0], dout[1], clamp, 3, use_val=uv))
              for uv in (True, False)],
             4 * 2 * dout[0].numel() + 2 * out_bwd + mask_bytes, 0),
     }
+
+
+def kernels_fitted_3d(mix, spec, device, n_queries=8192):
+    """Rows 2 and 3 at d = 3 on the fitted Leapfrog-3D mixture (the 3D
+    path's frame-1 checkpoint) and one batch of the scene's size (8192
+    uniform points in its domain, sorted along x as the epochs sort them):
+    every split against the plain twins, timed at each split."""
+    from gaussian_fluids_torch.ops import field, gsr_centered as gc
+    from gaussian_fluids_torch.scenes import get_scene_3d
+
+    lo, hi = np.float32(get_scene_3d("leapfrog").domain).reshape(3, 2).T
+    x = np.random.RandomState(13).uniform(lo, hi, (n_queries, 3)) \
+        .astype(np.float32)
+    x = torch.as_tensor(x[np.argsort(x[:, 0], kind="stable")], device=device)
+    clamp = spec.clamp_threshold
+    x_p, _, _, mu_p, pp_p, v_p, tmask = field._centered_prep(
+        mix, spec, x, gc.TB, gc.TN, presorted=True)
+    muT, ppT, v = mu_p.T.contiguous(), pp_p.T.contiguous(), v_p.contiguous()
+    dout, dout_val = _douts_3d(x_p.shape[0], 14, device)
+    reps = split_reports(_centered_cases_3d(tmask, x_p, muT, ppT, v, clamp,
+                                            dout, dout_val), tmask)
+    common = {"B": x_p.shape[0], "N": muT.shape[1],
+              "n_alive": int(mix.alive.sum()),
+              "live_tile_fraction": float(tmask.float().mean()),
+              "walked_pairs": int(tmask.sum()) * gc.TB * gc.TN,
+              "support_pairs": _support_pairs(gc, tmask, x_p, muT, ppT, 3,
+                                              clamp)}
+    return {name: {**common, **rep} for name, rep in reps.items()}
 
 
 def _douts_3d(B, seed, device):
@@ -525,21 +613,27 @@ def kernel_phase_3d(device):
     ldout, ldout_val = _douts_3d(lx_p.shape[0], 12, device)
     l_live = int(ltm.sum()) * gc.TB * gc.TN
     l_sup = _support_pairs(gc, ltm, lx_p, lmuT, lppT, 3, clamp)
+    l_cases = _centered_cases_3d(ltm, lx_p, lmuT, lppT, lvv, clamp, ldout,
+                                 ldout_val)
     stats = _run_cases(
-        _centered_cases_3d(ltm, lx_p, lmuT, lppT, lvv, clamp, ldout,
-                           ldout_val), 3, l_live, l_sup,
+        l_cases, 3, l_live, l_sup,
         4 * (lx_p.numel() + lmuT.numel() + lppT.numel() + lvv.numel()),
         PLAIN_LAUNCHES_3D, tag="[d=3]")
-    at_rc = _run_cases(
-        _centered_cases_3d(tmask, x_p, muT, ppT, v, clamp, dout, dout_val),
-        3, live_pairs, support_pairs, par_bytes, PLAIN_LAUNCHES_3D,
-        tag="[d=3]")
+    for name, rep in split_reports(l_cases, ltm).items():
+        stats[name + "[d=3]"]["split"] = rep
+    rc_cases = _centered_cases_3d(tmask, x_p, muT, ppT, v, clamp, dout,
+                                  dout_val)
+    at_rc = _run_cases(rc_cases, 3, live_pairs, support_pairs, par_bytes,
+                       PLAIN_LAUNCHES_3D, tag="[d=3]")
+    for name, rep in split_reports(rc_cases, tmask).items():
+        at_rc[name + "[d=3]"]["split"] = rep
     for name, s_ in stats.items():
         s_.update(shape="Leapfrog-3D", B=lx_p.shape[0], N=lmuT.shape[1],
                   live_tile_fraction=float(ltm.float().mean()),
                   ring_collide={k: at_rc[name][k] for k in (
                       "ms", "plain_ms", "bound_ms", "walked_bound_ms",
-                      "max_rel_err", "support_pairs", "walked_pairs")})
+                      "max_rel_err", "support_pairs", "walked_pairs",
+                      "split") if k in at_rc[name]})
     cstats = _run_cases(cells, 3, live_pairs, support_pairs, par_bytes,
                         PLAIN_LAUNCHES_3D)
     cstats["cells_fwd"].update(box_pairs=box_pairs)
@@ -1573,6 +1667,12 @@ def main():
         launches_dx = query_grad(
             [(kmix, kspec, _projection_batch(kmix, kspec, 10)[0]),
              (lmix, lspec, pts3)])
+        t0 = time.perf_counter()
+        fitted = kernels_fitted_3d(lmix, lspec, device)
+        emit({"phase": "kernels_fitted_3d", "seconds":
+              time.perf_counter() - t0, "card": card,
+              "checkpoint": "3d/leapfrog/gaussian_velocity_1.pt",
+              "kernels": fitted})
         ring = os.path.join(tmp, "3d", "ring_collide")
         launches_density = run_density(ring)
         check_density(ring, device)
@@ -1584,6 +1684,12 @@ def main():
         s["launches"] = launches_2d[name]
     for name, s in stats3.items():
         s["launches"] = launches_3d[name.split("[")[0]]
+        if name.split("[")[0] in fitted:
+            s["fitted_leapfrog_3d"] = {
+                k: fitted[name.split("[")[0]][k] for k in (
+                    "ms", "ms_1x1", "split", "worker_tiles_mean",
+                    "worker_tiles_max", "max_rel_err_splits",
+                    "live_tile_fraction", "support_pairs")}
     for name, s in stats_d.items():
         s.update(launches=launches_density[name] + launches_512,
                  launches_replay_128=launches_density[name],

@@ -24,21 +24,30 @@
 // ~30 operations each (operations-bound, ~0.1 ms at the f32 peak; the
 // inputs are ~4 MB). The design maximises independent threads and keeps
 // every sum in registers: the forward gives every query its own warp,
-// whose 32 lanes split the Gaussians of each live tile; the backward gives
-// every Gaussian its own thread, which walks the live query tiles in
-// order. No atomics: each output element has exactly one owner thread
-// (backward) or one fixed shuffle tree (forward), so sums are
-// deterministic, as the TPU kernels' sequential grid reductions are.
+// whose 32 lanes split the Gaussians of each live tile; the parameter
+// backward gives every Gaussian W x S threads, W in one block and S
+// blocks of a cluster, each walking an equal share of the Gaussian tile's
+// compacted live query tiles. One thread a Gaussian filled 16 blocks of
+// the 132 SMs at Leapfrog-3D (N = 1024, B = 8192), each thread walking
+// ~500 query tiles in a chain of global loads; the split puts 64 threads
+// on each Gaussian there (ops/gsr_centered.py bwd_split picks W and S
+// from the shape and the SM count). No atomics: each output element has
+// exactly one owner thread, which adds the split's partial sums in a
+// fixed order (backward), or one fixed shuffle tree (forward), so sums
+// are deterministic, as the TPU kernels' sequential grid reductions are.
 //
-// The two backwards that no training epoch runs follow the same owners.
+// The two backwards that no training epoch runs keep their owners.
 // dL/dx (gsr_bwd_dx_kernel) has the forward's layout: a warp per query,
 // its lanes splitting each live Gaussian tile, one fixed shuffle tree at
 // the end; per pair it recomputes the geometry and the cotangents of the
 // parameter backward. The triple backward (gsr_bwd_dn3_kernel, the fused
-// [data; boundary] projection geometry) is the per-Gaussian owner of
-// gsr_bwd_dn_kernel with three accumulator blocks: query tiles below
+// [data; boundary] projection geometry) gives every Gaussian one thread,
+// which walks every live query tile in order (bwd_tile), with three
+// accumulator blocks: query tiles below
 // data_tiles feed blocks 1 and 2 (the dual backward's tile step), the
 // boundary tiles after them feed block 3 with a value-only cotangent.
+
+#include <cooperative_groups.h>
 
 #include "gsr_tile.cuh"
 
@@ -69,8 +78,100 @@ gsr_fwd_kernel(const int* __restrict__ tmask, const float* __restrict__ x,
   fwd_store<D, VDIM>(acc, lane, b, njac, out);
 }
 
+// The split parameter backward (rows 2 and 3). Its limits: W workers of
+// TN threads a block, S blocks a cluster along the query axis (the
+// portable cluster maximum), and the query tiles compacted at once.
+constexpr int MAX_W = 8;
+constexpr int MAX_S = 8;
+constexpr int LIST_CAP = 4096;
+
+inline bool bad_split(int W, int S) {
+  return (W != 1 && W != 2 && W != 4 && W != MAX_W) ||
+         (S != 1 && S != 2 && S != 4 && S != MAX_S);
+}
+
 template <int D, int VDIM, int NCOT>
-__global__ void __launch_bounds__(TN)
+constexpr int dn_sums() {   // the partial sums a thread keeps
+  return NCOT * (Dims<D>::NMP + VDIM);
+}
+
+// Dynamic shared memory of one block: the compacted list, the warps'
+// counts, and one slot of TN x dn_sums partial sums.
+template <int D, int VDIM, int NCOT>
+size_t dn_smem_bytes() {
+  return sizeof(float) *
+         (LIST_CAP + MAX_W * TN / 32 + dn_sums<D, VDIM, NCOT>() * TN);
+}
+
+// The Gaussian G (one thread) against the TB queries of one tile, x rows
+// at xt, cotangent rows at d1 and d2 (cols apart). First the support test
+// of all TB pairs, independent chains, then the accumulation of the pairs
+// inside, in query order: the terms and their order are bwd_tile's, and
+// the recomputed geometry is bitwise the tested one.
+template <int D, int VDIM, int NCOT>
+__device__ __forceinline__ void dn_tile(const float* xt, const float* d1,
+                                        const float* d2, int cols,
+                                        const Gauss<D>& G, const float* vv,
+                                        int njac, int use_val, float clamp,
+                                        float (*accm)[Dims<D>::NMP],
+                                        float (*accv)[VDIM]) {
+  unsigned in = 0;
+#pragma unroll
+  for (int r = 0; r < TB; ++r)
+    if (centered<D>(xt + r * D, G).g >= clamp) in |= 1u << r;
+  for (; in; in &= in - 1) {
+    const int r = __ffs(in) - 1;
+    const Geom<D> q = centered<D>(xt + r * D, G);
+    dn_accumulate<D, VDIM>(q, d1 + r * cols, vv, G.p, njac, use_val, clamp,
+                           accm[0], accv[0]);
+    if (NCOT == 2)
+      dn_accumulate<D, VDIM>(q, d2 + r * cols, vv, G.p, njac, use_val,
+                             clamp, accm[NCOT - 1], accv[NCOT - 1]);
+  }
+}
+
+// One Gaussian's partial sums to and from a slot of TN x dn_sums floats.
+template <int D, int VDIM, int NCOT>
+__device__ __forceinline__ void put_sums(float* slot, int g,
+                                         float (*accm)[Dims<D>::NMP],
+                                         float (*accv)[VDIM]) {
+  constexpr int NMP = Dims<D>::NMP;
+#pragma unroll
+  for (int c = 0; c < NCOT; ++c) {
+#pragma unroll
+    for (int k = 0; k < NMP; ++k) slot[(c * NMP + k) * TN + g] = accm[c][k];
+#pragma unroll
+    for (int a = 0; a < VDIM; ++a)
+      slot[(NCOT * NMP + c * VDIM + a) * TN + g] = accv[c][a];
+  }
+}
+template <int D, int VDIM, int NCOT>
+__device__ __forceinline__ void add_sums(const float* slot, int g,
+                                         float (*accm)[Dims<D>::NMP],
+                                         float (*accv)[VDIM]) {
+  constexpr int NMP = Dims<D>::NMP;
+#pragma unroll
+  for (int c = 0; c < NCOT; ++c) {
+#pragma unroll
+    for (int k = 0; k < NMP; ++k) accm[c][k] += slot[(c * NMP + k) * TN + g];
+#pragma unroll
+    for (int a = 0; a < VDIM; ++a)
+      accv[c][a] += slot[(NCOT * NMP + c * VDIM + a) * TN + g];
+  }
+}
+
+// Block (j, s) of a cluster of S along y: Gaussian tile j, split rank s.
+// Thread (g, w) owns Gaussian j TN + g for worker u = s W + w of U = W S.
+// Each block compacts column j of the tile mask (LIST_CAP query tiles at
+// a time, in order) and worker u walks the u-th of U equal contiguous
+// shares of the live list, reading each tile's rows where they lie
+// (staging them in shared memory by cp.async did not pay). The
+// sums: the W workers' in w order through shared memory, then the
+// cluster's blocks' in rank order through distributed shared memory, by
+// rank 0, which stores. One owner and one fixed order per output element,
+// no atomics.
+template <int D, int VDIM, int NCOT>
+__global__ void __launch_bounds__(TN * MAX_W)
 gsr_bwd_dn_kernel(const int* __restrict__ tmask, const float* __restrict__ x,
                   const float* __restrict__ muT,
                   const float* __restrict__ ppT, const float* __restrict__ v,
@@ -80,9 +181,18 @@ gsr_bwd_dn_kernel(const int* __restrict__ tmask, const float* __restrict__ x,
                   float* __restrict__ dv2, int B, int N, int njac,
                   int use_val, float clamp) {
   constexpr int NMP = Dims<D>::NMP;
+  extern __shared__ float smem[];
+  int* list = reinterpret_cast<int*>(smem);
+  int* wcount = list + LIST_CAP;
+  float* red = smem + LIST_CAP + MAX_W * TN / 32;
   const int nbt = B / TB, nnt = N / TN;
-  const int j = blockIdx.x;
-  const int n = j * TN + threadIdx.x;
+  const int W = blockDim.x / TN, S = gridDim.y;
+  const int g = threadIdx.x % TN, w = threadIdx.x / TN;
+  const int s = blockIdx.y, j = blockIdx.x;
+  const int U = W * S, u = s * W + w;
+  const int n = j * TN + g;
+  const int cols = (1 + njac) * VDIM;
+
   const Gauss<D> G = load_gauss<D>(muT, ppT, N, n);
   float vv[VDIM];
 #pragma unroll
@@ -96,12 +206,48 @@ gsr_bwd_dn_kernel(const int* __restrict__ tmask, const float* __restrict__ x,
 #pragma unroll
     for (int a = 0; a < VDIM; ++a) accv[c][a] = 0.f;
   }
-  for (int i = 0; i < nbt; ++i) {
-    if (tmask[i * nnt + j] == 0) continue;
-    bwd_tile<D, VDIM, NCOT>(i, x, G, vv, dout1, dout2, njac, use_val, clamp,
-                            accm, accv);
+
+  for (int base = 0; base < nbt; base += LIST_CAP) {
+    const int nwin = min(LIST_CAP, nbt - base);
+    int live = 0;
+    for (int c = 0; c < nwin; c += blockDim.x) {
+      const int i = base + c + threadIdx.x;
+      const bool f = c + threadIdx.x < nwin && tmask[i * nnt + j] != 0;
+      live += compact_warps(f, i, list + live, wcount, blockDim.x / 32);
+    }
+    const int lo = static_cast<int>(static_cast<long long>(u) * live / U);
+    const int hi = static_cast<int>(static_cast<long long>(u + 1) * live / U);
+    for (int m = lo; m < hi; ++m) {
+      const int i = list[m];
+      dn_tile<D, VDIM, NCOT>(x + i * TB * D, dout1 + i * TB * cols,
+                             dout2 + i * TB * cols, cols, G, vv, njac,
+                             use_val, clamp, accm, accv);
+    }
+    __syncthreads();   // the next window refills the list
   }
-  bwd_store<D, VDIM, NCOT>(n, N, accm, accv, dmp1, dv1, dmp2, dv2);
+
+  // The W partial sums in w order: worker r hands its sums to worker 0.
+  for (int r = 1; r < W; ++r) {
+    if (w == r) put_sums<D, VDIM, NCOT>(red, g, accm, accv);
+    __syncthreads();
+    if (w == 0) add_sums<D, VDIM, NCOT>(red, g, accm, accv);
+    __syncthreads();
+  }
+  // The S blocks' sums in rank order: rank 0 reads the others' slots.
+  if (S > 1) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    if (w == 0 && s > 0) put_sums<D, VDIM, NCOT>(red, g, accm, accv);
+    cluster.sync();
+    if (w == 0 && s == 0) {
+      for (int r = 1; r < S; ++r)
+        add_sums<D, VDIM, NCOT>(cluster.map_shared_rank(red, r), g, accm,
+                                accv);
+    }
+    cluster.sync();   // the other blocks' slots stay until rank 0 read them
+  }
+  if (w == 0 && s == 0)
+    bwd_store<D, VDIM, NCOT>(n, N, accm, accv, dmp1, dv1, dmp2, dv2);
 }
 
 template <int D, int VDIM>
@@ -213,15 +359,27 @@ struct BwdLaunch {
   const int* tm;
   const float *x, *mu, *pp, *v, *d1, *d2;
   float *m1, *v1, *m2, *v2;
-  int B, N, njac, use_val;
+  int B, N, njac, use_val, W, S;
   float clamp;
   cudaStream_t s;
   template <int D, int VDIM>
   int run() const {
-    gsr_bwd_dn_kernel<D, VDIM, NCOT><<<dim3(N / TN), dim3(TN), 0, s>>>(
-        tm, x, mu, pp, v, d1, d2, m1, v1, m2, v2, B, N, njac, use_val,
-        clamp);
-    return cudaGetLastError();
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(N / TN, S);
+    cfg.blockDim = dim3(TN * W);
+    cfg.dynamicSmemBytes = dn_smem_bytes<D, VDIM, NCOT>();
+    cfg.stream = s;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = 1;
+    cluster[0].val.clusterDim.y = S;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    const cudaError_t rc = cudaLaunchKernelEx(
+        &cfg, gsr_bwd_dn_kernel<D, VDIM, NCOT>, tm, x, mu, pp, v, d1, d2, m1,
+        v1, m2, v2, B, N, njac, use_val, clamp);
+    return rc != cudaSuccess ? rc : cudaGetLastError();
   }
 };
 
@@ -261,8 +419,9 @@ int launch_bwd(const void* tmask, const void* x, const void* muT,
                const void* ppT, const void* v, const void* dout1,
                const void* dout2, void* dmp1, void* dv1, void* dmp2,
                void* dv2, int B, int N, int d, int vdim, int njac,
-               int use_val, float clamp, void* stream) {
-  if (bad_shape(B, N, d, vdim, njac) || (!use_val && njac == 0))
+               int use_val, float clamp, int W, int S, void* stream) {
+  if (bad_shape(B, N, d, vdim, njac) || (!use_val && njac == 0) ||
+      bad_split(W, S))
     return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
   const BwdLaunch<NCOT> f{
@@ -271,7 +430,7 @@ int launch_bwd(const void* tmask, const void* x, const void* muT,
       static_cast<const float*>(v),     static_cast<const float*>(dout1),
       static_cast<const float*>(dout2), static_cast<float*>(dmp1),
       static_cast<float*>(dv1),         static_cast<float*>(dmp2),
-      static_cast<float*>(dv2),         B, N, njac, use_val, clamp,
+      static_cast<float*>(dv2),         B, N, njac, use_val, W, S, clamp,
       static_cast<cudaStream_t>(stream)};
   return dispatch(d, vdim, f);
 }
@@ -303,21 +462,25 @@ int gsr_fwd(const void* tmask, const void* x, const void* muT,
   return dispatch(d, vdim, f);
 }
 
+// The parameter backwards split W x S ways along the query axis (W in
+// 1, 2, 4, 8 workers a block, S in 1, 2, 4, 8 blocks a cluster; anything
+// else is refused).
 int gsr_bwd_dn(const void* tmask, const void* x, const void* muT,
                const void* ppT, const void* v, const void* dout, void* dmp,
                void* dv, int B, int N, int d, int vdim, int njac,
-               int use_val, float clamp, void* stream) {
+               int use_val, float clamp, int W, int S, void* stream) {
   return launch_bwd<1>(tmask, x, muT, ppT, v, dout, dout, dmp, dv, dmp, dv,
-                       B, N, d, vdim, njac, use_val, clamp, stream);
+                       B, N, d, vdim, njac, use_val, clamp, W, S, stream);
 }
 
 int gsr_bwd_dn2(const void* tmask, const void* x, const void* muT,
                 const void* ppT, const void* v, const void* dout1,
                 const void* dout2, void* dmp1, void* dv1, void* dmp2,
                 void* dv2, int B, int N, int d, int vdim, int njac,
-                int use_val, float clamp, void* stream) {
+                int use_val, float clamp, int W, int S, void* stream) {
   return launch_bwd<2>(tmask, x, muT, ppT, v, dout1, dout2, dmp1, dv1, dmp2,
-                       dv2, B, N, d, vdim, njac, use_val, clamp, stream);
+                       dv2, B, N, d, vdim, njac, use_val, clamp, W, S,
+                       stream);
 }
 
 int gsr_bwd_dx(const void* tmask, const void* x, const void* muT,

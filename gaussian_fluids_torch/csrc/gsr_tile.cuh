@@ -356,24 +356,31 @@ struct Stager {
 // Block-wide stream compaction: the threads' (flag, value) pairs with
 // flag set go to list[0, count) in thread order (a ballot per warp, the
 // warps' counts in order); returns the count to every thread. Every
-// thread of the block (NT threads) calls it; the caller's earlier reads
-// of list and wcount must be behind a __syncthreads.
-template <int NT>
-__device__ __forceinline__ int compact_block(bool flag, int value,
-                                             int* list, int* wcount) {
+// thread of the block (nwarps whole warps) calls it; the caller's earlier
+// reads of list and wcount must be behind a __syncthreads.
+__device__ __forceinline__ int compact_warps(bool flag, int value,
+                                             int* list, int* wcount,
+                                             int nwarps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned bal = __ballot_sync(0xffffffffu, flag);
   if (lane == 0) wcount[warp] = __popc(bal);
   __syncthreads();
   int off = 0, cnt = 0;
 #pragma unroll
-  for (int w = 0; w < NT / 32; ++w) {
+  for (int w = 0; w < nwarps; ++w) {
     off += w < warp ? wcount[w] : 0;
     cnt += wcount[w];
   }
   if (flag) list[off + __popc(bal & ((1u << lane) - 1u))] = value;
   __syncthreads();
   return cnt;
+}
+
+// The same for a block of NT threads known at compile time.
+template <int NT>
+__device__ __forceinline__ int compact_block(bool flag, int value,
+                                             int* list, int* wcount) {
+  return compact_warps(flag, value, list, wcount, NT / 32);
 }
 
 // Walk the cnt Gaussian tiles of list (in shared memory) in order through

@@ -1,14 +1,17 @@
-"""Where a training epoch's time goes, at Leapfrog-2D and Ring-Collide
-width.
+"""Where a training epoch's time goes, at Leapfrog-2D, Leapfrog-3D and
+Ring-Collide width.
 
     python -m gaussian_fluids_torch.epoch_profile [--epochs 20]
-        [--config leapfrog_2d|ring_collide] [--epoch fit|clone|project]
+        [--config leapfrog_2d|leapfrog_3d|ring_collide]
+        [--epoch fit|clone|project]
 
 For one fit, clone re-fit and projection epoch each (the three epoch
 kinds of the 2D and the 3D path), on a seeded Leapfrog-2D state (71x71 =
-5041 Gaussians, B = 512) and a seeded Ring-Collide state (40^3 = 64,000
-Gaussians, capacity 75,776, B = 8192; the 3D epochs run the cells
-kernels): the wall time per epoch, unprofiled and under the profiler,
+5041 Gaussians, B = 512), a seeded Leapfrog-3D state (10^3 = 1000
+Gaussians, capacity 1024, B = 8192; the centered kernels at d = 3) and a
+seeded Ring-Collide state (40^3 = 64,000 Gaussians, capacity 75,776, B =
+8192; the cells kernels): the wall time per epoch, unprofiled and under
+the profiler,
 and from ``torch.profiler`` the device time per epoch, the device's busy share
 (device time over wall time; kernels run on one stream, so this is their
 union), the operators the host dispatches and the device launches per
@@ -20,6 +23,7 @@ name and power limit.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import time
@@ -72,9 +76,11 @@ def _epochs(mix, spec, device):
     }
 
 
-def _epochs_3d(mix, spec, device, batch: int = 8192):
-    """The same for the 3D epochs of the ring_collide scene."""
-    scene = get_scene_3d("ring_collide")
+def _epochs_3d(mix, spec, device, batch: int = 8192,
+               scene_name: str = "ring_collide"):
+    """The same for the 3D epochs of a scene in the unit cube (ring_collide
+    or leapfrog)."""
+    scene = get_scene_3d(scene_name)
     gen = torch.Generator(device=device).manual_seed(0)
     lo = torch.zeros(3, device=device)
     hi = torch.ones(3, device=device)
@@ -89,7 +95,7 @@ def _epochs_3d(mix, spec, device, batch: int = 8192):
                 stop, mix)]
 
     proj_epoch, sample = project._runner_3d(
-        spec, "ring_collide", project.ProjectWeights(delta_pos=0.0), 10.0,
+        spec, scene_name, project.ProjectWeights(delta_pos=0.0), 10.0,
         batch, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))[:2]
     proj_c = [(p, optim.init(p, project.DEFAULT_LRS_3D), mix.alive, mix,
                0.02)]
@@ -156,7 +162,8 @@ def profile_epoch(step, epochs: int) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--epochs", type=int, default=20)
-    ap.add_argument("--config", choices=("leapfrog_2d", "ring_collide"))
+    ap.add_argument("--config",
+                    choices=("leapfrog_2d", "leapfrog_3d", "ring_collide"))
     ap.add_argument("--epoch", choices=("fit", "clone", "project"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -165,6 +172,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     configs = (("leapfrog_2d", leapfrog_state, _epochs),
+               ("leapfrog_3d",
+                functools.partial(ring_collide_state, side=10),
+                functools.partial(_epochs_3d, scene_name="leapfrog")),
                ("ring_collide", ring_collide_state, _epochs_3d))
     for name, state, epochs in configs:
         if args.config not in (None, name):

@@ -20,6 +20,10 @@ a CPU tensor runs the plain PyTorch version below, which repeats the
 kernel's arithmetic on whole (B, N) planes with the tile mask expanded.
 There is no fallback from the kernel to the plain version.
 
+The parameter backwards split each Gaussian tile's live query tiles over
+W x S threads a Gaussian (``bwd_split`` picks W and S from the shape and
+the card's SM count; ``split=`` forces them in tests and the smoke run).
+
 The kernels take d = 2 or 3 and vdim = 1, 2 or 3 (templates on both).
 The shared library is built with ``nvcc`` at first use into
 ``gaussian_fluids_torch/_build/`` (``ops/cuda_build.py``) and loaded with
@@ -37,6 +41,7 @@ gradient (no solver phase asks for one), the query points through
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -47,6 +52,15 @@ from gaussian_fluids_torch.ops import cuda_build
 # The CUDA kernels' tiles: 8 queries x 64 Gaussians (csrc/gsr_tile.cuh).
 # The field's tile mask is built at these sizes on the card.
 TB, TN = 8, 64
+
+# The parameter backwards' splits along the query axis
+# (csrc/gsr_centered.cu): W workers of TN threads a block, S blocks a
+# cluster; each of the W S workers of a Gaussian tile walks an equal share
+# of the tile's live query tiles, compacted LIST_CAP at a time (the
+# kernel's MAX_W, MAX_S and LIST_CAP).
+SPLIT_W = (1, 2, 4, 8)
+SPLIT_S = (1, 2, 4, 8)
+LIST_CAP = 4096
 
 SOURCE = cuda_build.CSRC / "gsr_centered.cu"
 
@@ -84,9 +98,11 @@ def _lib():
         lib.gsr_tile_sizes.restype = _I
         lib.gsr_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_F, _P]
         lib.gsr_fwd.restype = _I
-        lib.gsr_bwd_dn.argtypes = [_P] * 8 + [_I] * 6 + [_F, _P]
+        lib.gsr_bwd_dn.argtypes = [_P] * 8 + [_I] * 6 + [_F] + [_I] * 2 \
+            + [_P]
         lib.gsr_bwd_dn.restype = _I
-        lib.gsr_bwd_dn2.argtypes = [_P] * 11 + [_I] * 6 + [_F, _P]
+        lib.gsr_bwd_dn2.argtypes = [_P] * 11 + [_I] * 6 + [_F] + [_I] * 2 \
+            + [_P]
         lib.gsr_bwd_dn2.restype = _I
         lib.gsr_bwd_dx.argtypes = [_P] * 7 + [_I] * 5 + [_F, _P]
         lib.gsr_bwd_dx.restype = _I
@@ -112,6 +128,70 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+# ---------------------------------------------------------------------------
+# the backwards' split
+# ---------------------------------------------------------------------------
+
+def bwd_split(nbt: int, nnt: int, sm_count: int) -> Tuple[int, int]:
+    """(W, S) for a parameter backward over ``nbt`` query tiles and ``nnt``
+    Gaussian tiles on a card of ``sm_count`` SMs. W, then S, doubles until
+    the launch holds 32 warps an SM (half of what an SM holds; a worker is
+    two warps) or both reach 8; then S, then W, halves until every worker
+    has at least 16 query tiles (at 10-50% live, 2-8 to walk), and so
+    never more workers W S than query tiles. Workers within a block are
+    cheaper than blocks of a cluster, which compact the mask again and
+    meet at cluster barriers."""
+    w = s = 1
+    most = SPLIT_W[-1] * SPLIT_S[-1]
+    while 2 * nnt * w * s < 32 * sm_count and w * s < most:
+        if w < SPLIT_W[-1]:
+            w *= 2
+        else:
+            s *= 2
+    while w * s > max(nbt // 16, 1):
+        if s > 1:
+            s //= 2
+        else:
+            w //= 2
+    return w, s
+
+
+def worker_tiles(tmask: torch.Tensor, split: Tuple[int, int]) -> torch.Tensor:
+    """(nnt, W S) int64: the live query tiles each worker of each Gaussian
+    tile walks under ``split`` — the kernel's equal contiguous shares of
+    each LIST_CAP-tile window's compacted live tiles."""
+    u = split[0] * split[1]
+    live = (tmask != 0).to(torch.int64).cpu()
+    k = torch.arange(u + 1)
+    out = torch.zeros((live.shape[1], u), dtype=torch.int64)
+    for base in range(0, live.shape[0], LIST_CAP):
+        bounds = k[None, :] * live[base:base + LIST_CAP].sum(0)[:, None] // u
+        out += bounds[:, 1:] - bounds[:, :-1]
+    return out
+
+
+def _check_split(split) -> None:
+    if split is None:
+        return
+    if not (isinstance(split, tuple) and len(split) == 2
+            and split[0] in SPLIT_W and split[1] in SPLIT_S):
+        raise ValueError(f"split must be (W, S) with W in {SPLIT_W} and S in "
+                         f"{SPLIT_S}, got {split!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_split(split, x, tmask) -> Tuple[int, int]:
+    """The forced split, or ``bwd_split``'s for this shape on x's card."""
+    if split is not None:
+        return split
+    return bwd_split(tmask.shape[0], tmask.shape[1],
+                     _sm_count(x.device.index))
 
 
 # ---------------------------------------------------------------------------
@@ -374,15 +454,20 @@ def gsr_fwd(tmask, x, muT, ppT, values, clamp: float, njac: int):
 
 
 def gsr_bwd_dn(tmask, x, muT, ppT, values, dout, clamp: float, njac: int,
-               use_val: bool = True):
-    """(dmuT (d, N), dppT (np, N), dv (N, vdim)) for one cotangent."""
+               use_val: bool = True, split=None):
+    """(dmuT (d, N), dppT (np, N), dv (N, vdim)) for one cotangent.
+
+    ``split`` (W, S) forces the kernel's split along the query axis, for
+    tests and the smoke run only; by default ``bwd_split`` picks it."""
     if not use_val and njac == 0:
         raise ValueError("use_val=False needs Jacobian columns")
+    _check_split(split)
     d, vdim, B, N = _check(tmask, x, muT, ppT, values, njac, (dout,))
     if not x.is_cuda:
         return bwd_dn_plain(tmask, x, muT, ppT, values, dout, clamp, njac,
                             use_val)
     lib = _lib()
+    w, s = _launch_split(split, x, tmask)
     dmp = torch.empty((d + ppT.shape[0], N), dtype=torch.float32,
                       device=x.device)
     dv = torch.empty((N, vdim), dtype=torch.float32, device=x.device)
@@ -390,23 +475,26 @@ def gsr_bwd_dn(tmask, x, muT, ppT, values, dout, clamp: float, njac: int,
         rc = lib.gsr_bwd_dn(_ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
                             _ptr(values), _ptr(dout), _ptr(dmp), _ptr(dv),
                             B, N, d, vdim, njac, int(use_val), float(clamp),
-                            _stream(x))
+                            w, s, _stream(x))
     _raise_on(rc, "gsr_bwd_dn")
     launches["gsr_bwd_dn"] += 1
     return dmp[:d], dmp[d:], dv
 
 
 def gsr_bwd_dn2(tmask, x, muT, ppT, values, dout1, dout2, clamp: float,
-                njac: int, use_val: bool = True):
+                njac: int, use_val: bool = True, split=None):
     """((dmuT1, dppT1, dv1), (dmuT2, dppT2, dv2)) for two cotangent blocks
-    in one sweep. ``use_val=False`` promises zero value cotangents."""
+    in one sweep. ``use_val=False`` promises zero value cotangents;
+    ``split`` as for ``gsr_bwd_dn``."""
     if not use_val and njac == 0:
         raise ValueError("use_val=False needs Jacobian columns")
+    _check_split(split)
     d, vdim, B, N = _check(tmask, x, muT, ppT, values, njac, (dout1, dout2))
     if not x.is_cuda:
         return bwd_dn2_plain(tmask, x, muT, ppT, values, dout1, dout2,
                              clamp, njac, use_val)
     lib = _lib()
+    w, s = _launch_split(split, x, tmask)
     nmp = d + ppT.shape[0]
     dmp1, dmp2 = (torch.empty((nmp, N), dtype=torch.float32, device=x.device)
                   for _ in range(2))
@@ -417,7 +505,7 @@ def gsr_bwd_dn2(tmask, x, muT, ppT, values, dout1, dout2, clamp: float,
                              _ptr(values), _ptr(dout1), _ptr(dout2),
                              _ptr(dmp1), _ptr(dv1), _ptr(dmp2), _ptr(dv2),
                              B, N, d, vdim, njac, int(use_val), float(clamp),
-                             _stream(x))
+                             w, s, _stream(x))
     _raise_on(rc, "gsr_bwd_dn2")
     launches["gsr_bwd_dn2"] += 1
     return (dmp1[:d], dmp1[d:], dv1), (dmp2[:d], dmp2[d:], dv2)

@@ -163,24 +163,139 @@ def test_fwd_kernels_d3_match_plain(cuda_device, njac):
     _close([tc.cells_fwd(rows, cols, ok, *args, clamp, njac, rad)], want)
 
 
+# the split the rule picks, and every split the centered backwards take
+SPLITS = [None] + [(w, s) for w in tk.SPLIT_W for s in tk.SPLIT_S]
+
+
+@pytest.mark.parametrize("split", SPLITS)
 @pytest.mark.parametrize("njac", [0, 3])
-def test_bwd_dn_kernels_d3_match_plain(cuda_device, njac):
+def test_bwd_dn_kernels_d3_match_plain(cuda_device, njac, split):
     (_, _, gt, qt, ok), args, douts, clamp, _ = _inputs_3d(cuda_device)
     dout = douts[0][:, :(1 + njac) * 3].contiguous()
     want = tk.bwd_dn_plain(*args, dout, clamp, njac)
-    _close(tk.gsr_bwd_dn(*args, dout, clamp, njac), want)
+    _close(tk.gsr_bwd_dn(*args, dout, clamp, njac, split=split), want)
     _close(tc.cells_bwd_dn(gt, qt, ok, *args, dout, clamp, njac), want)
 
 
+@pytest.mark.parametrize("split", SPLITS)
 @pytest.mark.parametrize("use_val", [True, False])
-def test_bwd_dn2_kernels_d3_match_plain(cuda_device, use_val):
+def test_bwd_dn2_kernels_d3_match_plain(cuda_device, use_val, split):
     (_, _, gt, qt, ok), args, douts, clamp, _ = _inputs_3d(cuda_device)
     want = tk.bwd_dn2_plain(*args, *douts, clamp, 3, use_val=use_val)
-    got = tk.gsr_bwd_dn2(*args, *douts, clamp, 3, use_val=use_val)
+    got = tk.gsr_bwd_dn2(*args, *douts, clamp, 3, use_val=use_val,
+                         split=split)
     _close(got[0] + got[1], want[0] + want[1])
     got = tc.cells_bwd_dn2(gt, qt, ok, *args, *douts, clamp, 3,
                            use_val=use_val)
     _close(got[0] + got[1], want[0] + want[1])
+
+
+# ---- the centered backwards' split along the query axis ----
+
+def _split_inputs(device, d, n_queries=8192, seed=87):
+    """Kernel-layout inputs at the main paths' centered shapes: d = 3 the
+    Leapfrog-3D grid (N = 1024, B = 8192 by default), d = 2 Leapfrog-2D
+    (N = 6144, B = 512), on seeded states sorted as the solver keeps them,
+    with cotangents of the full (val, jac) width."""
+    if d == 3:
+        mix, spec, x = ring_collide_state(device, seed=seed, side=10,
+                                          n_queries=n_queries)
+    else:
+        mix, spec, x = leapfrog_state(device, seed=seed)
+    x_p, _, _, mu_p, pp_p, v_p, tmask = tf._centered_prep(
+        mix, spec, x, tk.TB, tk.TN, presorted=True)
+    rng = np.random.RandomState(seed + 1)
+    cols = (1 + d) * d
+    douts = [torch.as_tensor(rng.randn(x_p.shape[0], cols).astype(np.float32)
+                             / x_p.shape[0], device=device) for _ in range(2)]
+    return (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+            v_p.contiguous()), douts, spec.clamp_threshold
+
+
+def _bwd(ncot, args, douts, clamp, njac, use_val, **kw):
+    """Row 2 (ncot 1) or row 3 (ncot 2) through the kernel (with ``kw``)
+    or, without ``kw``, the plain twin; the outputs flattened."""
+    d = args[1].shape[1]
+    dd = [t[:, :(1 + njac) * d].contiguous() for t in douts]
+    if ncot == 1:
+        f = tk.gsr_bwd_dn if kw else tk.bwd_dn_plain
+        return list(f(*args, dd[0], clamp, njac, use_val, **kw))
+    f = tk.gsr_bwd_dn2 if kw else tk.bwd_dn2_plain
+    return [t for blk in f(*args, *dd, clamp, njac, use_val, **kw)
+            for t in blk]
+
+
+MODES = [(0, True), (1, True), (1, False)]   # (njac = d or 0, use_val)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("ncot", [1, 2])
+@pytest.mark.parametrize("d", [2, 3])
+def test_bwd_split_matches_plain(cuda_device, d, ncot, mode):
+    """Rows 2 and 3 at every split the kernel takes against the plain
+    twin: 1e-4 of the largest reference entry."""
+    args, douts, clamp = _split_inputs(cuda_device, d)
+    njac, use_val = mode[0] * d, mode[1]
+    want = _bwd(ncot, args, douts, clamp, njac, use_val)
+    for split in SPLITS:
+        _close(_bwd(ncot, args, douts, clamp, njac, use_val, split=split),
+               want)
+
+
+@pytest.mark.parametrize("ncot", [1, 2])
+def test_bwd_split_edge_columns_match_plain(cuda_device, ncot):
+    """A tile mask with an empty Gaussian column, a fully live one, and
+    columns with fewer live query tiles (3, 1) than most splits have
+    workers: every split against the plain twin on the same mask."""
+    (tmask, *rest), douts, clamp = _split_inputs(cuda_device, 3)
+    tmask = tmask.clone()
+    tmask[:, 0] = 0
+    tmask[:, 1] = 1
+    tmask[:, 2] = 0
+    tmask[[5, 400, 1000], 2] = 1
+    tmask[:, 3] = 0
+    tmask[700, 3] = 1
+    args = (tmask, *rest)
+    for njac, use_val in ((3, True), (3, False), (0, True)):
+        want = _bwd(ncot, args, douts, clamp, njac, use_val)
+        for split in SPLITS:
+            _close(_bwd(ncot, args, douts, clamp, njac, use_val,
+                        split=split), want)
+
+
+@pytest.mark.parametrize("ncot", [1, 2])
+def test_bwd_split_spans_two_list_windows(cuda_device, ncot):
+    """More query tiles than the kernel compacts at once (LIST_CAP): the
+    second window's shares are walked too."""
+    args, douts, clamp = _split_inputs(
+        cuda_device, 3, n_queries=tk.TB * (tk.LIST_CAP + 700))
+    assert args[0].shape[0] > tk.LIST_CAP
+    want = _bwd(ncot, args, douts, clamp, 3, True)
+    for split in (None, (1, 1), (2, 4), (8, 8)):
+        _close(_bwd(ncot, args, douts, clamp, 3, True, split=split), want)
+
+
+@pytest.mark.parametrize("ncot", [1, 2])
+@pytest.mark.parametrize("d", [2, 3])
+def test_bwd_split_is_bitwise_repeatable(cuda_device, d, ncot):
+    """One fixed summation order per output element: two launches at the
+    same split give the same bits."""
+    args, douts, clamp = _split_inputs(cuda_device, d)
+    for split in SPLITS:
+        a, b = (_bwd(ncot, args, douts, clamp, d, True, split=split)
+                for _ in range(2))
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), split
+
+
+def test_bwd_split_refused_before_launch(cuda_device):
+    args, douts, clamp = _split_inputs(cuda_device, 3)
+    tk.reset_launches()
+    for bad in ((3, 1), (1, 16), (16, 1), (0, 0)):
+        with pytest.raises(ValueError, match="split"):
+            tk.gsr_bwd_dn(*args, douts[0], clamp, 3, split=bad)
+        with pytest.raises(ValueError, match="split"):
+            tk.gsr_bwd_dn2(*args, *douts, clamp, 3, split=bad)
+    assert not any(tk.launches.values())
 
 
 def test_cells_overflow_branch_sweeps_the_mask(cuda_device):
