@@ -10,7 +10,9 @@ Phases, each printing one JSON line with its wall seconds:
                 together (skipped when already built)
   kernels       each centered kernel at Leapfrog-2D shapes (B=512 queries,
                 N=6144 Gaussian rows, d=2, vdim=2) against its plain
-                PyTorch version on the card; median time over 30 launches
+                PyTorch version on the card; median time over 30 launches;
+                the forward (row 1) also at every split S of its cluster,
+                two launches bitwise equal, each split timed
   kernels_3d    the three centered kernels at d=3 where the 3D path runs
                 them (Leapfrog-3D: B=8192, N=1024), timed again at
                 Ring-Collide shapes (B=8192, N=75,776) — the parameter
@@ -18,12 +20,16 @@ Phases, each printing one JSON line with its wall seconds:
                 axis: every split the kernel takes against the plain
                 version, two launches bitwise equal, each split timed, the
                 chosen split with its blocks and live query tiles per
-                worker — and the three
-                work-list (cells) kernels at Ring-Collide shapes, d=vdim=3,
-                against their plain versions (the cells forward's overflow
-                branch too), with the live-pair count, the live tile
-                fraction, and the cells forward's box-tested pairs against
-                the pairs whose geometry it computes
+                worker; the forward at every split at both shapes and at
+                the Ring-Collide test grid's other batches (B=4096, the 2D
+                projection's test chunk, and 32,768, the 3D path's) — and
+                the three work-list (cells) kernels at Ring-Collide shapes,
+                d=vdim=3, against their plain versions (the cells forward's
+                overflow branch too), the parameter backward (row 7) at
+                every split (W, S) with row 6 timed on the same inputs,
+                with the live-pair count, the live tile fraction, and the
+                box-tested pairs against the pairs whose geometry the box
+                tests let through
   kernels_density  the banded value kernel of the density replay at its
                 production shapes (one 262,144-node chunk: the 512^3 grid's
                 x-plane nearest 0.5, on the seeded Ring-Collide state,
@@ -39,7 +45,8 @@ Phases, each printing one JSON line with its wall seconds:
                 rows and the scene's 3072 boundary rows), and the dL/dx
                 kernel again at Leapfrog-3D shapes (N=1024; B=1024 as the
                 path's query_grad runs it, and B=8192), each against its
-                plain version
+                plain version; the forward (row 1) at Karman-2D shapes at
+                every split
   initialize    the leapfrog scene fitted at 71x71 = 5041 Gaussians through
                 the entry point ``gaussian_fluids_torch.initialize2d``
   advance       two frames (clone -> advect -> project) at dt .025 through
@@ -88,6 +95,11 @@ Phases, each printing one JSON line with its wall seconds:
                 Leapfrog-3D mixture (frame 1) and a seeded batch of 8192
                 points in its domain: every split against the plain
                 version, each split timed
+  kernels_fitted_rc  rows 1 and 7 on the fitted Ring-Collide mixture
+                (frame 1): row 7 (and row 6, timed) on a seeded training
+                batch of 8192 points at every split against the plain
+                version; row 1 on that batch and on the middle 32,768-node
+                chunk of the scene's 128^3 test grid at every split
   density3d     the smoke replay through ``gaussian_fluids_torch.advance_density3d``
                 (--density_res_multiplier 1: 128^3 nodes) on ring_collide's
                 checkpoints 0 and 1: densities a and b, two steps each, .vti
@@ -102,7 +114,9 @@ Phases, each printing one JSON line with its wall seconds:
                 card's busy share over a 128^3 step (torch.profiler)
 Launches are counted per path: each path's counts are set to 0 just
 before it and read just after; the 2D lines of the kernel summary carry
-the Leapfrog-2D path's launches, the d=3 and cells lines the 3D path's.
+the Leapfrog-2D path's launches, the d=3 and cells lines the 3D path's;
+the forward's are also counted per shape (d, B, N) on every path
+(``launches_by_shape``; the Karman path's under ``karman_2d``).
 The run fails if a kernel of a path was not launched there, or if a cells
 work list overflowed at the default capacity. The banded kernel's path is
 the replay (density3d and density512: its launches are their sum), the
@@ -384,6 +398,105 @@ def split_reports(cases, tmask, names=("gsr_bwd_dn", "gsr_bwd_dn2")):
     return out
 
 
+def _fwd_key(split):
+    return "chosen" if split is None else str(split)
+
+
+def fwd_split_report(args, rad, clamp):
+    """Row 1 at one shape, split along the Gaussian axis: both variants
+    (njac = d, 0) at the chosen split and at every split S the kernel takes
+    against the plain twin (TOL), two launches of each bitwise equal; the
+    main variant timed at every split in this call; the chosen split and
+    the blocks it launches."""
+    from gaussian_fluids_torch.ops import gsr_centered as gc
+    tmask, x_p = args[0], args[1]
+    d = x_p.shape[1]
+    splits = [None] + list(gc.SPLIT_S)
+    errs = []
+    for nj in (d, 0):
+        want = gc.fwd_plain(*args, clamp, nj)
+        for sp in splits:
+            a, b = (gc.gsr_fwd(*args, clamp, nj, rad, split=sp)
+                    for _ in range(2))
+            if not torch.equal(a, b):
+                raise AssertionError(f"gsr_fwd[{nj}] at split {sp}: two "
+                                     f"launches differ")
+            errs.append(compare(f"gsr_fwd[{nj}, S={_fwd_key(sp)}]", [a],
+                                [want], TOL)[1])
+    torch.cuda.synchronize()
+    ms = {_fwd_key(sp): time_ms(lambda sp=sp: gc.gsr_fwd(
+        *args, clamp, d, rad, split=sp)) for sp in splits}
+    chosen = gc.fwd_split(*tmask.shape, gc._sm_count(0))
+    return {"split": chosen, "blocks": tmask.shape[0] * chosen,
+            "ms": ms["chosen"], "ms_1": ms["1"], "ms_by_split": ms,
+            "splits_checked": 2 * len(splits),
+            "max_rel_err_splits": max(errs), "bitwise_repeat": True}
+
+
+def fwd_shape_entry(args, rad, clamp, plain_reps=PLAIN_LAUNCHES_3D):
+    """Row 1's summary at one more shape: every split (fwd_split_report),
+    the plain twin's time, and the bound on need beside the walked bound,
+    with the pairs whose geometry the box test lets through."""
+    from gaussian_fluids_torch.ops import gsr_centered as gc
+    tmask, x_p, muT, ppT, v = args
+    d, B, N = x_p.shape[1], x_p.shape[0], muT.shape[1]
+    rep = fwd_split_report(args, rad, clamp)
+    plain_ms = time_ms(lambda: gc.fwd_plain(*args, clamp, d), plain_reps)
+    live = int(tmask.sum()) * gc.TB * gc.TN
+    sup = _support_pairs(gc, tmask, x_p, muT, ppT, d, clamp)
+    nbytes = 4 * (tmask.numel() + x_p.numel() + muT.numel() + ppT.numel()
+                  + v.numel() + B * (1 + d) * v.shape[1])
+    ops = pair_ops(OPS_GEOMETRY[d], OPS_SUPPORT[(d, "fwd")], live, sup)
+    e = _entry("gsr_fwd", "gsr", [(0.0, rep["max_rel_err_splits"])],
+               rep["ms"], plain_ms, ops, nbytes, live, sup)
+    return {"B": B, "N": N, "d": d,
+            "live_tile_fraction": float(tmask.float().mean()),
+            "box_pairs": _box_pairs(tmask, x_p, muT, rad, gc.TB, gc.TN),
+            **{k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "walked_bound_ms", "support_pairs",
+                                 "walked_pairs")},
+            **{k: rep[k] for k in ("split", "blocks", "ms_1", "ms_by_split",
+                                   "max_rel_err_splits")}}
+
+
+def cells_split_report(lt, args, rad, clamp, douts):
+    """Row 7 at one state, split along each run: both variants (njac = 3
+    with the value cotangent, njac = 0) at the chosen split and at every
+    split the kernel takes against the plain twin (TOL), two launches of
+    each bitwise equal; the main variant timed at every split in this
+    call; the chosen split, its blocks and the live query tiles per
+    worker (mean, max); row 6 timed on the same inputs."""
+    from gaussian_fluids_torch.ops import gsr_cells as gk
+    from gaussian_fluids_torch.ops import gsr_centered as gc
+    tmask = args[0]
+    splits = [None] + [(w, s) for w in gc.SPLIT_W for s in gc.SPLIT_S]
+    errs = []
+    for nj, dout in ((3, douts[0]), (0, douts[0][:, :3].contiguous())):
+        want = gk.cells_bwd_dn_plain(*lt, *args, dout, clamp, nj)
+        for sp in splits:
+            a, b = (list(gk.cells_bwd_dn(*lt, *args, dout, clamp, nj, rad,
+                                         split=sp)) for _ in range(2))
+            if not all(torch.equal(p, q) for p, q in zip(a, b)):
+                raise AssertionError(f"cells_bwd_dn[{nj}] at split {sp}: "
+                                     f"two launches differ")
+            errs.append(compare(f"cells_bwd_dn[{nj}, {_split_key(sp)}]", a,
+                                list(want), TOL)[1])
+    torch.cuda.synchronize()
+    ms = {_split_key(sp): time_ms(lambda sp=sp: gk.cells_bwd_dn(
+        *lt, *args, douts[0], clamp, 3, rad, split=sp)) for sp in splits}
+    row6 = time_ms(lambda: gk.cells_bwd_dn2(*lt, *args, *douts, clamp, 3))
+    chosen = gc.bwd_split(*tmask.shape, gc._sm_count(0))
+    shares = gk.run_worker_tiles(*lt, tmask, chosen).double()
+    return {"split": list(chosen), "blocks": tmask.shape[1] * chosen[1],
+            "threads_per_block": gc.TN * chosen[0],
+            "worker_tiles_mean": float(shares.mean()),
+            "worker_tiles_max": int(shares.max()),
+            "ms": ms["chosen"], "ms_1x1": ms["1x1"], "ms_by_split": ms,
+            "row6_ms_same_inputs": row6,
+            "splits_checked": len(splits) * 2,
+            "max_rel_err_splits": max(errs), "bitwise_repeat": True}
+
+
 def kernel_phase(device):
     """PR 4's 2D kernel checks at Leapfrog-2D shapes (unchanged cases),
     with rows 2 and 3 at every split."""
@@ -392,7 +505,7 @@ def kernel_phase(device):
 
     mix, spec, x = leapfrog_state(device)
     clamp = spec.clamp_threshold
-    x_p, _, _, mu_p, pp_p, v_p, tmask = field._centered_prep(
+    x_p, _, _, mu_p, pp_p, v_p, tmask, rad = field._centered_prep(
         mix, spec, x, gc.TB, gc.TN, presorted=True)
     muT, ppT, v = (mu_p.T.contiguous(), pp_p.T.contiguous(),
                    v_p.contiguous())
@@ -409,7 +522,8 @@ def kernel_phase(device):
                     + v.numel())
     cases = {
         "gsr_fwd": ("gsr", "fwd",
-            [(lambda nj=nj: [gc.gsr_fwd(tmask, x_p, muT, ppT, v, clamp, nj)],
+            [(lambda nj=nj: [gc.gsr_fwd(tmask, x_p, muT, ppT, v, clamp, nj,
+                                        rad)],
               lambda nj=nj: [gc.fwd_plain(tmask, x_p, muT, ppT, v, clamp,
                                           nj)])
              for nj in (2, 0)],
@@ -438,12 +552,24 @@ def kernel_phase(device):
                        TIMED_LAUNCHES)
     for name, rep in split_reports(cases, tmask).items():
         stats[name]["split"] = rep
+    args = (tmask, x_p, muT, ppT, v)
+    stats["gsr_fwd"]["split"] = fwd_split_report(args, rad, clamp)
+    stats["gsr_fwd"]["box_pairs"] = _box_pairs(tmask, x_p, muT, rad, gc.TB,
+                                               gc.TN)
+    # and on a 4096-point batch, the 2D test grid's chunk
+    xq = rng.uniform(-5, 5, (4096, 2)).astype(np.float32)
+    xq = torch.as_tensor(xq[np.argsort(xq[:, 0])], device=device)
+    xq_p, _, _, _, _, _, tmq, radq = field._centered_prep(
+        mix, spec, xq, gc.TB, gc.TN, presorted=True)
+    stats["gsr_fwd"]["B4096"] = fwd_shape_entry(
+        (tmq, xq_p, muT, ppT, v), radq, clamp, TIMED_LAUNCHES)
     return stats, {"B": B, "N": N, "live_pairs": live_pairs,
                    "support_pairs": support_pairs,
                    "live_tile_fraction": float(tmask.float().mean())}
 
 
-def _centered_cases_3d(tmask, x_p, muT, ppT, v, clamp, dout, dout_val):
+def _centered_cases_3d(tmask, x_p, muT, ppT, v, clamp, dout, dout_val,
+                       rad):
     """The three centered kernels at d = 3, each with its variants."""
     from gaussian_fluids_torch.ops import gsr_centered as gc
     B, N = x_p.shape[0], muT.shape[1]
@@ -460,7 +586,7 @@ def _centered_cases_3d(tmask, x_p, muT, ppT, v, clamp, dout, dout_val):
     a = (tmask, x_p, muT, ppT, v)
     return {
         "gsr_fwd": ("gsr", "fwd",
-            [pair(lambda nj=nj: gc.gsr_fwd(*a, clamp, nj),
+            [pair(lambda nj=nj: gc.gsr_fwd(*a, clamp, nj, rad),
                   lambda nj=nj: gc.fwd_plain(*a, clamp, nj))
              for nj in (3, 0)],
             out_fwd + mask_bytes, 0),
@@ -495,12 +621,12 @@ def kernels_fitted_3d(mix, spec, device, n_queries=8192):
         .astype(np.float32)
     x = torch.as_tensor(x[np.argsort(x[:, 0], kind="stable")], device=device)
     clamp = spec.clamp_threshold
-    x_p, _, _, mu_p, pp_p, v_p, tmask = field._centered_prep(
+    x_p, _, _, mu_p, pp_p, v_p, tmask, rad = field._centered_prep(
         mix, spec, x, gc.TB, gc.TN, presorted=True)
     muT, ppT, v = mu_p.T.contiguous(), pp_p.T.contiguous(), v_p.contiguous()
     dout, dout_val = _douts_3d(x_p.shape[0], 14, device)
     reps = split_reports(_centered_cases_3d(tmask, x_p, muT, ppT, v, clamp,
-                                            dout, dout_val), tmask)
+                                            dout, dout_val, rad), tmask)
     common = {"B": x_p.shape[0], "N": muT.shape[1],
               "n_alive": int(mix.alive.sum()),
               "live_tile_fraction": float(tmask.float().mean()),
@@ -508,6 +634,54 @@ def kernels_fitted_3d(mix, spec, device, n_queries=8192):
               "support_pairs": _support_pairs(gc, tmask, x_p, muT, ppT, 3,
                                               clamp)}
     return {name: {**common, **rep} for name, rep in reps.items()}
+
+
+def kernels_fitted_rc(mix, spec, device, n_queries=8192):
+    """Rows 1 and 7 on the fitted Ring-Collide mixture (the 3D path's
+    frame-1 checkpoint). Row 7 on one training batch of the scene's size
+    (8192 uniform points in its domain, sorted along x as the epochs sort
+    them): every split against the plain twin, each split timed, row 6 on
+    the same inputs. Row 1 on that batch and on the middle 32,768-node
+    chunk of the scene's 128^3 test grid (x-major, as the projection
+    evaluates it), every split."""
+    from gaussian_fluids_torch.ops import field, gsr_cells as gk
+    from gaussian_fluids_torch.ops import gsr_centered as gc
+    from gaussian_fluids_torch.scenes import get_scene_3d
+    from gaussian_fluids_torch.utils.grids import grid_points_3d
+
+    scene = get_scene_3d("ring_collide")
+    lo, hi = np.float32(scene.domain).reshape(3, 2).T
+    clamp = spec.clamp_threshold
+    x = np.random.RandomState(15).uniform(lo, hi, (n_queries, 3)) \
+        .astype(np.float32)
+    x = torch.as_tensor(x[np.argsort(x[:, 0], kind="stable")], device=device)
+    grid = grid_points_3d(*scene.domain, *scene.visualize_res)
+    mid = (grid.shape[0] // 32768 // 2) * 32768
+    xg = torch.as_tensor(grid[mid:mid + 32768].astype(np.float32),
+                         device=device)
+    out = {"n_alive": int(mix.alive.sum())}
+    for tag, q in (("batch", x), ("test_grid_chunk", xg)):
+        x_p, _, _, mu_p, pp_p, v_p, tmask, rad = field._centered_prep(
+            mix, spec, q, gc.TB, gc.TN, presorted=True)
+        out["gsr_fwd_" + tag] = fwd_shape_entry(
+            (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+             v_p.contiguous()), rad, clamp, 1)
+    x_p, _, tmask, (_, _, gt, qt, ok), rad = field._cells_prep(mix, spec, x)
+    if not int(ok):
+        raise AssertionError("the fitted Ring-Collide work list overflowed")
+    mu_p, pp_p, v_p = field._padded_param_rows(mix, spec, gk.TN)
+    args = (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+            v_p.contiguous())
+    dout, _ = _douts_3d(x_p.shape[0], 16, device)
+    rep = cells_split_report((gt, qt, ok), args, rad, clamp, dout)
+    out["cells_bwd_dn"] = {
+        **rep, "B": x_p.shape[0], "N": args[2].shape[1],
+        "live_tile_fraction": float(tmask.float().mean()),
+        "walked_pairs": int(tmask.sum()) * gk.TB * gk.TN,
+        "support_pairs": _support_pairs(gc, tmask, x_p, args[2], args[3], 3,
+                                        clamp),
+        "box_pairs": _box_pairs(tmask, x_p, args[2], rad, gk.TB, gk.TN)}
+    return out
 
 
 def _douts_3d(B, seed, device):
@@ -577,11 +751,11 @@ def kernel_phase_3d(device):
             out_fwd, list_bytes),
         "cells_bwd_dn": ("cells", "bwd_dn",
             [pair(lambda: gk.cells_bwd_dn(*lt, tmask, x_p, muT, ppT, v,
-                                          dout[0], clamp, 3),
+                                          dout[0], clamp, 3, rad),
                   lambda: gk.cells_bwd_dn_plain(*lt, tmask, x_p, muT, ppT, v,
                                                 dout[0], clamp, 3)),
              pair(lambda: gk.cells_bwd_dn(*lt, tmask, x_p, muT, ppT, v,
-                                          dout_val, clamp, 0),
+                                          dout_val, clamp, 0, rad),
                   lambda: gk.cells_bwd_dn_plain(*lt, tmask, x_p, muT, ppT, v,
                                                 dout_val, clamp, 0))],
             4 * dout[0].numel() + out_bwd, list_bytes),
@@ -606,7 +780,7 @@ def kernel_phase_3d(device):
     # the centered kernels at d = 3 where they run (Leapfrog-3D), and at
     # Ring-Collide shapes as a second number
     lmix, lspec, lx = ring_collide_state(device, side=10)
-    lx_p, _, _, lmu, lpp, lv_p, ltm = field._centered_prep(
+    lx_p, _, _, lmu, lpp, lv_p, ltm, lrad = field._centered_prep(
         lmix, lspec, lx, gc.TB, gc.TN, presorted=True)
     lmuT, lppT, lvv = lmu.T.contiguous(), lpp.T.contiguous(), \
         lv_p.contiguous()
@@ -614,29 +788,54 @@ def kernel_phase_3d(device):
     l_live = int(ltm.sum()) * gc.TB * gc.TN
     l_sup = _support_pairs(gc, ltm, lx_p, lmuT, lppT, 3, clamp)
     l_cases = _centered_cases_3d(ltm, lx_p, lmuT, lppT, lvv, clamp, ldout,
-                                 ldout_val)
+                                 ldout_val, lrad)
     stats = _run_cases(
         l_cases, 3, l_live, l_sup,
         4 * (lx_p.numel() + lmuT.numel() + lppT.numel() + lvv.numel()),
         PLAIN_LAUNCHES_3D, tag="[d=3]")
     for name, rep in split_reports(l_cases, ltm).items():
         stats[name + "[d=3]"]["split"] = rep
+    stats["gsr_fwd[d=3]"]["split"] = fwd_split_report(
+        (ltm, lx_p, lmuT, lppT, lvv), lrad, clamp)
+    stats["gsr_fwd[d=3]"]["box_pairs"] = _box_pairs(ltm, lx_p, lmuT, lrad,
+                                                    gc.TB, gc.TN)
+    # and on 32,768 points, the Leapfrog-3D test grid's chunk
+    qmix, qspec, qx = ring_collide_state(device, side=10, n_queries=32768)
+    qx_p, _, _, qmu, qpp, qv, qtm, qrad = field._centered_prep(
+        qmix, qspec, qx, gc.TB, gc.TN, presorted=True)
+    stats["gsr_fwd[d=3]"]["B32768"] = fwd_shape_entry(
+        (qtm, qx_p, qmu.T.contiguous(), qpp.T.contiguous(), qv.contiguous()),
+        qrad, clamp, PLAIN_LAUNCHES_3D)
     rc_cases = _centered_cases_3d(tmask, x_p, muT, ppT, v, clamp, dout,
-                                  dout_val)
+                                  dout_val, rad)
     at_rc = _run_cases(rc_cases, 3, live_pairs, support_pairs, par_bytes,
                        PLAIN_LAUNCHES_3D, tag="[d=3]")
     for name, rep in split_reports(rc_cases, tmask).items():
         at_rc[name + "[d=3]"]["split"] = rep
+    at_rc["gsr_fwd[d=3]"]["split"] = fwd_split_report(
+        (tmask, x_p, muT, ppT, v), rad, clamp)
+    # row 1 at the other batches of the Ring-Collide test grid: the 2D
+    # projection's TEST_CHUNK and the 3D path's default chunk
+    for nq in (4096, 32768):
+        qmix, qspec, qx = ring_collide_state(device, n_queries=nq)
+        qx_p, _, _, qmu, qpp, qv, qtm, qrad = field._centered_prep(
+            qmix, qspec, qx, gc.TB, gc.TN, presorted=True)
+        at_rc["gsr_fwd[d=3]"][f"B{nq}"] = fwd_shape_entry(
+            (qtm, qx_p, qmu.T.contiguous(), qpp.T.contiguous(),
+             qv.contiguous()), qrad, clamp, 1)
     for name, s_ in stats.items():
         s_.update(shape="Leapfrog-3D", B=lx_p.shape[0], N=lmuT.shape[1],
                   live_tile_fraction=float(ltm.float().mean()),
                   ring_collide={k: at_rc[name][k] for k in (
                       "ms", "plain_ms", "bound_ms", "walked_bound_ms",
                       "max_rel_err", "support_pairs", "walked_pairs",
-                      "split") if k in at_rc[name]})
+                      "split", "B4096", "B32768") if k in at_rc[name]})
+    stats["gsr_fwd[d=3]"]["ring_collide"]["box_pairs"] = box_pairs
     cstats = _run_cases(cells, 3, live_pairs, support_pairs, par_bytes,
                         PLAIN_LAUNCHES_3D)
     cstats["cells_fwd"].update(box_pairs=box_pairs)
+    cstats["cells_bwd_dn"].update(split=cells_split_report(
+        lt, (tmask, x_p, muT, ppT, v), rad, clamp, dout))
     for s_ in cstats.values():
         s_.update(shape="Ring-Collide", B=B, N=N,
                   live_tile_fraction=live_tiles / tmask.numel())
@@ -718,7 +917,7 @@ def kernel_phase_rest(device):
                            (3, ring_collide_state(device, side=10,
                                                   n_queries=1024)),
                            (3, ring_collide_state(device, side=10))):
-        x_p, _, _, mp, pp, vp, tmask = field._centered_prep(
+        x_p, _, _, mp, pp, vp, tmask, _ = field._centered_prep(
             m, sp, xq, gc.TB, gc.TN, presorted=True)
         args = (tmask, x_p, mp.T.contiguous(), pp.T.contiguous(),
                 vp.contiguous())
@@ -748,13 +947,20 @@ def kernel_phase_rest(device):
     stats["gsr_bwd_dx[d=3]"]["at_B8192"] = {k: second[k] for k in (
         "ms", "plain_ms", "bound_ms", "walked_bound_ms", "max_rel_err")}
 
+    # row 1 at Karman-2D (B = 512, N = 24,576), every split
+    x_p, _, _, mp, pp, vp, tmask, rad = field._centered_prep(
+        mix, spec, x, gc.TB, gc.TN, presorted=True)
+    shapes["gsr_fwd_karman_2d"] = fwd_shape_entry(
+        (tmask, x_p, mp.T.contiguous(), pp.T.contiguous(), vp.contiguous()),
+        rad, clamp, TIMED_LAUNCHES)
+
     # kernel 10 over [512 data rows; the scene's 3072 boundary rows]
     scene = get_scene_2d("karman")
     gen = torch.Generator(device=device).manual_seed(6)
     xb, _, _, _ = karman_boundary_rows(scene, gen, 512, device)
     x_dp = field._pad_axis(x, gc.TB)
     rows = x_dp.shape[0]
-    x_c, _, _, _, _, _, tmask = field._centered_prep(
+    x_c, _, _, _, _, _, tmask, _ = field._centered_prep(
         mix, spec, torch.cat([x_dp, xb]), gc.TB, gc.TN, presorted=True)
     B = x_c.shape[0]
     douts = [torch.zeros((B, 6), device=device) for _ in range(2)]
@@ -873,6 +1079,7 @@ def run_2d(tmp):
          "--last_time", ".05", "--max_epoch", str(ADVANCE_EPOCHS)])
     torch.cuda.synchronize()
     launches = dict(gsr_centered.launches)   # initialize + advance
+    by_shape = _shape_counts(gsr_centered.fwd_shapes)
     check_frames(frames, 2, "2D")
     for f in frames:
         emit({"phase": "advance", "frame": f["frame"],
@@ -882,7 +1089,8 @@ def run_2d(tmp):
               "divergence_residual": f["project"]["loss_div"]})
     emit({"phase": "advance", "seconds": time.perf_counter() - t0,
           "frames": len(frames),
-          "launches": {k: launches[k] - init_launches[k] for k in launches}})
+          "launches": {k: launches[k] - init_launches[k] for k in launches},
+          "gsr_fwd_launches_by_shape": by_shape})
 
     t0 = time.perf_counter()
     written = sorted(os.listdir(tmp))
@@ -892,7 +1100,12 @@ def run_2d(tmp):
     pts = grid_points_2d(-5, 5, -5, 5, 64, 64)
     emit({"phase": "check", "seconds": time.perf_counter() - t0,
           **check_field(mix, spec, pts, f64=True)})
-    return launches
+    return launches, by_shape
+
+
+def _shape_counts(fwd_shapes):
+    """Row 1's launches by shape, keyed for JSON."""
+    return {f"d={d},B={b},N={n}": c for (d, b, n), c in fwd_shapes.items()}
 
 
 def wall_ms(fn, reps=TIMED_LAUNCHES):
@@ -939,6 +1152,7 @@ def run_karman(tmp):
         ["--init_cond", "karman", "--dir", tmp, "--max_epoch",
          str(KARMAN_INIT_EPOCHS)])
     init = counts()
+    by_shape = _shape_counts(gsr_centered.fwd_shapes)
     emit({"phase": "karman_init", "seconds": time.perf_counter() - t0,
           "epochs": {"fit": KARMAN_INIT_EPOCHS,
                      "projection": KARMAN_INIT_EPOCHS},
@@ -964,6 +1178,8 @@ def run_karman(tmp):
         else:
             os.environ["GF_FUSED_RK4"] = before
     launches = counts()
+    for k, n in _shape_counts(gsr_centered.fwd_shapes).items():
+        by_shape[k] = by_shape.get(k, 0) + n
     check_frames(frames, 1, "karman")
     scene = get_scene_2d("karman")
     f = frames[0]
@@ -990,9 +1206,10 @@ def run_karman(tmp):
           "advance_domain": list(adv), "clone": f["clone"],
           "project": f["project"],
           "divergence_residual": f["project"]["loss_div"],
-          "launches": launches, **{"check_" + k: v for k, v in check_field(
+          "launches": launches, "gsr_fwd_launches_by_shape": by_shape,
+          **{"check_" + k: v for k, v in check_field(
               mix, spec, pts, f64=True).items()}})
-    return mix, spec, launches
+    return mix, spec, launches, by_shape
 
 
 def _projection_batch(mix, spec, seed):
@@ -1194,6 +1411,7 @@ def run_3d(tmp):
                                      "gaussian_velocity_1.pt"]:
             raise AssertionError(f"{scene}: checkpoints {os.listdir(d)}")
         total = after
+    by_shape = _shape_counts(gsr_centered.fwd_shapes)
     overflows = gsr_cells.overflows()
     if any(overflows.values()):
         raise AssertionError(f"cells work lists overflowed: {overflows}")
@@ -1202,8 +1420,9 @@ def run_3d(tmp):
         .astype(np.float32)
     emit({"phase": "check3d", "scene": "ring_collide",
           "seconds": time.perf_counter() - t0, "cells_overflows": overflows,
+          "gsr_fwd_launches_by_shape": by_shape,
           **check_field(mix, spec, pts, f64=True)})
-    return total
+    return total, by_shape
 
 
 def _banded_culling(x, B, prep, jlo, ok, band, tb, tn, warp=32):
@@ -1649,14 +1868,14 @@ def main():
 
     tmp = tempfile.mkdtemp(prefix="gf_torch_smoke_")
     try:
-        launches_2d = run_2d(os.path.join(tmp, "2d"))
-        kmix, kspec, launches_karman = run_karman(os.path.join(tmp,
-                                                               "karman"))
+        launches_2d, shapes_2d = run_2d(os.path.join(tmp, "2d"))
+        kmix, kspec, launches_karman, shapes_karman = run_karman(
+            os.path.join(tmp, "karman"))
         t0 = time.perf_counter()
         covector_fused(kmix, kspec)
         launches_heads = epoch_heads(kmix, kspec)
         emit({"phase": "karman_ab", "seconds": time.perf_counter() - t0})
-        launches_3d = run_3d(os.path.join(tmp, "3d"))
+        launches_3d, shapes_3d = run_3d(os.path.join(tmp, "3d"))
         epoch_3d(device)
         lmix, lspec = checkpoint.load_checkpoint(
             os.path.join(tmp, "3d", "leapfrog", "gaussian_velocity_1.pt"),
@@ -1673,6 +1892,15 @@ def main():
               time.perf_counter() - t0, "card": card,
               "checkpoint": "3d/leapfrog/gaussian_velocity_1.pt",
               "kernels": fitted})
+        t0 = time.perf_counter()
+        rmix, rspec = checkpoint.load_checkpoint(
+            os.path.join(tmp, "3d", "ring_collide", "gaussian_velocity_1.pt"),
+            device=device)
+        fitted_rc = kernels_fitted_rc(rmix, rspec, device)
+        emit({"phase": "kernels_fitted_rc", "seconds":
+              time.perf_counter() - t0, "card": card,
+              "checkpoint": "3d/ring_collide/gaussian_velocity_1.pt",
+              "kernels": fitted_rc})
         ring = os.path.join(tmp, "3d", "ring_collide")
         launches_density = run_density(ring)
         check_density(ring, device)
@@ -1682,6 +1910,16 @@ def main():
 
     for name, s in stats.items():
         s["launches"] = launches_2d[name]
+    stats["gsr_fwd"]["launches_by_shape"] = shapes_2d
+    kfwd = shapes_r.pop("gsr_fwd_karman_2d")
+    stats["gsr_fwd"]["karman_2d"] = {
+        **kfwd, "launches": shapes_karman.get(
+            f"d=2,B={kfwd['B']},N={kfwd['N']}", 0),
+        "launches_by_shape": shapes_karman}
+    stats3["gsr_fwd[d=3]"]["launches_by_shape"] = shapes_3d
+    stats3["gsr_fwd[d=3]"]["fitted_ring_collide"] = {
+        k: fitted_rc[k] for k in ("gsr_fwd_batch", "gsr_fwd_test_grid_chunk")}
+    stats3["cells_bwd_dn"]["fitted_ring_collide"] = fitted_rc["cells_bwd_dn"]
     for name, s in stats3.items():
         s["launches"] = launches_3d[name.split("[")[0]]
         if name.split("[")[0] in fitted:

@@ -17,29 +17,37 @@
 // What bounds them on an H100. At the Leapfrog-2D shapes (B = 512,
 // N = 6144) the live tile pairs hold ~3.5e5 query-Gaussian pairs, a few
 // MFLOP and under 1 MB, so neither the 67 TFLOP/s f32 rate nor the
-// 3.35 TB/s memory rate binds: launch latency and the serial per-thread
-// loop do. In 3D at Ring-Collide width (N = 75,776) these kernels serve
-// the evaluations with a Jacobian on the 128^3 test grid, in chunks of
-// 32,768 queries: ~10% of the tile pairs are live, ~2.5e8 pairs a chunk,
-// ~30 operations each (operations-bound, ~0.1 ms at the f32 peak; the
-// inputs are ~4 MB). The design maximises independent threads and keeps
-// every sum in registers: the forward gives every query its own warp,
-// whose 32 lanes split the Gaussians of each live tile; the parameter
-// backward gives every Gaussian W x S threads, W in one block and S
-// blocks of a cluster, each walking an equal share of the Gaussian tile's
-// compacted live query tiles. One thread a Gaussian filled 16 blocks of
-// the 132 SMs at Leapfrog-3D (N = 1024, B = 8192), each thread walking
-// ~500 query tiles in a chain of global loads; the split puts 64 threads
-// on each Gaussian there (ops/gsr_centered.py bwd_split picks W and S
-// from the shape and the SM count). No atomics: each output element has
-// exactly one owner thread, which adds the split's partial sums in a
-// fixed order (backward), or one fixed shuffle tree (forward), so sums
-// are deterministic, as the TPU kernels' sequential grid reductions are.
+// 3.35 TB/s memory rate binds: launch latency and the chains of
+// dependent loads do. In 3D at Ring-Collide width (N = 75,776) the
+// forward serves the evaluations with a Jacobian on the 128^3 test grid,
+// in chunks of 32,768 queries: ~10% of the tile pairs are live, ~2.5e8
+// pairs a chunk, of which ~1% have the query inside the Gaussian's
+// support box. The designs keep every sum in registers and give the
+// chains independent threads:
+// - the forward (row 1) is the cells forward's staged walk over the
+//   tile's mask row (gsr_tile.cuh fwd_walk): each live Gaussian tile
+//   staged in shared memory once per block, every pair box-tested on the
+//   row's dilated radius before its geometry, FWD_SLOTS threads a query;
+//   where the query tiles are too few to fill the card (Leapfrog-2D: 64
+//   blocks for 132 SMs) S blocks of a cluster share a query tile along
+//   the Gaussian axis (ops/gsr_centered.py fwd_split picks S from the
+//   shape and the SM count);
+// - the parameter backwards (rows 2 and 3) give every Gaussian W x S
+//   threads, W in one block and S blocks of a cluster, each walking an
+//   equal share of the Gaussian tile's compacted live query tiles. One
+//   thread a Gaussian filled 16 blocks of the 132 SMs at Leapfrog-3D
+//   (N = 1024, B = 8192), each thread walking ~500 query tiles in a chain
+//   of global loads; the split puts 64 threads on each Gaussian there
+//   (bwd_split picks W and S).
+// No atomics: each output element has exactly one owner thread, which
+// adds the split's partial sums in a fixed order after one fixed shuffle
+// tree (forward) or worker by worker (backward), so sums are
+// deterministic, as the TPU kernels' sequential grid reductions are.
 //
 // The two backwards that no training epoch runs keep their owners.
-// dL/dx (gsr_bwd_dx_kernel) has the forward's layout: a warp per query,
-// its lanes splitting each live Gaussian tile, one fixed shuffle tree at
-// the end; per pair it recomputes the geometry and the cotangents of the
+// dL/dx (gsr_bwd_dx_kernel) gives every query a warp, its lanes
+// splitting each live Gaussian tile, one fixed shuffle tree at the end;
+// per pair it recomputes the geometry and the cotangents of the
 // parameter backward. The triple backward (gsr_bwd_dn3_kernel, the fused
 // [data; boundary] projection geometry) gives every Gaussian one thread,
 // which walks every live query tile in order (bwd_tile), with three
@@ -47,53 +55,31 @@
 // data_tiles feed blocks 1 and 2 (the dual backward's tile step), the
 // boundary tiles after them feed block 3 with a value-only cotangent.
 
-#include <cooperative_groups.h>
-
 #include "gsr_tile.cuh"
 
 namespace {
 
 using namespace gsr;
 
+// Row 1: query tile i's block (rank s of a cluster of S along y) walks
+// the tile's row of the mask through the staged forward (gsr_tile.cuh
+// fwd_walk, the cells forward's body).
 template <int D, int VDIM>
-__global__ void __launch_bounds__(32 * TB)
+__global__ void __launch_bounds__(FWD_THREADS)
 gsr_fwd_kernel(const int* __restrict__ tmask, const float* __restrict__ x,
                const float* __restrict__ muT, const float* __restrict__ ppT,
-               const float* __restrict__ v, float* __restrict__ out, int N,
-               int njac, float clamp) {
-  const int nnt = N / TN;
-  const int i = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int b = i * TB + threadIdx.y;
-  float xq[D];
-#pragma unroll
-  for (int k = 0; k < D; ++k) xq[k] = x[D * b + k];
-  float acc[(1 + D) * VDIM];
-#pragma unroll
-  for (int k = 0; k < (1 + D) * VDIM; ++k) acc[k] = 0.f;
-  for (int j = 0; j < nnt; ++j) {
-    if (tmask[i * nnt + j] == 0) continue;
-    fwd_tile<D, VDIM>(xq, j, lane, muT, ppT, v, N, njac, clamp, acc);
-  }
-  fwd_store<D, VDIM>(acc, lane, b, njac, out);
+               const float* __restrict__ rad, const float* __restrict__ v,
+               float* __restrict__ out, int N, int njac, float clamp) {
+  __shared__ __align__(16) FwdSmem<D, VDIM> sm;
+  const int i = blockIdx.x, nnt = N / TN;
+  const LiveTiles<false> src{nullptr, nullptr, 0, 0, i, tmask + i * nnt, 1,
+                             nnt, false};
+  fwd_walk<D, VDIM>(src, i, x, muT, ppT, rad, v, out, N, njac, clamp, sm);
 }
 
-// The split parameter backward (rows 2 and 3). Its limits: W workers of
-// TN threads a block, S blocks a cluster along the query axis (the
-// portable cluster maximum), and the query tiles compacted at once.
-constexpr int MAX_W = 8;
-constexpr int MAX_S = 8;
+// The split parameter backward (rows 2 and 3) compacts LIST_CAP query
+// tiles at once.
 constexpr int LIST_CAP = 4096;
-
-inline bool bad_split(int W, int S) {
-  return (W != 1 && W != 2 && W != 4 && W != MAX_W) ||
-         (S != 1 && S != 2 && S != 4 && S != MAX_S);
-}
-
-template <int D, int VDIM, int NCOT>
-constexpr int dn_sums() {   // the partial sums a thread keeps
-  return NCOT * (Dims<D>::NMP + VDIM);
-}
 
 // Dynamic shared memory of one block: the compacted list, the warps'
 // counts, and one slot of TN x dn_sums partial sums.
@@ -103,73 +89,13 @@ size_t dn_smem_bytes() {
          (LIST_CAP + MAX_W * TN / 32 + dn_sums<D, VDIM, NCOT>() * TN);
 }
 
-// The Gaussian G (one thread) against the TB queries of one tile, x rows
-// at xt, cotangent rows at d1 and d2 (cols apart). First the support test
-// of all TB pairs, independent chains, then the accumulation of the pairs
-// inside, in query order: the terms and their order are bwd_tile's, and
-// the recomputed geometry is bitwise the tested one.
-template <int D, int VDIM, int NCOT>
-__device__ __forceinline__ void dn_tile(const float* xt, const float* d1,
-                                        const float* d2, int cols,
-                                        const Gauss<D>& G, const float* vv,
-                                        int njac, int use_val, float clamp,
-                                        float (*accm)[Dims<D>::NMP],
-                                        float (*accv)[VDIM]) {
-  unsigned in = 0;
-#pragma unroll
-  for (int r = 0; r < TB; ++r)
-    if (centered<D>(xt + r * D, G).g >= clamp) in |= 1u << r;
-  for (; in; in &= in - 1) {
-    const int r = __ffs(in) - 1;
-    const Geom<D> q = centered<D>(xt + r * D, G);
-    dn_accumulate<D, VDIM>(q, d1 + r * cols, vv, G.p, njac, use_val, clamp,
-                           accm[0], accv[0]);
-    if (NCOT == 2)
-      dn_accumulate<D, VDIM>(q, d2 + r * cols, vv, G.p, njac, use_val,
-                             clamp, accm[NCOT - 1], accv[NCOT - 1]);
-  }
-}
-
-// One Gaussian's partial sums to and from a slot of TN x dn_sums floats.
-template <int D, int VDIM, int NCOT>
-__device__ __forceinline__ void put_sums(float* slot, int g,
-                                         float (*accm)[Dims<D>::NMP],
-                                         float (*accv)[VDIM]) {
-  constexpr int NMP = Dims<D>::NMP;
-#pragma unroll
-  for (int c = 0; c < NCOT; ++c) {
-#pragma unroll
-    for (int k = 0; k < NMP; ++k) slot[(c * NMP + k) * TN + g] = accm[c][k];
-#pragma unroll
-    for (int a = 0; a < VDIM; ++a)
-      slot[(NCOT * NMP + c * VDIM + a) * TN + g] = accv[c][a];
-  }
-}
-template <int D, int VDIM, int NCOT>
-__device__ __forceinline__ void add_sums(const float* slot, int g,
-                                         float (*accm)[Dims<D>::NMP],
-                                         float (*accv)[VDIM]) {
-  constexpr int NMP = Dims<D>::NMP;
-#pragma unroll
-  for (int c = 0; c < NCOT; ++c) {
-#pragma unroll
-    for (int k = 0; k < NMP; ++k) accm[c][k] += slot[(c * NMP + k) * TN + g];
-#pragma unroll
-    for (int a = 0; a < VDIM; ++a)
-      accv[c][a] += slot[(NCOT * NMP + c * VDIM + a) * TN + g];
-  }
-}
-
-// Block (j, s) of a cluster of S along y: Gaussian tile j, split rank s.
-// Thread (g, w) owns Gaussian j TN + g for worker u = s W + w of U = W S.
-// Each block compacts column j of the tile mask (LIST_CAP query tiles at
-// a time, in order) and worker u walks the u-th of U equal contiguous
-// shares of the live list, reading each tile's rows where they lie
-// (staging them in shared memory by cp.async did not pay). The
-// sums: the W workers' in w order through shared memory, then the
-// cluster's blocks' in rank order through distributed shared memory, by
-// rank 0, which stores. One owner and one fixed order per output element,
-// no atomics.
+// Rows 2 and 3. Block (j, s) of a cluster of S along y: Gaussian tile j,
+// split rank s. Thread (g, w) owns Gaussian j TN + g for worker u = s W +
+// w of U = W S. Each block compacts column j of the tile mask (LIST_CAP
+// query tiles at a time, in order) and worker u walks the u-th of U equal
+// contiguous shares of the live list, reading each tile's rows where they
+// lie (staging them in shared memory by cp.async did not pay). The sums
+// meet in one fixed order (gsr_tile.cuh dn_meet_store).
 template <int D, int VDIM, int NCOT>
 __global__ void __launch_bounds__(TN * MAX_W)
 gsr_bwd_dn_kernel(const int* __restrict__ tmask, const float* __restrict__ x,
@@ -219,35 +145,16 @@ gsr_bwd_dn_kernel(const int* __restrict__ tmask, const float* __restrict__ x,
     const int hi = static_cast<int>(static_cast<long long>(u + 1) * live / U);
     for (int m = lo; m < hi; ++m) {
       const int i = list[m];
-      dn_tile<D, VDIM, NCOT>(x + i * TB * D, dout1 + i * TB * cols,
-                             dout2 + i * TB * cols, cols, G, vv, njac,
-                             use_val, clamp, accm, accv);
+      const float* xt = x + i * TB * D;
+      dn_tile<D, VDIM, NCOT, false>(xt, xt, dout1 + i * TB * cols,
+                                    dout2 + i * TB * cols, cols, G, 0.f, vv,
+                                    njac, use_val, clamp, accm, accv);
     }
     __syncthreads();   // the next window refills the list
   }
 
-  // The W partial sums in w order: worker r hands its sums to worker 0.
-  for (int r = 1; r < W; ++r) {
-    if (w == r) put_sums<D, VDIM, NCOT>(red, g, accm, accv);
-    __syncthreads();
-    if (w == 0) add_sums<D, VDIM, NCOT>(red, g, accm, accv);
-    __syncthreads();
-  }
-  // The S blocks' sums in rank order: rank 0 reads the others' slots.
-  if (S > 1) {
-    namespace cg = cooperative_groups;
-    cg::cluster_group cluster = cg::this_cluster();
-    if (w == 0 && s > 0) put_sums<D, VDIM, NCOT>(red, g, accm, accv);
-    cluster.sync();
-    if (w == 0 && s == 0) {
-      for (int r = 1; r < S; ++r)
-        add_sums<D, VDIM, NCOT>(cluster.map_shared_rank(red, r), g, accm,
-                                accv);
-    }
-    cluster.sync();   // the other blocks' slots stay until rank 0 read them
-  }
-  if (w == 0 && s == 0)
-    bwd_store<D, VDIM, NCOT>(n, N, accm, accv, dmp1, dv1, dmp2, dv2);
+  dn_meet_store<D, VDIM, NCOT>(red, g, w, W, s, S, n, N, accm, accv, dmp1,
+                               dv1, dmp2, dv2);
 }
 
 template <int D, int VDIM>
@@ -341,16 +248,28 @@ gsr_bwd_dn3_kernel(const int* __restrict__ tmask, const float* __restrict__ x,
 
 struct FwdLaunch {
   const int* tm;
-  const float *x, *mu, *pp, *v;
+  const float *x, *mu, *pp, *rad, *v;
   float* out;
-  int B, N, njac;
+  int B, N, njac, S;
   float clamp;
   cudaStream_t s;
   template <int D, int VDIM>
   int run() const {
-    gsr_fwd_kernel<D, VDIM><<<dim3(B / TB), dim3(32, TB), 0, s>>>(
-        tm, x, mu, pp, v, out, N, njac, clamp);
-    return cudaGetLastError();
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B / TB, S);
+    cfg.blockDim = dim3(FWD_THREADS);
+    cfg.stream = s;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = 1;
+    cluster[0].val.clusterDim.y = S;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    const cudaError_t rc = cudaLaunchKernelEx(
+        &cfg, gsr_fwd_kernel<D, VDIM>, tm, x, mu, pp, rad, v, out, N, njac,
+        clamp);
+    return rc != cudaSuccess ? rc : cudaGetLastError();
   }
 };
 
@@ -447,18 +366,25 @@ int gsr_tile_sizes(int* tb, int* tn) {
   return 0;
 }
 
+// The forward split S ways along the Gaussian axis (S in 1, 2, 4, 8
+// blocks a cluster; anything else is refused), rad the rows' dilated radii
+// of the box test.
 int gsr_fwd(const void* tmask, const void* x, const void* muT,
-            const void* ppT, const void* v, void* out, int B, int N, int d,
-            int vdim, int njac, float clamp, void* stream) {
-  if (bad_shape(B, N, d, vdim, njac)) return cudaErrorInvalidValue;
+            const void* ppT, const void* rad, const void* v, void* out,
+            int B, int N, int d, int vdim, int njac, float clamp, int S,
+            void* stream) {
+  if (bad_shape(B, N, d, vdim, njac) || bad_split(1, S))
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const FwdLaunch f{static_cast<const int*>(tmask),
                     static_cast<const float*>(x),
                     static_cast<const float*>(muT),
                     static_cast<const float*>(ppT),
+                    static_cast<const float*>(rad),
                     static_cast<const float*>(v),
                     static_cast<float*>(out),
-                    B, N, njac, clamp, static_cast<cudaStream_t>(stream)};
+                    B, N, njac, S, clamp,
+                    static_cast<cudaStream_t>(stream)};
   return dispatch(d, vdim, f);
 }
 

@@ -285,7 +285,9 @@ def _tile_mask_of(mix: GaussianMixture, spec: FieldSpec, x_p, b: int,
 def _centered_prep(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
                    tb: int, tn: int, presorted: bool):
     """Sort (unless presorted), pad, pack, and build the tile mask.
-    Returns (x_p, b, inv | None, mu_p, pp_p, v_p, tmask)."""
+    Returns (x_p, b, inv | None, mu_p, pp_p, v_p, tmask, rad): ``rad`` the
+    rows' dilated radii of the forward's box test (``row_radius``, from
+    the mask's own radii)."""
     _check_queries(mix, x)
     b = x.shape[0]
     inv = None
@@ -295,8 +297,11 @@ def _centered_prep(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
         x = x[order]
     x_p = _pad_axis(x, tb).contiguous()
     mu_p, pp_p, v_p = _padded_param_rows(mix, spec, tn)
-    tmask = _tile_mask_of(mix, spec, x_p, b, tb, tn)
-    return x_p, b, inv, mu_p, pp_p, v_p, tmask
+    with torch.no_grad():
+        support = _row_support(mix, spec, tn)
+        tmask = _tile_mask_of(mix, spec, x_p, b, tb, tn, support)
+        rad = _dilated(*support)
+    return x_p, b, inv, mu_p, pp_p, v_p, tmask, rad
 
 
 def _split_out(out: torch.Tensor, b: int, d: int, vdim: int):
@@ -310,11 +315,11 @@ def _centered_value_jac(mix: GaussianMixture, spec: FieldSpec,
     """(val, jac | None) through the centered kernels; differentiable in
     the mixture parameters (the query points are constants)."""
     d, vdim = mix.d, mix.vdim
-    x_p, b, inv, mu_p, pp_p, v_p, tmask = _centered_prep(
+    x_p, b, inv, mu_p, pp_p, v_p, tmask, rad = _centered_prep(
         mix, spec, x, gsr_centered.TB, gsr_centered.TN, presorted)
     out = gsr_centered.fused_gsr_centered(
         tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
-        v_p.contiguous(), spec.clamp_threshold, njac)[:b]
+        v_p.contiguous(), spec.clamp_threshold, njac, rad)[:b]
     val, jac = _split_out(out, b, d, vdim) if njac else (out, None)
     if inv is not None:
         val = val[inv]
@@ -578,8 +583,8 @@ def _two_head_grads_kernels(params, alive, spec: FieldSpec, x: torch.Tensor,
         x_p, _, tmask, (rows, cols, gtiles, qtiles, ok), rad = _cells_prep(
             mix_sg, spec, x)
     else:
-        x_p, _, _, _, _, _, tmask = _centered_prep(mix_sg, spec, x, tb, tn,
-                                                   presorted=True)
+        x_p, _, _, _, _, _, tmask, rad = _centered_prep(
+            mix_sg, spec, x, tb, tn, presorted=True)
     leaves = _grad_leaves(params)
     with torch.enable_grad():
         mu_p, pp_p, v_p = _padded_param_rows(mixture_of(leaves, alive), spec,
@@ -590,7 +595,7 @@ def _two_head_grads_kernels(params, alive, spec: FieldSpec, x: torch.Tensor,
         out = gsr_cells.cells_fwd(rows, cols, ok, tmask, x_p, *args, clamp,
                                   d, rad)[:b]
     else:
-        out = gsr_centered.gsr_fwd(tmask, x_p, *args, clamp, d)[:b]
+        out = gsr_centered.gsr_fwd(tmask, x_p, *args, clamp, d, rad)[:b]
     losses, douts, use_val = _heads_on_out(out, d, vdim, (head1, head2))
     douts = [_pad_axis(t, tb).contiguous() for t in douts]
     if cells:
@@ -656,7 +661,7 @@ def epoch_heads_grads_centered(params, alive, spec: FieldSpec,
     mix_sg = mixture_of({k: p.detach() for k, p in params.items()}, alive)
     x_dp = _pad_axis(x, tb)
     data_rows = x_dp.shape[0]
-    x_p, _, _, _, _, _, tmask = _centered_prep(
+    x_p, _, _, _, _, _, tmask, rad = _centered_prep(
         mix_sg, spec, torch.cat([x_dp, x_bnd]), tb, tn, presorted=True)
     leaves = _grad_leaves(params)
     with torch.enable_grad():
@@ -664,7 +669,7 @@ def epoch_heads_grads_centered(params, alive, spec: FieldSpec,
                                              tn)
         prep = (mu_p.T.contiguous(), pp_p.T.contiguous(), v_p.contiguous())
     args = tuple(t.detach() for t in prep)
-    out = gsr_centered.gsr_fwd(tmask, x_p, *args, clamp, d)
+    out = gsr_centered.gsr_fwd(tmask, x_p, *args, clamp, d, rad)
     bp = x_p.shape[0]
     losses, douts, use_val12 = _heads_on_out(out[:bd_n], d, vdim,
                                              (head1, head2))

@@ -23,6 +23,13 @@ the kernel (after validation; any failure raises), a CPU tensor runs the
 plain PyTorch version below, which evaluates the centered kernels' plain
 twins on the mask the lists describe. ``launches`` counts kernel launches
 per wrapper.
+
+The forward and ``cells_bwd_dn`` box-test every pair on the rows' dilated
+radii (``rad``, ``field.row_radius``) before its geometry; the plain twins
+do not read them. ``cells_bwd_dn`` splits each Gaussian tile's run over W
+workers a block and S blocks of a cluster, as the centered backwards do
+(``gsr_centered.bwd_split`` picks them; ``split=`` forces them in tests
+and the smoke run); ``run_worker_tiles`` gives each worker's share.
 """
 
 from __future__ import annotations
@@ -39,6 +46,10 @@ from gaussian_fluids_torch.ops.gsr_centered import (_F, _I, _P, _ptr,
                                                     _raise_on, _stream)
 
 TB, TN = gsr_centered.TB, gsr_centered.TN
+# row 7's kernel compacts a run (or a mask column) this many candidates at
+# a time and splits each window in equal contiguous shares (the kernel's
+# BWD_WINDOW, csrc/gsr_cells.cu)
+BWD_WINDOW = 128
 SOURCE = cuda_build.CSRC / "gsr_cells.cu"
 NAMES = ("cells_fwd", "cells_bwd_dn", "cells_bwd_dn2")
 
@@ -93,8 +104,8 @@ def _lib():
         lib.cells_fwd.argtypes = [_P, _P, _I] + [_P] * 9 + [_I] * 5 \
             + [_F, _P]
         lib.cells_fwd.restype = _I
-        lib.cells_bwd_dn.argtypes = [_P, _P, _I] + [_P] * 10 + [_I] * 6 \
-            + [_F, _P]
+        lib.cells_bwd_dn.argtypes = [_P, _P, _I] + [_P] * 11 + [_I] * 6 \
+            + [_F, _I, _I, _P]
         lib.cells_bwd_dn.restype = _I
         lib.cells_bwd_dn2.argtypes = [_P, _P, _I] + [_P] * 13 + [_I] * 6 \
             + [_F, _P]
@@ -143,6 +154,26 @@ def list_mask(heads, items, shape) -> torch.Tensor:
     return m
 
 
+def run_worker_tiles(gtiles, qtiles, ok, tmask,
+                     split: Tuple[int, int]) -> torch.Tensor:
+    """(nnt, W S) int64: the live query tiles each worker of each Gaussian
+    tile walks in ``cells_bwd_dn``'s kernel under ``split``: the equal
+    contiguous shares of each window of BWD_WINDOW candidates, which are
+    the run's items while the lists hold every live pair (all live until
+    the run's end) and the tile mask's column on overflow."""
+    nbt, nnt = tmask.shape
+    if bool(ok):
+        live = list_mask(gtiles, qtiles, (nnt, nbt)).sum(1).cpu().long()
+        base = torch.arange(0, max(nbt, 1), BWD_WINDOW)
+        per_window = (live[:, None] - base[None, :]).clamp(0, BWD_WINDOW)
+    else:
+        col = (tmask != 0).cpu().long().T
+        per_window = torch.stack(
+            [col[:, b:b + BWD_WINDOW].sum(1)
+             for b in range(0, max(nbt, 1), BWD_WINDOW)], 1)
+    return gsr_centered.equal_shares(per_window, split[0] * split[1])
+
+
 def _fwd_mask(rows, cols, ok, tmask):
     return list_mask(rows, cols, tmask.shape) if bool(ok) else tmask
 
@@ -186,16 +217,10 @@ def cells_fwd(rows, cols, ok, tmask, x, muT, ppT, values, clamp: float,
     reads; the plain version does not need it."""
     d, vdim, B, N = gsr_centered._check(tmask, x, muT, ppT, values, njac)
     _check_lists(rows, cols, ok, x)
-    if rad.shape != (N,):
-        raise ValueError(f"rad {tuple(rad.shape)} != ({N},)")
+    gsr_centered.check_rad(rad, x, N, (muT, ppT, values))
     if not x.is_cuda:
         return cells_fwd_plain(rows, cols, ok, tmask, x, muT, ppT, values,
                                clamp, njac)
-    if rad.device != x.device or rad.dtype != torch.float32 \
-            or not rad.is_contiguous():
-        raise ValueError("rad: contiguous float32 on the queries' device")
-    if any(t.data_ptr() % 16 for t in (muT, ppT, rad, values)):
-        raise ValueError("muT, ppT, rad and values must be 16-byte aligned")
     lib = _lib()
     out = torch.empty((B, (1 + njac) * vdim), dtype=torch.float32,
                       device=x.device)
@@ -211,28 +236,36 @@ def cells_fwd(rows, cols, ok, tmask, x, muT, ppT, values, clamp: float,
 
 
 def cells_bwd_dn(gtiles, qtiles, ok, tmask, x, muT, ppT, values, dout,
-                 clamp: float, njac: int, use_val: bool = True):
+                 clamp: float, njac: int, rad, use_val: bool = True,
+                 split=None):
     """(dmuT (d, N), dppT (np, N), dv (N, vdim)) for one cotangent over
-    the transposed work list."""
+    the transposed work list. ``rad`` (N,): the rows' dilated radii
+    (``field.row_radius``) of the kernel's box test; the plain version
+    does not need it. ``split`` (W, S) forces the kernel's split of each
+    run, for tests and the smoke run only; by default
+    ``gsr_centered.bwd_split`` picks it."""
     if not use_val and njac == 0:
         raise ValueError("use_val=False needs Jacobian columns")
+    gsr_centered._check_split(split)
     d, vdim, B, N = gsr_centered._check(tmask, x, muT, ppT, values, njac,
                                         (dout,))
     _check_lists(gtiles, qtiles, ok, x)
+    gsr_centered.check_rad(rad, x, N, (x,))
     if not x.is_cuda:
         return cells_bwd_dn_plain(gtiles, qtiles, ok, tmask, x, muT, ppT,
                                   values, dout, clamp, njac, use_val)
     lib = _lib()
+    w, s = gsr_centered._launch_split(split, x, tmask)
     dmp = torch.empty((d + ppT.shape[0], N), dtype=torch.float32,
                       device=x.device)
     dv = torch.empty((N, vdim), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.cells_bwd_dn(
             _ptr(gtiles), _ptr(qtiles), gtiles.numel(), _ptr(ok),
-            _ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT), _ptr(values),
-            _ptr(dout), _ptr(dmp), _ptr(dv),
+            _ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT), _ptr(rad),
+            _ptr(values), _ptr(dout), _ptr(dmp), _ptr(dv),
             _ptr(_counter(x.device, "cells_bwd_dn")), B, N, d, vdim, njac,
-            int(use_val), float(clamp), _stream(x))
+            int(use_val), float(clamp), w, s, _stream(x))
     _raise_on(rc, "cells_bwd_dn")
     launches["cells_bwd_dn"] += 1
     return dmp[:d], dmp[d:], dv
@@ -278,17 +311,18 @@ class _FusedGsrCells(torch.autograd.Function):
     def forward(ctx, lists, tmask, x, muT, ppT, values, rad, clamp, njac):
         rows, cols, gtiles, qtiles, ok = lists
         ctx.save_for_backward(gtiles, qtiles, ok, tmask, x, muT, ppT,
-                              values)
+                              values, rad)
         ctx.clamp, ctx.njac = clamp, njac
         return cells_fwd(rows, cols, ok, tmask, x, muT, ppT, values, clamp,
                          njac, rad)
 
     @staticmethod
     def backward(ctx, dout):
-        gtiles, qtiles, ok, tmask, x, muT, ppT, values = ctx.saved_tensors
+        gtiles, qtiles, ok, tmask, x, muT, ppT, values, rad = \
+            ctx.saved_tensors
         dmuT, dppT, dv = cells_bwd_dn(gtiles, qtiles, ok, tmask, x, muT,
                                       ppT, values, dout.contiguous(),
-                                      ctx.clamp, ctx.njac)
+                                      ctx.clamp, ctx.njac, rad)
         return None, None, None, dmuT, dppT, dv, None, None, None
 
 
@@ -296,6 +330,7 @@ def fused_gsr_cells(lists, tmask, x, muT, ppT, values, rad, clamp: float,
                     njac: int):
     """Differentiable in (muT, ppT, values); x is a constant (the field's
     cells path refuses queries that require a gradient). ``rad``: the
-    rows' dilated radii of the forward's box test (``cells_fwd``)."""
+    rows' dilated radii of the box tests (``cells_fwd``,
+    ``cells_bwd_dn``)."""
     return _FusedGsrCells.apply(tuple(lists), tmask, x, muT, ppT, values,
                                 rad, float(clamp), int(njac))

@@ -20,9 +20,13 @@ a CPU tensor runs the plain PyTorch version below, which repeats the
 kernel's arithmetic on whole (B, N) planes with the tile mask expanded.
 There is no fallback from the kernel to the plain version.
 
-The parameter backwards split each Gaussian tile's live query tiles over
-W x S threads a Gaussian (``bwd_split`` picks W and S from the shape and
-the card's SM count; ``split=`` forces them in tests and the smoke run).
+The forward stages each live Gaussian tile once per block and box-tests
+every pair on the rows' dilated radii (``rad``, ``field.row_radius``)
+before its geometry; where the query tiles are few it splits each query
+tile over S blocks of a cluster (``fwd_split`` picks S). The parameter
+backwards split each Gaussian tile's live query tiles over W x S threads
+a Gaussian (``bwd_split`` picks W and S from the shape and the card's SM
+count). ``split=`` forces either in tests and the smoke run.
 
 The kernels take d = 2 or 3 and vdim = 1, 2 or 3 (templates on both).
 The shared library is built with ``nvcc`` at first use into
@@ -66,11 +70,14 @@ SOURCE = cuda_build.CSRC / "gsr_centered.cu"
 
 launches: Dict[str, int] = {"gsr_fwd": 0, "gsr_bwd_dn": 0, "gsr_bwd_dn2": 0,
                             "gsr_bwd_dx": 0, "gsr_bwd_dn3": 0}
+# the forward's launches by (d, B, N): its paths run it at several shapes
+fwd_shapes: Dict[Tuple[int, int, int], int] = {}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    fwd_shapes.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -96,7 +103,7 @@ def _lib():
         lib = ctypes.CDLL(str(build()[0]))
         lib.gsr_tile_sizes.argtypes = [ctypes.POINTER(_I)] * 2
         lib.gsr_tile_sizes.restype = _I
-        lib.gsr_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_F, _P]
+        lib.gsr_fwd.argtypes = [_P] * 7 + [_I] * 5 + [_F, _I, _P]
         lib.gsr_fwd.restype = _I
         lib.gsr_bwd_dn.argtypes = [_P] * 8 + [_I] * 6 + [_F] + [_I] * 2 \
             + [_P]
@@ -158,18 +165,50 @@ def bwd_split(nbt: int, nnt: int, sm_count: int) -> Tuple[int, int]:
     return w, s
 
 
+# The forward's block: TB queries of FWD_SLOTS threads (csrc/gsr_tile.cuh);
+# fwd_split aims at FWD_FILL_WARPS warps an SM.
+FWD_WARPS = TB * 16 // 32
+FWD_FILL_WARPS = 16
+
+
+def fwd_split(nbt: int, nnt: int, sm_count: int) -> int:
+    """S, the blocks of a cluster that share each query tile of the
+    forward, over ``nbt`` query tiles and ``nnt`` Gaussian tiles on a card
+    of ``sm_count`` SMs. S doubles until the launch holds FWD_FILL_WARPS
+    warps an SM (a quarter of what an SM holds) or S reaches 8; then
+    halves until every rank has at least 16 Gaussian tiles of its row to
+    draw on (at 10-50% live, 2-8 to walk), and so never more ranks than
+    Gaussian tiles. On an H100: Leapfrog-2D (64 query tiles) 4, Karman-2D
+    8, Leapfrog-3D 1; Ring-Collide 2 at 4096 queries, 1 at 8192 and
+    32,768."""
+    s = 1
+    while nbt * s * FWD_WARPS < FWD_FILL_WARPS * sm_count \
+            and s < SPLIT_S[-1]:
+        s *= 2
+    while s > 1 and nnt < 16 * s:
+        s //= 2
+    return s
+
+
+def equal_shares(per_window: torch.Tensor, u: int) -> torch.Tensor:
+    """(rows, u) int64: per row, the tiles of each of u workers when each
+    window's live tiles (``per_window`` (rows, windows), on the CPU) are
+    cut into the split kernels' equal contiguous shares, [w L / u,
+    (w + 1) L / u), summed over the windows."""
+    k = torch.arange(u + 1)
+    bounds = k[None, None, :] * per_window[:, :, None] // u
+    return (bounds[..., 1:] - bounds[..., :-1]).sum(1)
+
+
 def worker_tiles(tmask: torch.Tensor, split: Tuple[int, int]) -> torch.Tensor:
     """(nnt, W S) int64: the live query tiles each worker of each Gaussian
     tile walks under ``split`` — the kernel's equal contiguous shares of
     each LIST_CAP-tile window's compacted live tiles."""
-    u = split[0] * split[1]
     live = (tmask != 0).to(torch.int64).cpu()
-    k = torch.arange(u + 1)
-    out = torch.zeros((live.shape[1], u), dtype=torch.int64)
-    for base in range(0, live.shape[0], LIST_CAP):
-        bounds = k[None, :] * live[base:base + LIST_CAP].sum(0)[:, None] // u
-        out += bounds[:, 1:] - bounds[:, :-1]
-    return out
+    per_window = torch.stack(
+        [live[b:b + LIST_CAP].sum(0)
+         for b in range(0, max(live.shape[0], 1), LIST_CAP)], 1)
+    return equal_shares(per_window, split[0] * split[1])
 
 
 def _check_split(split) -> None:
@@ -181,9 +220,25 @@ def _check_split(split) -> None:
                          f"{SPLIT_S}, got {split!r}")
 
 
+def _check_fwd_split(split) -> None:
+    if split is None:
+        return
+    if not (isinstance(split, int) and not isinstance(split, bool)
+            and split in SPLIT_S):
+        raise ValueError(f"split must be S in {SPLIT_S}, got {split!r}")
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_fwd_split(split, x, tmask) -> int:
+    """The forced split, or ``fwd_split``'s for this shape on x's card."""
+    if split is not None:
+        return split
+    return fwd_split(tmask.shape[0], tmask.shape[1],
+                     _sm_count(x.device.index))
 
 
 def _launch_split(split, x, tmask) -> Tuple[int, int]:
@@ -238,6 +293,22 @@ def _check(tmask, x, muT, ppT, values, njac, douts=()):
             raise ValueError(f"tile mask built for tiles {(B // nbt, N // nnt)}"
                              f"; the CUDA kernels use {(TB, TN)}")
     return d, vdim, B, N
+
+
+def check_rad(rad, x, N, staged=()):
+    """``rad`` (N,): the rows' dilated radii of a kernel's box test. On
+    CUDA also device, dtype, layout, and 16-byte alignment of the rows the
+    kernel reads 16 bytes at a time (``staged``, with ``rad``)."""
+    if not isinstance(rad, torch.Tensor) or tuple(rad.shape) != (N,):
+        got = tuple(rad.shape) if isinstance(rad, torch.Tensor) else rad
+        raise ValueError(f"rad must be a ({N},) tensor, got {got!r}")
+    if x.is_cuda:
+        if rad.device != x.device or rad.dtype != torch.float32 \
+                or not rad.is_contiguous():
+            raise ValueError("rad: contiguous float32 on the queries' device")
+        if any(t.data_ptr() % 16 for t in (rad,) + tuple(staged)):
+            raise ValueError("rad and the rows read 16 bytes at a time must "
+                             "be 16-byte aligned")
 
 
 # ---------------------------------------------------------------------------
@@ -436,20 +507,30 @@ def bwd_dx_plain(tmask, x, muT, ppT, values, dout, clamp: float, njac: int):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def gsr_fwd(tmask, x, muT, ppT, values, clamp: float, njac: int):
-    """(B, (1+njac)*vdim) = [val | jac_0 | ... ], jac_k[:, a] = du_a/dx_k."""
+def gsr_fwd(tmask, x, muT, ppT, values, clamp: float, njac: int, rad,
+            split=None):
+    """(B, (1+njac)*vdim) = [val | jac_0 | ... ], jac_k[:, a] = du_a/dx_k.
+    ``rad`` (N,): each row's support radius dilated by 1e-3, -1 on dead
+    and padded rows (``field.row_radius``), which the kernel's box test
+    reads; the plain version does not need it. ``split`` S forces the
+    blocks of a cluster that share a query tile, for tests and the smoke
+    run only; by default ``fwd_split`` picks it."""
+    _check_fwd_split(split)
     d, vdim, B, N = _check(tmask, x, muT, ppT, values, njac)
+    check_rad(rad, x, N, (muT, ppT, values))
     if not x.is_cuda:
         return fwd_plain(tmask, x, muT, ppT, values, clamp, njac)
     lib = _lib()
+    s = _launch_fwd_split(split, x, tmask)
     out = torch.empty((B, (1 + njac) * vdim), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.gsr_fwd(_ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
-                         _ptr(values), _ptr(out), B, N, d, vdim, njac,
-                         float(clamp), _stream(x))
+                         _ptr(rad), _ptr(values), _ptr(out), B, N, d, vdim,
+                         njac, float(clamp), s, _stream(x))
     _raise_on(rc, "gsr_fwd")
     launches["gsr_fwd"] += 1
+    fwd_shapes[(d, B, N)] = fwd_shapes.get((d, B, N), 0) + 1
     return out
 
 
@@ -574,10 +655,10 @@ class _FusedGsrCentered(torch.autograd.Function):
     ``need_dx``)."""
 
     @staticmethod
-    def forward(ctx, tmask, x, muT, ppT, values, clamp, njac):
+    def forward(ctx, tmask, x, muT, ppT, values, rad, clamp, njac):
         ctx.save_for_backward(tmask, x, muT, ppT, values)
         ctx.clamp, ctx.njac = clamp, njac
-        return gsr_fwd(tmask, x, muT, ppT, values, clamp, njac)
+        return gsr_fwd(tmask, x, muT, ppT, values, clamp, njac, rad)
 
     @staticmethod
     def backward(ctx, dout):
@@ -590,10 +671,12 @@ class _FusedGsrCentered(torch.autograd.Function):
         if any(ctx.needs_input_grad[2:5]):
             dmuT, dppT, dv = gsr_bwd_dn(tmask, x, muT, ppT, values, dout,
                                         ctx.clamp, ctx.njac)
-        return None, dx, dmuT, dppT, dv, None, None
+        return None, dx, dmuT, dppT, dv, None, None, None
 
 
-def fused_gsr_centered(tmask, x, muT, ppT, values, clamp: float, njac: int):
-    """Differentiable in (muT, ppT, values) and in x."""
-    return _FusedGsrCentered.apply(tmask, x, muT, ppT, values, float(clamp),
-                                   int(njac))
+def fused_gsr_centered(tmask, x, muT, ppT, values, clamp: float, njac: int,
+                       rad):
+    """Differentiable in (muT, ppT, values) and in x. ``rad``: the rows'
+    dilated radii of the forward's box test (``gsr_fwd``)."""
+    return _FusedGsrCentered.apply(tmask, x, muT, ppT, values, rad,
+                                   float(clamp), int(njac))

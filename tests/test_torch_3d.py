@@ -186,19 +186,20 @@ def _centered_inputs(seed):
              for _ in range(2)]
     jargs = (jnp.asarray(tmask), x_p, mu_p.T, pp_p.T, v_p)
     targs = tuple(t(a) for a in (tmask, x_p, mu_p.T, pp_p.T, v_p))
-    return jargs, targs, douts, float(spec.clamp_threshold)
+    rad = tf.row_radius(*to_torch(jm, spec), TN)
+    return jargs, targs, douts, float(spec.clamp_threshold), rad
 
 
 @pytest.mark.parametrize("njac", [0, 3])
 def test_centered_fwd_d3_matches_pallas(njac):
-    ja, ta, _, c = _centered_inputs(21)
+    ja, ta, _, c, rad = _centered_inputs(21)
     want = jk._fwd(*ja, 3, 3, c, TB, TN, njac)
-    close(tk.gsr_fwd(*ta, c, njac), want)
+    close(tk.gsr_fwd(*ta, c, njac, rad), want)
 
 
 @pytest.mark.parametrize("njac", [0, 3])
 def test_centered_bwd_dn_d3_matches_pallas(njac):
-    ja, ta, douts, c = _centered_inputs(31)
+    ja, ta, douts, c, _ = _centered_inputs(31)
     dout = douts[0][:, :(1 + njac) * 3].copy()
     _, dmuT, dppT, dv = jk._bwd(*ja, dout, 3, 3, c, TB, TN, njac,
                                 need_dx=False)
@@ -210,7 +211,7 @@ def test_centered_bwd_dn_d3_matches_pallas(njac):
 
 @pytest.mark.parametrize("use_val", [True, False])
 def test_centered_bwd_dn2_d3_matches_pallas(use_val):
-    ja, ta, douts, c = _centered_inputs(41)
+    ja, ta, douts, c, _ = _centered_inputs(41)
     want = jk.fused_gsr_centered_bwd2(*ja, *douts, 3, 3, c, TB, TN,
                                       use_val=use_val)
     got = tk.gsr_bwd_dn2(*ta, *(t(d) for d in douts), c, 3, use_val=use_val)

@@ -205,7 +205,7 @@ def test_overflowed_list_takes_the_mask_branch():
     dout = torch.as_tensor(np.random.RandomState(16).randn(
         x_p.shape[0], 12).astype(np.float32))
     got = tc.cells_bwd_dn(gt[:3].contiguous(), qt[:3].contiguous(), bad,
-                          tmask, *args, dout, c, 3)
+                          tmask, *args, dout, c, 3, rad)
     for g, w in zip(got, tk.bwd_dn_plain(tmask, *args, dout, c, 3)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
@@ -232,7 +232,7 @@ def test_cells_wrappers_validate_lists():
     with pytest.raises(ValueError):                  # radii of other rows
         tc.cells_fwd(rows, cols, ok, *args, c, 3, rad[:-64])
     with pytest.raises(ValueError):                  # cotangent rows
-        tc.cells_bwd_dn(gt, qt, ok, *args, torch.zeros(3, 12), c, 3)
+        tc.cells_bwd_dn(gt, qt, ok, *args, torch.zeros(3, 12), c, 3, rad)
     with pytest.raises(ValueError):
         tc.cells_bwd_dn2(gt, qt, ok, *args, torch.zeros(x_p.shape[0], 3),
                          torch.zeros(x_p.shape[0], 3), c, 0, use_val=False)

@@ -1,5 +1,8 @@
 """On the card only: each CUDA kernel of the port against its plain
 PyTorch version — the centered kernels at Leapfrog-2D shapes and at d = 3,
+the centered forward at every split and every shape its paths run it at,
+and the cells parameter backward at every split, with its overflow
+branch and a support edge,
 the work-list (cells) kernels at Ring-Collide shapes (B = 8192, N =
 75,776), with their overflow branch and the cells forward's support
 edge (pairs within a few 1e-6 of the clamp), and the banded value kernel
@@ -50,13 +53,13 @@ def _state(device):
 
 def _inputs(device):
     mix, spec, x = _state(device)
-    x_p, _, _, mu_p, pp_p, v_p, tmask = tf._centered_prep(
+    x_p, _, _, mu_p, pp_p, v_p, tmask, rad = tf._centered_prep(
         mix, spec, x, tk.TB, tk.TN, presorted=False)
     rng = np.random.RandomState(83)
     douts = [torch.as_tensor(rng.randn(512, 6).astype(np.float32),
                              device=device) for _ in range(2)]
     return (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
-            v_p.contiguous()), douts, spec.clamp_threshold
+            v_p.contiguous()), douts, spec.clamp_threshold, rad
 
 
 def _close(got, want):
@@ -69,14 +72,14 @@ def _close(got, want):
 
 @pytest.mark.parametrize("njac", [0, 2])
 def test_fwd_matches_plain(cuda_device, njac):
-    args, _, clamp = _inputs(cuda_device)
-    _close([tk.gsr_fwd(*args, clamp, njac)],
+    args, _, clamp, rad = _inputs(cuda_device)
+    _close([tk.gsr_fwd(*args, clamp, njac, rad)],
            [tk.fwd_plain(*args, clamp, njac)])
 
 
 @pytest.mark.parametrize("njac", [0, 2])
 def test_bwd_dn_matches_plain(cuda_device, njac):
-    args, douts, clamp = _inputs(cuda_device)
+    args, douts, clamp, _ = _inputs(cuda_device)
     dout = douts[0][:, :(1 + njac) * 2].contiguous()
     _close(tk.gsr_bwd_dn(*args, dout, clamp, njac),
            tk.bwd_dn_plain(*args, dout, clamp, njac))
@@ -84,23 +87,23 @@ def test_bwd_dn_matches_plain(cuda_device, njac):
 
 @pytest.mark.parametrize("use_val", [True, False])
 def test_bwd_dn2_matches_plain(cuda_device, use_val):
-    args, douts, clamp = _inputs(cuda_device)
+    args, douts, clamp, _ = _inputs(cuda_device)
     got = tk.gsr_bwd_dn2(*args, *douts, clamp, 2, use_val=use_val)
     want = tk.bwd_dn2_plain(*args, *douts, clamp, 2, use_val=use_val)
     _close(got[0] + got[1], want[0] + want[1])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
-    (tmask, x, muT, ppT, v), _, clamp = _inputs(cuda_device)
+    (tmask, x, muT, ppT, v), _, clamp, rad = _inputs(cuda_device)
     with pytest.raises(ValueError):          # not contiguous
         tk.gsr_fwd(tmask, x, muT, ppT, torch.cat([v, v], 1)[:, ::2], clamp,
-                   2)
+                   2, rad)
     with pytest.raises(ValueError):          # operands on two devices
-        tk.gsr_fwd(tmask, x, muT.cpu(), ppT, v, clamp, 2)
+        tk.gsr_fwd(tmask, x, muT.cpu(), ppT, v, clamp, 2, rad)
     with pytest.raises(ValueError):          # mask built for other tiles
-        tk.gsr_fwd(tmask[::2].contiguous(), x, muT, ppT, v, clamp, 2)
+        tk.gsr_fwd(tmask[::2].contiguous(), x, muT, ppT, v, clamp, 2, rad)
     with pytest.raises(ValueError):          # wrong dtype
-        tk.gsr_fwd(tmask.float(), x, muT, ppT, v, clamp, 2)
+        tk.gsr_fwd(tmask.float(), x, muT, ppT, v, clamp, 2, rad)
 
 
 def test_field_through_kernels_matches_dense(cuda_device):
@@ -159,7 +162,7 @@ def test_fwd_kernels_d3_match_plain(cuda_device, njac):
     (rows, cols, _, _, ok), args, _, clamp, rad = _inputs_3d(cuda_device)
     assert int(ok) == 1
     want = [tk.fwd_plain(*args, clamp, njac)]
-    _close([tk.gsr_fwd(*args, clamp, njac)], want)
+    _close([tk.gsr_fwd(*args, clamp, njac, rad)], want)
     _close([tc.cells_fwd(rows, cols, ok, *args, clamp, njac, rad)], want)
 
 
@@ -170,11 +173,13 @@ SPLITS = [None] + [(w, s) for w in tk.SPLIT_W for s in tk.SPLIT_S]
 @pytest.mark.parametrize("split", SPLITS)
 @pytest.mark.parametrize("njac", [0, 3])
 def test_bwd_dn_kernels_d3_match_plain(cuda_device, njac, split):
-    (_, _, gt, qt, ok), args, douts, clamp, _ = _inputs_3d(cuda_device)
+    """Rows 2 and 7 at the Ring-Collide shape, each at the split."""
+    (_, _, gt, qt, ok), args, douts, clamp, rad = _inputs_3d(cuda_device)
     dout = douts[0][:, :(1 + njac) * 3].contiguous()
     want = tk.bwd_dn_plain(*args, dout, clamp, njac)
     _close(tk.gsr_bwd_dn(*args, dout, clamp, njac, split=split), want)
-    _close(tc.cells_bwd_dn(gt, qt, ok, *args, dout, clamp, njac), want)
+    _close(tc.cells_bwd_dn(gt, qt, ok, *args, dout, clamp, njac, rad,
+                           split=split), want)
 
 
 @pytest.mark.parametrize("split", SPLITS)
@@ -202,7 +207,7 @@ def _split_inputs(device, d, n_queries=8192, seed=87):
                                           n_queries=n_queries)
     else:
         mix, spec, x = leapfrog_state(device, seed=seed)
-    x_p, _, _, mu_p, pp_p, v_p, tmask = tf._centered_prep(
+    x_p, _, _, mu_p, pp_p, v_p, tmask, _ = tf._centered_prep(
         mix, spec, x, tk.TB, tk.TN, presorted=True)
     rng = np.random.RandomState(seed + 1)
     cols = (1 + d) * d
@@ -298,6 +303,165 @@ def test_bwd_split_refused_before_launch(cuda_device):
     assert not any(tk.launches.values())
 
 
+# ---- the centered forward (row 1): staged, box-tested, split ----
+
+# every shape the main paths run the forward at: d = 2 Leapfrog-2D (B =
+# 512, and 4096, the 2D test grid's chunk) and Karman-2D (B = 512); d = 3
+# Leapfrog-3D (N = 1024; B = 8192, and 32,768, the 3D test grid's chunk)
+# and Ring-Collide (N = 75,776) at the batches of the epochs and the test
+# grids (4096, 8192, 32,768)
+FWD_SHAPES = ["leapfrog_2d", "leapfrog_2d_4096", "karman_2d", "leapfrog_3d",
+              "leapfrog_3d_32768", "ring_collide_4096", "ring_collide_8192",
+              "ring_collide_32768"]
+FWD_SPLITS = [None] + list(tk.SPLIT_S)
+
+
+def _fwd_inputs(device, shape, seed=111):
+    """Row 1's inputs at one of FWD_SHAPES on a seeded state, sorted as
+    the solver keeps its batches, with the rows' radii."""
+    scene, n = shape.rsplit("_", 1) if shape[-1].isdigit() else (shape, "")
+    if scene == "leapfrog_2d":
+        mix, spec, x = leapfrog_state(device, seed=seed)
+        if n:
+            q = np.random.RandomState(seed).uniform(-5, 5, (int(n), 2))
+            x = torch.as_tensor(q[np.argsort(q[:, 0])].astype(np.float32),
+                                device=device)
+    elif scene == "karman_2d":
+        mix, spec, x = karman_state(device, seed=seed)
+    elif scene == "leapfrog_3d":
+        mix, spec, x = ring_collide_state(device, seed=seed, side=10,
+                                          n_queries=int(n or 8192))
+    else:   # ring_collide_<B>
+        mix, spec, x = ring_collide_state(device, seed=seed,
+                                          n_queries=int(n))
+    x_p, _, _, mu_p, pp_p, v_p, tmask, rad = tf._centered_prep(
+        mix, spec, x, tk.TB, tk.TN, presorted=True)
+    return (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+            v_p.contiguous()), rad, spec.clamp_threshold
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES)
+def test_fwd_split_matches_plain(cuda_device, shape):
+    """Row 1 at every split (the chosen one first) against the plain twin,
+    with and without the Jacobian: 1e-4 of the largest reference entry,
+    and two launches at one split bitwise equal; launches counted by
+    shape."""
+    args, rad, clamp = _fwd_inputs(cuda_device, shape)
+    d, B, N = args[1].shape[1], args[1].shape[0], args[2].shape[1]
+    tk.reset_launches()
+    for njac in (d, 0):
+        want = tk.fwd_plain(*args, clamp, njac)
+        assert float(want.abs().max()) > 0
+        for split in FWD_SPLITS:
+            a, b = (tk.gsr_fwd(*args, clamp, njac, rad, split=split)
+                    for _ in range(2))
+            assert torch.equal(a, b), (njac, split)
+            _close([a], [want])
+    assert tk.fwd_shapes == {(d, B, N): 4 * len(FWD_SPLITS)}
+
+
+def test_fwd_support_edge_matches_plain(cuda_device):
+    """Pairs with g within 1e-6 relative of the clamp, inside and outside,
+    through row 1 at every split: its box test only skips, and its
+    geometry rounds as the plain version's, so both put every such pair on
+    the same side of the support."""
+    mix, spec, _ = ring_collide_state(cuda_device, seed=108, side=10)
+    x, rel = _support_edge_queries(mix, spec)
+    edge = rel[np.abs(rel) <= 1e-6]
+    assert (edge < 0).sum() >= 8 and (edge > 0).sum() >= 8
+    x_p, _, _, mu_p, pp_p, v_p, tmask, rad = tf._centered_prep(
+        mix, spec, x, tk.TB, tk.TN, presorted=True)
+    args = (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+            v_p.contiguous())
+    c = spec.clamp_threshold
+    for nj in (0, 3):
+        want = tk.fwd_plain(*args, c, nj)
+        for split in FWD_SPLITS:
+            _close([tk.gsr_fwd(*args, c, nj, rad, split=split)], [want])
+
+
+def test_fwd_refuses_radii_and_splits_before_launch(cuda_device):
+    args, rad, clamp = _fwd_inputs(cuda_device, "leapfrog_2d")
+    tk.reset_launches()
+    for bad in (rad[:-64], rad.cpu(), rad.double(),
+                torch.cat([rad[:1], rad])[1:]):   # the last not 16-aligned
+        with pytest.raises(ValueError, match="rad"):
+            tk.gsr_fwd(*args, clamp, 2, bad)
+    for bad in (0, 3, 16, (2, 1)):
+        with pytest.raises(ValueError, match="split"):
+            tk.gsr_fwd(*args, clamp, 2, rad, split=bad)
+    assert not any(tk.launches.values()) and not tk.fwd_shapes
+
+
+# ---- the cells parameter backward (row 7): split, box-tested ----
+
+def _cells_bwd(args, lists, dout, clamp, njac, use_val, rad=None, **kw):
+    """Row 7 through the kernel (with ``rad``) or, without, its plain
+    twin; the outputs as a list."""
+    gt, qt, ok = lists
+    if rad is None:
+        return list(tc.cells_bwd_dn_plain(gt, qt, ok, *args, dout, clamp,
+                                          njac, use_val))
+    return list(tc.cells_bwd_dn(gt, qt, ok, *args, dout, clamp, njac, rad,
+                                use_val, **kw))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_cells_bwd_split_matches_plain(cuda_device, mode):
+    """Row 7 on the seeded Ring-Collide state at every split, with and
+    without the Jacobian and the value cotangent, and on the overflow
+    branch (the list flagged overflowed and cut short: the kernel sweeps
+    the mask column): 1e-4 of the largest reference entry, two launches at
+    one split bitwise equal."""
+    (_, _, gt, qt, ok), args, douts, clamp, rad = _inputs_3d(cuda_device)
+    njac, use_val = mode[0] * 3, mode[1]
+    dout = douts[0][:, :(1 + njac) * 3].contiguous()
+    bad = (gt[:5].contiguous(), qt[:5].contiguous(), torch.zeros_like(ok))
+    want = _cells_bwd(args, (gt, qt, ok), dout, clamp, njac, use_val)
+    tc.reset_launches()
+    for lists in ((gt, qt, ok), bad):
+        for split in SPLITS:
+            a, b = (_cells_bwd(args, lists, dout, clamp, njac, use_val, rad,
+                               split=split) for _ in range(2))
+            assert all(torch.equal(p, q) for p, q in zip(a, b)), split
+            _close(a, want)
+    assert tc.overflows()["cells_bwd_dn"] == 2 * len(SPLITS)
+
+
+def test_cells_bwd_support_edge_matches_plain(cuda_device):
+    """Row 7 against queries whose pairs sit within 1e-6 relative of the
+    clamp, at every split: the box test on the Gaussian's own radius only
+    skips, and the kept pairs' geometry rounds as the plain twin's."""
+    mix, spec, _ = ring_collide_state(cuda_device, seed=108, side=10)
+    x, _ = _support_edge_queries(mix, spec)
+    x_p, _, tmask, (_, _, gt, qt, ok), rad = tf._cells_prep(mix, spec, x)
+    mu_p, pp_p, v_p = tf._padded_param_rows(mix, spec, tc.TN)
+    args = (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+            v_p.contiguous())
+    dout = torch.as_tensor(np.random.RandomState(112).randn(
+        x_p.shape[0], 12).astype(np.float32), device=cuda_device)
+    c = spec.clamp_threshold
+    for njac, use_val in ((3, True), (3, False), (0, True)):
+        d_ = dout[:, :(1 + njac) * 3].contiguous()
+        want = _cells_bwd(args, (gt, qt, ok), d_, c, njac, use_val)
+        for split in SPLITS:
+            _close(_cells_bwd(args, (gt, qt, ok), d_, c, njac, use_val, rad,
+                              split=split), want)
+
+
+def test_cells_bwd_refuses_radii_and_splits_before_launch(cuda_device):
+    (_, _, gt, qt, ok), args, douts, clamp, rad = _inputs_3d(cuda_device)
+    tc.reset_launches()
+    for bad in (rad[:-64], rad.cpu(), rad.double()):
+        with pytest.raises(ValueError, match="rad"):
+            tc.cells_bwd_dn(gt, qt, ok, *args, douts[0], clamp, 3, bad)
+    for bad in ((3, 1), (1, 16), (0, 0)):
+        with pytest.raises(ValueError, match="split"):
+            tc.cells_bwd_dn(gt, qt, ok, *args, douts[0], clamp, 3, rad,
+                            split=bad)
+    assert not any(tc.launches.values())
+
+
 def test_cells_overflow_branch_sweeps_the_mask(cuda_device):
     """Flagged as overflowed, every cells kernel ignores its (here
     truncated) list and sweeps the whole fine mask: the same result, and
@@ -309,7 +473,7 @@ def test_cells_overflow_branch_sweeps_the_mask(cuda_device):
     tc.reset_launches()
     _close([tc.cells_fwd(rows, cols, bad, *args, clamp, 3, rad)],
            [tk.fwd_plain(*args, clamp, 3)])
-    _close(tc.cells_bwd_dn(gt, qt, bad, *args, douts[0], clamp, 3),
+    _close(tc.cells_bwd_dn(gt, qt, bad, *args, douts[0], clamp, 3, rad),
            tk.bwd_dn_plain(*args, douts[0], clamp, 3))
     got = tc.cells_bwd_dn2(gt, qt, bad, *args, *douts, clamp, 3)
     want = tk.bwd_dn2_plain(*args, *douts, clamp, 3)
@@ -559,7 +723,7 @@ def _inputs_dx(device, d):
         mix, spec, x = karman_state(device, seed=101)
     else:
         mix, spec, x = ring_collide_state(device, seed=102, side=10)
-    x_p, _, _, mu_p, pp_p, v_p, tmask = tf._centered_prep(
+    x_p, _, _, mu_p, pp_p, v_p, tmask, _ = tf._centered_prep(
         mix, spec, x, tk.TB, tk.TN, presorted=True)
     dout = torch.as_tensor(np.random.RandomState(103).randn(
         x_p.shape[0], (1 + d) * d).astype(np.float32), device=device)
@@ -589,7 +753,7 @@ def _karman_heads_inputs(device, n_bnd=3072):
     xb[: n_bnd // 2, 1] = lo[1]
     xb = torch.as_tensor(xb[np.argsort(xb[:, 0])], device=device)
     xc = torch.cat([tf._pad_axis(x, tk.TB), xb])
-    x_p, _, _, mu_p, pp_p, v_p, tmask = tf._centered_prep(
+    x_p, _, _, mu_p, pp_p, v_p, tmask, _ = tf._centered_prep(
         mix, spec, xc, tk.TB, tk.TN, presorted=True)
     B = x_p.shape[0]
     douts = [torch.zeros((B, 6), device=device) for _ in range(2)]

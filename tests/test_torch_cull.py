@@ -78,6 +78,16 @@ def test_cells_prep_radius_is_row_radius():
                                rtol=0, atol=0)
 
 
+def test_centered_prep_radius_is_row_radius():
+    """The same for the centered path's prep, whose radii the centered
+    forward's box test reads."""
+    mix, spec, x = ring_collide_state("cpu", side=10)
+    mix.alive[:5] = False
+    rad = tf._centered_prep(mix, spec, x[:300], 8, tb.TN, False)[7]
+    torch.testing.assert_close(rad, tf.row_radius(mix, spec, tb.TN),
+                               rtol=0, atol=0)
+
+
 def test_row_radius_is_the_dilated_support_radius():
     mix, spec, _ = ring_collide_state("cpu", side=10)
     mix.alive[:7] = False
@@ -142,3 +152,38 @@ def test_dead_and_far_rows_fail_every_box():
     in_box = ((q[:, None, :] - tf._pad_axis(mix.positions, tb.TN)[None])
               .abs() <= rad[None, :, None]).all(-1)
     assert not bool(in_box[:, :64].any()) and not bool(in_box[:, 100:].any())
+
+
+@pytest.mark.parametrize("which", ["seeded", "checkpoint"])
+def test_backward_box_misses_hold_no_support(which):
+    """The cells backward's view (row 7): each Gaussian against the query
+    tiles of its run of the transposed work list, on a training batch
+    laid out as ``_cells_prep`` lays it out. Every pair whose query lies
+    outside the Gaussian's own box (the prep's ``rad``) has float64
+    g < c, and the pairs kept hold every pair with g >= c (there are
+    such pairs)."""
+    mix, spec = _state(which)
+    c = spec.clamp_threshold
+    x = np.random.RandomState(6).uniform(0, 1, (8192, 3)).astype(np.float32)
+    x = torch.as_tensor(x[np.argsort(x[:, 0], kind="stable")])
+    x_p, _, tmask, (_, _, gt, qt, ok), rad = tf._cells_prep(mix, spec, x)
+    assert int(ok) == 1
+    mu = tf._pad_axis(mix.positions, tb.TN)
+    P = precision_matrix(mix.scalings.double(), mix.rotations.double(), 3)
+    live = tf.in_domain_mask(mix, spec)
+    kept_support = 0
+    runs = torch.unique(gt[qt >= 0])
+    for j in runs[::max(len(runs) // 24, 1)].tolist():
+        qtiles = qt[(gt == j) & (qt >= 0)].long()
+        q = x_p.reshape(-1, 8, 3)[qtiles].reshape(-1, 3)
+        n = torch.arange(j * tb.TN, min((j + 1) * tb.TN, mix.capacity))
+        dx = q.double()[:, None] - mix.positions[n].double()[None]
+        g = torch.exp(-0.5 * torch.einsum("bni,nij,bnj->bn", dx, P[n], dx))
+        g = torch.where(live[n][None], g, 0.0)
+        in_box = ((q[:, None, :] - mu[n][None]).abs()
+                  <= rad[n][None, :, None]).all(-1)
+        assert _max(g[~in_box]) < c
+        support = g >= c
+        assert bool(in_box[support].all())
+        kept_support += int(support.sum())
+    assert kept_support > 0

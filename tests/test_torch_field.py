@@ -64,7 +64,7 @@ def test_prep_rows_and_tile_mask_match(tb, tn):
     jm, spec, tm, ts, x = _setup(n=700, b=250, seed=2)
     jx, _, jinv, jmu, jpp, jv, jmask = jf._centered_prep(
         jm, spec, jnp.asarray(x), tb, tn, presorted=False)
-    tx, _, tinv, tmu, tpp, tv, tmask = tf._centered_prep(
+    tx, _, tinv, tmu, tpp, tv, tmask, _ = tf._centered_prep(
         tm, ts, t(x), tb, tn, presorted=False)
     np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
     np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))

@@ -35,6 +35,7 @@ def _inputs(b=512, n=700, seed=11, zero_tile=True):
     x = np.random.RandomState(seed + 1).uniform(-5, 5, (b, 2))
     x_p, _, _, mu_p, pp_p, v_p, tmask = jfield._centered_prep(
         mix, spec, jnp.asarray(x, jnp.float32), TB, TN, presorted=False)
+    rad = tfield.row_radius(*to_torch(mix, spec), TN)
     tmask = np.asarray(tmask).copy()
     if zero_tile:
         i, j = np.argwhere(tmask)[len(np.argwhere(tmask)) // 2]
@@ -43,7 +44,7 @@ def _inputs(b=512, n=700, seed=11, zero_tile=True):
     douts = [rng.randn(x_p.shape[0], 6).astype(np.float32) for _ in range(2)]
     return dict(tmask=tmask, x=np.asarray(x_p), muT=np.asarray(mu_p.T),
                 ppT=np.asarray(pp_p.T), v=np.asarray(v_p), douts=douts,
-                clamp=float(spec.clamp_threshold))
+                clamp=float(spec.clamp_threshold), rad=rad)
 
 
 def _torch(a):
@@ -58,7 +59,7 @@ def test_fwd_plain_matches_pallas(njac):
                    a["v"], 2, 2, a["clamp"], TB, TN, njac)
     b = _torch(a)
     got = tk.gsr_fwd(b["tmask"], b["x"], b["muT"], b["ppT"], b["v"],
-                     a["clamp"], njac)
+                     a["clamp"], njac, b["rad"])
     assert got.shape == want.shape == (512, (1 + njac) * 2)
     close(got, want, 1e-5)
 
@@ -98,7 +99,8 @@ def test_masked_tiles_contribute_nothing():
     a = _inputs(seed=41, zero_tile=False)
     b = _torch(a)
     none = torch.zeros_like(b["tmask"])
-    out = tk.gsr_fwd(none, b["x"], b["muT"], b["ppT"], b["v"], a["clamp"], 2)
+    out = tk.gsr_fwd(none, b["x"], b["muT"], b["ppT"], b["v"], a["clamp"], 2,
+                     b["rad"])
     assert torch.count_nonzero(out) == 0
     dmuT, dppT, dv = tk.gsr_bwd_dn(none, b["x"], b["muT"], b["ppT"], b["v"],
                                    t(a["douts"][0]), a["clamp"], 2)
@@ -152,11 +154,12 @@ def test_wrappers_validate_shapes():
     b = _torch(_inputs(seed=61))
     args = (b["tmask"], b["x"], b["muT"], b["ppT"], b["v"])
     with pytest.raises(ValueError):
-        tk.gsr_fwd(*args[:1], b["x"][:, :1], *args[2:], b["clamp"], 2)
+        tk.gsr_fwd(*args[:1], b["x"][:, :1], *args[2:], b["clamp"], 2,
+                   b["rad"])
     with pytest.raises(ValueError):
-        tk.gsr_fwd(b["tmask"][:3], *args[1:], b["clamp"], 2)
+        tk.gsr_fwd(b["tmask"][:3], *args[1:], b["clamp"], 2, b["rad"])
     with pytest.raises(ValueError):
-        tk.gsr_fwd(*args, b["clamp"], 1)
+        tk.gsr_fwd(*args, b["clamp"], 1, b["rad"])
     with pytest.raises(ValueError):
         tk.gsr_bwd_dn(*args, torch.zeros(3, 6), b["clamp"], 2)
     with pytest.raises(ValueError):
@@ -167,7 +170,8 @@ def test_wrappers_validate_shapes():
 def test_plain_path_counts_no_launches():
     tk.reset_launches()
     b = _torch(_inputs(seed=71))
-    tk.gsr_fwd(b["tmask"], b["x"], b["muT"], b["ppT"], b["v"], b["clamp"], 2)
+    tk.gsr_fwd(b["tmask"], b["x"], b["muT"], b["ppT"], b["v"], b["clamp"], 2,
+               b["rad"])
     assert tk.launches == {k: 0 for k in ("gsr_fwd", "gsr_bwd_dn",
                                           "gsr_bwd_dn2", "gsr_bwd_dx",
                                           "gsr_bwd_dn3")}
