@@ -24,9 +24,11 @@ Phases, each printing one JSON line with its wall seconds:
                 the Ring-Collide test grid's other batches (B=4096, the 2D
                 projection's test chunk, and 32,768, the 3D path's) — and
                 the three work-list (cells) kernels at Ring-Collide shapes,
-                d=vdim=3, against their plain versions (the cells forward's
-                overflow branch too), the parameter backward (row 7) at
-                every split (W, S) with row 6 timed on the same inputs,
+                d=vdim=3, against their plain versions (the overflow
+                branch of the cells forward and of row 6 too), the
+                parameter backwards (rows 7 and 6, one kernel over one or
+                two cotangent blocks) each at every split (W, S), both
+                variants, two launches bitwise equal, each split timed,
                 with the live-pair count, the live tile fraction, and the
                 box-tested pairs against the pairs whose geometry the box
                 tests let through
@@ -46,7 +48,10 @@ Phases, each printing one JSON line with its wall seconds:
                 kernel again at Leapfrog-3D shapes (N=1024; B=1024 as the
                 path's query_grad runs it, and B=8192), each against its
                 plain version; the forward (row 1) at Karman-2D shapes at
-                every split
+                every split; the fused RK4 kernel at every split S, two
+                launches bitwise equal, each split timed, with the
+                Gaussian tiles its box test lets through at each stage
+                and the pairs they hold
   initialize    the leapfrog scene fitted at 71x71 = 5041 Gaussians through
                 the entry point ``gaussian_fluids_torch.initialize2d``
   advance       two frames (clone -> advect -> project) at dt .025 through
@@ -95,11 +100,12 @@ Phases, each printing one JSON line with its wall seconds:
                 Leapfrog-3D mixture (frame 1) and a seeded batch of 8192
                 points in its domain: every split against the plain
                 version, each split timed
-  kernels_fitted_rc  rows 1 and 7 on the fitted Ring-Collide mixture
-                (frame 1): row 7 (and row 6, timed) on a seeded training
-                batch of 8192 points at every split against the plain
-                version; row 1 on that batch and on the middle 32,768-node
-                chunk of the scene's 128^3 test grid at every split
+  kernels_fitted_rc  rows 1, 6 and 7 on the fitted Ring-Collide mixture
+                (frame 1): rows 7 and 6 on a seeded training batch of
+                8192 points at every split against the plain version,
+                each split timed; row 1 on that batch and on the middle
+                32,768-node chunk of the scene's 128^3 test grid at every
+                split
   density3d     the smoke replay through ``gaussian_fluids_torch.advance_density3d``
                 (--density_res_multiplier 1: 128^3 nodes) on ring_collide's
                 checkpoints 0 and 1: densities a and b, two steps each, .vti
@@ -460,41 +466,61 @@ def fwd_shape_entry(args, rad, clamp, plain_reps=PLAIN_LAUNCHES_3D):
 
 
 def cells_split_report(lt, args, rad, clamp, douts):
-    """Row 7 at one state, split along each run: both variants (njac = 3
-    with the value cotangent, njac = 0) at the chosen split and at every
-    split the kernel takes against the plain twin (TOL), two launches of
-    each bitwise equal; the main variant timed at every split in this
-    call; the chosen split, its blocks and the live query tiles per
-    worker (mean, max); row 6 timed on the same inputs."""
+    """Rows 7 and 6, the cells parameter backwards (one kernel over one or
+    two cotangent blocks), at one state, split along each run: each row's
+    variants (row 7: njac = 3 with the value cotangent, and njac = 0; row
+    6: njac = 3 with and without the value cotangents) at the chosen split
+    and at every split the kernel takes against the plain twin (TOL), two
+    launches of each bitwise equal; the main variant timed at every split
+    in this call; the chosen split, its blocks and the live query tiles per
+    worker (mean, max)."""
     from gaussian_fluids_torch.ops import gsr_cells as gk
     from gaussian_fluids_torch.ops import gsr_centered as gc
     tmask = args[0]
     splits = [None] + [(w, s) for w in gc.SPLIT_W for s in gc.SPLIT_S]
-    errs = []
-    for nj, dout in ((3, douts[0]), (0, douts[0][:, :3].contiguous())):
-        want = gk.cells_bwd_dn_plain(*lt, *args, dout, clamp, nj)
-        for sp in splits:
-            a, b = (list(gk.cells_bwd_dn(*lt, *args, dout, clamp, nj, rad,
-                                         split=sp)) for _ in range(2))
-            if not all(torch.equal(p, q) for p, q in zip(a, b)):
-                raise AssertionError(f"cells_bwd_dn[{nj}] at split {sp}: "
-                                     f"two launches differ")
-            errs.append(compare(f"cells_bwd_dn[{nj}, {_split_key(sp)}]", a,
-                                list(want), TOL)[1])
-    torch.cuda.synchronize()
-    ms = {_split_key(sp): time_ms(lambda sp=sp: gk.cells_bwd_dn(
-        *lt, *args, douts[0], clamp, 3, rad, split=sp)) for sp in splits}
-    row6 = time_ms(lambda: gk.cells_bwd_dn2(*lt, *args, *douts, clamp, 3))
+    rows = {
+        "cells_bwd_dn": [
+            (lambda sp, o=o, nj=nj: list(gk.cells_bwd_dn(
+                *lt, *args, o, clamp, nj, rad, split=sp)),
+             lambda o=o, nj=nj: list(gk.cells_bwd_dn_plain(
+                 *lt, *args, o, clamp, nj)))
+            for nj, o in ((3, douts[0]), (0, douts[0][:, :3].contiguous()))],
+        "cells_bwd_dn2": [
+            (lambda sp, uv=uv: _flat(gk.cells_bwd_dn2(
+                *lt, *args, *douts, clamp, 3, rad, use_val=uv, split=sp)),
+             lambda uv=uv: _flat(gk.cells_bwd_dn2_plain(
+                 *lt, *args, *douts, clamp, 3, use_val=uv)))
+            for uv in (True, False)],
+    }
     chosen = gc.bwd_split(*tmask.shape, gc._sm_count(0))
     shares = gk.run_worker_tiles(*lt, tmask, chosen).double()
-    return {"split": list(chosen), "blocks": tmask.shape[1] * chosen[1],
+    out = {}
+    for name, variants in rows.items():
+        errs = []
+        for i, (kern, plain) in enumerate(variants):
+            want = plain()
+            for sp in splits:
+                a, b = kern(sp), kern(sp)
+                if not all(torch.equal(p, q) for p, q in zip(a, b)):
+                    raise AssertionError(f"{name}[{i}] at split {sp}: two "
+                                         f"launches differ")
+                errs.append(compare(f"{name}[{i}, {_split_key(sp)}]", a,
+                                    want, TOL)[1])
+        torch.cuda.synchronize()
+        kern = variants[0][0]
+        ms = {_split_key(sp): time_ms(lambda sp=sp: kern(sp))
+              for sp in splits}
+        out[name] = {
+            "split": list(chosen), "blocks": tmask.shape[1] * chosen[1],
             "threads_per_block": gc.TN * chosen[0],
             "worker_tiles_mean": float(shares.mean()),
             "worker_tiles_max": int(shares.max()),
             "ms": ms["chosen"], "ms_1x1": ms["1x1"], "ms_by_split": ms,
-            "row6_ms_same_inputs": row6,
-            "splits_checked": len(splits) * 2,
+            "best_split": min((k for k in ms if k != "chosen"),
+                              key=ms.get),
+            "splits_checked": len(splits) * len(variants),
             "max_rel_err_splits": max(errs), "bitwise_repeat": True}
+    return out
 
 
 def kernel_phase(device):
@@ -637,13 +663,13 @@ def kernels_fitted_3d(mix, spec, device, n_queries=8192):
 
 
 def kernels_fitted_rc(mix, spec, device, n_queries=8192):
-    """Rows 1 and 7 on the fitted Ring-Collide mixture (the 3D path's
-    frame-1 checkpoint). Row 7 on one training batch of the scene's size
-    (8192 uniform points in its domain, sorted along x as the epochs sort
-    them): every split against the plain twin, each split timed, row 6 on
-    the same inputs. Row 1 on that batch and on the middle 32,768-node
-    chunk of the scene's 128^3 test grid (x-major, as the projection
-    evaluates it), every split."""
+    """Rows 1, 6 and 7 on the fitted Ring-Collide mixture (the 3D path's
+    frame-1 checkpoint). Rows 7 and 6 on one training batch of the
+    scene's size (8192 uniform points in its domain, sorted along x as the
+    epochs sort them): every split against the plain twin, each split
+    timed. Row 1 on that batch and on the middle 32,768-node chunk of the
+    scene's 128^3 test grid (x-major, as the projection evaluates it),
+    every split."""
     from gaussian_fluids_torch.ops import field, gsr_cells as gk
     from gaussian_fluids_torch.ops import gsr_centered as gc
     from gaussian_fluids_torch.scenes import get_scene_3d
@@ -673,14 +699,16 @@ def kernels_fitted_rc(mix, spec, device, n_queries=8192):
     args = (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
             v_p.contiguous())
     dout, _ = _douts_3d(x_p.shape[0], 16, device)
-    rep = cells_split_report((gt, qt, ok), args, rad, clamp, dout)
-    out["cells_bwd_dn"] = {
-        **rep, "B": x_p.shape[0], "N": args[2].shape[1],
+    common = {
+        "B": x_p.shape[0], "N": args[2].shape[1],
         "live_tile_fraction": float(tmask.float().mean()),
         "walked_pairs": int(tmask.sum()) * gk.TB * gk.TN,
         "support_pairs": _support_pairs(gc, tmask, x_p, args[2], args[3], 3,
                                         clamp),
         "box_pairs": _box_pairs(tmask, x_p, args[2], rad, gk.TB, gk.TN)}
+    for name, rep in cells_split_report((gt, qt, ok), args, rad, clamp,
+                                        dout).items():
+        out[name] = {**rep, **common}
     return out
 
 
@@ -762,7 +790,7 @@ def kernel_phase_3d(device):
         "cells_bwd_dn2": ("cells", "bwd_dn2",
             [pair(lambda uv=uv: gk.cells_bwd_dn2(
                 *lt, tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 3,
-                use_val=uv),
+                rad, use_val=uv),
                   lambda uv=uv: gk.cells_bwd_dn2_plain(
                 *lt, tmask, x_p, muT, ppT, v, dout[0], dout[1], clamp, 3,
                 use_val=uv))
@@ -777,6 +805,12 @@ def kernel_phase_3d(device):
                 [gk.cells_fwd(rows, cols, bad, tmask, x_p, muT, ppT, v,
                               clamp, nj, rad)],
                 [gc.fwd_plain(tmask, x_p, muT, ppT, v, clamp, nj)], TOL)
+    compare("cells_bwd_dn2[overflow,2x4]",
+            _flat(gk.cells_bwd_dn2(gt, qt, bad, tmask, x_p, muT, ppT, v,
+                                   dout[0], dout[1], clamp, 3, rad,
+                                   split=(2, 4))),
+            _flat(gc.bwd_dn2_plain(tmask, x_p, muT, ppT, v, dout[0],
+                                   dout[1], clamp, 3)), TOL)
     # the centered kernels at d = 3 where they run (Leapfrog-3D), and at
     # Ring-Collide shapes as a second number
     lmix, lspec, lx = ring_collide_state(device, side=10)
@@ -834,8 +868,9 @@ def kernel_phase_3d(device):
     cstats = _run_cases(cells, 3, live_pairs, support_pairs, par_bytes,
                         PLAIN_LAUNCHES_3D)
     cstats["cells_fwd"].update(box_pairs=box_pairs)
-    cstats["cells_bwd_dn"].update(split=cells_split_report(
-        lt, (tmask, x_p, muT, ppT, v), rad, clamp, dout))
+    for name, rep in cells_split_report(lt, (tmask, x_p, muT, ppT, v), rad,
+                                        clamp, dout).items():
+        cstats[name].update(split=rep)
     for s_ in cstats.values():
         s_.update(shape="Ring-Collide", B=B, N=N,
                   live_tile_fraction=live_tiles / tmask.numel())
@@ -868,6 +903,16 @@ def _rk4_stage_points(x, muT, ppT, v, dt, clamp):
     vs.append(fwd_plain(live, pts[-1], muT, ppT, v, clamp, 0))
     pts.append(x + dt / 6.0 * (vs[0] + 2.0 * vs[1] + 2.0 * vs[2] + vs[3]))
     return pts
+
+
+def _rk4_stage_tiles(pts, lo, hi):
+    """(B/TB, nnt) bool: the Gaussian tiles whose boxes (lo, hi) meet each
+    query tile's box at one stage's positions, the tiles the fused RK4
+    kernel walks there."""
+    from gaussian_fluids_torch.ops import rk4_fused as rk
+    tiles = rk.pad_queries(pts).reshape(-1, rk.TB, pts.shape[1])
+    return ((lo[None] <= tiles.amax(1)[:, :, None])
+            & (hi[None] >= tiles.amin(1)[:, :, None])).all(1)
 
 
 def karman_boundary_rows(scene, gen, n, device):
@@ -996,25 +1041,65 @@ def kernel_phase_rest(device):
                          "support_pairs_data": sup_d,
                          "support_pairs_boundary": sup_b}
 
-    # kernel 9: the covector target's backtrace over -dt, every pair
+    # kernel 9: the covector target's backtrace over -dt, each stage
+    # culled at its own positions: walked pairs are those of the Gaussian
+    # tiles whose boxes meet the stage's query tile box
     dt = -KARMAN_DT
+    rad = field.row_radius(mix, spec, gc.TN)
+    lo, hi = rk.tile_boxes(muT, rad)
     pts = _rk4_stage_points(x, muT, ppT, v, dt, clamp)
     ones = torch.ones((x.shape[0], 1), dtype=torch.int32, device=device)
     sup = [_support_pairs(gc, ones, p_, muT, ppT, 2, clamp) for p_ in pts]
-    pairs = x.shape[0] * N
+    meets = [_rk4_stage_tiles(p_, lo, hi) for p_ in pts]
+    walked = [int(m.sum()) * rk.TB * rk.TN for m in meets]
     stage_ops = [pair_ops(OPS_GEOMETRY[2], OPS_SUPPORT[(2, "rk4_stage")],
-                          pairs, n) for n in sup[:4]] \
-        + [pair_ops(OPS_GEOMETRY[2], OPS_SUPPORT[(2, "fwd")], pairs, sup[4])]
+                          w_, n) for w_, n in zip(walked[:4], sup[:4])] \
+        + [pair_ops(OPS_GEOMETRY[2], OPS_SUPPORT[(2, "fwd")], walked[4],
+                    sup[4])]
+    variants = [(lambda nj=nj: rk.fused_rk4(x, muT, ppT, v, dt, clamp, nj,
+                                            rad, lo, hi),
+                 lambda nj=nj: rk.rk4_plain(x, muT, ppT, v, dt, clamp, nj))
+                for nj in (2, 0)]
     entry("rk4_fused", "rk4",
-          tuple(sum(o[i] for o in stage_ops) for i in range(2)),
-          [(lambda nj=nj: rk.fused_rk4(x, muT, ppT, v, dt, clamp, nj),
-            lambda nj=nj: rk.rk4_plain(x, muT, ppT, v, dt, clamp, nj))
-           for nj in (2, 0)],
+          tuple(sum(o[i] for o in stage_ops) for i in range(2)), variants,
           4 * x.numel() + par_bytes + 4 * x.shape[0] * (2 + 6),
-          5 * pairs, sum(sup))
-    shapes["rk4_fused"] = {"B": x.shape[0], "N": N, "dt": dt,
-                           "pairs_per_stage": pairs,
-                           "support_pairs_per_stage": sup}
+          sum(walked), sum(sup))
+    # every split S against the plain twin, two launches bitwise equal,
+    # each split timed
+    splits = [None] + list(gc.SPLIT_S)
+    errs = []
+    for nj in (2, 0):
+        want = rk.rk4_plain(x, muT, ppT, v, dt, clamp, nj)
+        for sp in splits:
+            a, b = (rk.fused_rk4(x, muT, ppT, v, dt, clamp, nj, rad, lo, hi,
+                                 split=sp) for _ in range(2))
+            if not all(torch.equal(p_, q_) for p_, q_ in zip(a, b)):
+                raise AssertionError(f"rk4_fused[{nj}] at split {sp}: two "
+                                     f"launches differ")
+            errs.append(compare(f"rk4_fused[{nj}, S={_fwd_key(sp)}]", a,
+                                want, TOL)[1])
+    torch.cuda.synchronize()
+    ms = {_fwd_key(sp): time_ms(lambda sp=sp: rk.fused_rk4(
+        x, muT, ppT, v, dt, clamp, 2, rad, lo, hi, split=sp))
+        for sp in splits}
+    chosen = gc.fwd_split(x.shape[0] // rk.TB, N // rk.TN, gc._sm_count(0))
+    pairs = x.shape[0] * N
+    stats["rk4_fused"]["split"] = {
+        "split": chosen, "blocks": x.shape[0] // rk.TB * chosen,
+        "ms": ms["chosen"], "ms_1": ms["1"], "ms_by_split": ms,
+        "best_split": min((k for k in ms if k != "chosen"), key=ms.get),
+        "splits_checked": 2 * len(splits),
+        "max_rel_err_splits": max(errs), "bitwise_repeat": True}
+    shapes["rk4_fused"] = {
+        "B": x.shape[0], "N": N, "dt": dt, "pairs_per_stage": pairs,
+        "tile_pairs_per_stage": meets[0].numel(),
+        "live_tiles_per_stage": [int(m.sum()) for m in meets],
+        "walked_pairs_per_stage": walked,
+        "walked_fraction": sum(walked) / (5 * pairs),
+        "box_pairs_per_stage": [
+            _box_pairs(m.to(torch.int32), p_, muT, rad, rk.TB, rk.TN)
+            for m, p_ in zip(meets, pts)],
+        "support_pairs_per_stage": sup}
     return stats, shapes
 
 
@@ -1919,7 +2004,8 @@ def main():
     stats3["gsr_fwd[d=3]"]["launches_by_shape"] = shapes_3d
     stats3["gsr_fwd[d=3]"]["fitted_ring_collide"] = {
         k: fitted_rc[k] for k in ("gsr_fwd_batch", "gsr_fwd_test_grid_chunk")}
-    stats3["cells_bwd_dn"]["fitted_ring_collide"] = fitted_rc["cells_bwd_dn"]
+    for name in ("cells_bwd_dn", "cells_bwd_dn2"):
+        stats3[name]["fitted_ring_collide"] = fitted_rc[name]
     for name, s in stats3.items():
         s["launches"] = launches_3d[name.split("[")[0]]
         if name.split("[")[0] in fitted:

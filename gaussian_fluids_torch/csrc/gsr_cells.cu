@@ -5,7 +5,7 @@
 // (gaussian_fluids_tpu/ops/pallas/gsr_cells.py):
 //   cells_fwd_kernel             <- _fwd_work_kernel  (fused_gsr_cells_fwd)
 //   cells_bwd_split_kernel<.,1>  <- _dn1_work_kernel  (fused_gsr_cells_bwd1)
-//   cells_bwd_dn_kernel<.,2>     <- _dn2_work_kernel  (fused_gsr_cells_bwd2)
+//   cells_bwd_split_kernel<.,2>  <- _dn2_work_kernel  (fused_gsr_cells_bwd2)
 // They compute the centered sums of gsr_centered.cu (shared device code in
 // gsr_tile.cuh) over only the live tile pairs of a flat work list
 // (ops/spatial.py flat_work_list): the row-sorted list (rows, cols) of
@@ -17,10 +17,9 @@
 // every output has one owner that walks its own run: the forward gives
 // query tile i a block, which finds the start of row i's run by binary
 // search in `rows` and walks it until the first -1; the backward gives
-// Gaussian tile j W x S threads a Gaussian (row 7; row 6 one thread),
-// which do the same in `gtiles`. No atomics, a fixed order, and the owner
-// writes every output element, so the sums are deterministic and need no
-// zeroing pass.
+// Gaussian tile j W x S threads a Gaussian (rows 6 and 7), which do the
+// same in `gtiles`. No atomics, a fixed order, and the owner writes every
+// output element, so the sums are deterministic and need no zeroing pass.
 //
 // Overflow: `ok` (a device int) is 0 when the list's capacity was too
 // small to hold every live pair. The kernel reads it on the device and
@@ -38,12 +37,13 @@
 // bound is a few microseconds; what the kernels pay is latency. So both
 // box-test every pair before its geometry (the row's dilated radius): the
 // forward on staged tiles (gsr_tile.cuh fwd_walk, shared with the
-// centered forward), row 7 on the Gaussian's own radius against each
-// query tile's x rows read ahead. Row 7 splits each tile's run over W
-// workers a block and S blocks a cluster (ops/gsr_centered.py bwd_split
-// picks them from the shape): one thread a Gaussian filled 18 of an SM's
-// 64 warp slots, each walking ~100 query tiles in one chain of loads.
-// Row 6 keeps that first design until it moves onto row 7's kernel.
+// centered forward), the backward on the Gaussian's own radius against
+// each query tile's x rows read ahead. The backward splits each tile's
+// run over W workers a block and S blocks a cluster (ops/gsr_centered.py
+// bwd_split picks them from the shape): one thread a Gaussian filled 18
+// of an SM's 64 warp slots, each walking ~100 query tiles in one chain of
+// loads. Rows 6 and 7 are one kernel over NCOT cotangent blocks, which
+// share each pair's box test and geometry.
 
 #include "gsr_tile.cuh"
 
@@ -73,7 +73,8 @@ cells_fwd_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   fwd_walk<D, VDIM>(src, i, x, muT, ppT, rad, v, out, N, njac, clamp, sm);
 }
 
-// Row 7, the split parameter backward over the transposed work list:
+// Rows 7 (NCOT = 1) and 6 (NCOT = 2), the split parameter backward over
+// the transposed work list:
 // block (j, s) of a cluster of S along y, Gaussian tile j, rank s; thread
 // (g, w) owns Gaussian j TN + g for worker u = s W + w of U = W S. The run
 // of tile j (its live query tiles, ascending; found by run_start_warp) is
@@ -84,8 +85,7 @@ cells_fwd_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 // Gaussian's own radius before its geometry (dn_tile): with ~99% of the
 // pairs skipped, a tile costs its box tests, read from shared memory, not
 // a dependent global load. The partial sums meet in one fixed order
-// (dn_meet_store). Written over NCOT; row 6 (NCOT = 2) keeps
-// cells_bwd_dn_kernel below.
+// (dn_meet_store).
 constexpr int BWD_WINDOW = 128;
 
 template <int D, int VDIM, int NCOT>
@@ -171,59 +171,6 @@ cells_bwd_split_kernel(const int* __restrict__ gtiles,
                                dv1, dmp2, dv2);
 }
 
-// Row 6: one thread a Gaussian walks its tile's whole run in order.
-template <int D, int VDIM, int NCOT>
-__global__ void __launch_bounds__(TN)
-cells_bwd_dn_kernel(const int* __restrict__ gtiles,
-                    const int* __restrict__ qtiles, int cap,
-                    const int* __restrict__ ok,
-                    const int* __restrict__ tmask,
-                    const float* __restrict__ x,
-                    const float* __restrict__ muT,
-                    const float* __restrict__ ppT,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout1,
-                    const float* __restrict__ dout2,
-                    float* __restrict__ dmp1, float* __restrict__ dv1,
-                    float* __restrict__ dmp2, float* __restrict__ dv2,
-                    int* __restrict__ overflows, int B, int N, int njac,
-                    int use_val, float clamp) {
-  constexpr int NMP = Dims<D>::NMP;
-  const int j = blockIdx.x;
-  const int n = j * TN + threadIdx.x;
-  const Gauss<D> G = load_gauss<D>(muT, ppT, N, n);
-  float vv[VDIM];
-#pragma unroll
-  for (int a = 0; a < VDIM; ++a) vv[a] = v[n * VDIM + a];
-  float accm[NCOT][NMP];
-  float accv[NCOT][VDIM];
-#pragma unroll
-  for (int c = 0; c < NCOT; ++c) {
-#pragma unroll
-    for (int k = 0; k < NMP; ++k) accm[c][k] = 0.f;
-#pragma unroll
-    for (int a = 0; a < VDIM; ++a) accv[c][a] = 0.f;
-  }
-  if (*ok) {
-    for (int w = run_start(gtiles, cap, j); w < cap && gtiles[w] == j;
-         ++w) {
-      const int i = qtiles[w];
-      if (i < 0) break;
-      bwd_tile<D, VDIM, NCOT>(i, x, G, vv, dout1, dout2, njac, use_val,
-                              clamp, accm, accv);
-    }
-  } else {
-    const int nbt = B / TB, nnt = N / TN;
-    for (int i = 0; i < nbt; ++i) {
-      if (tmask[i * nnt + j] == 0) continue;
-      bwd_tile<D, VDIM, NCOT>(i, x, G, vv, dout1, dout2, njac, use_val,
-                              clamp, accm, accv);
-    }
-    if (j == 0 && threadIdx.x == 0) *overflows += 1;
-  }
-  bwd_store<D, VDIM, NCOT>(n, N, accm, accv, dmp1, dv1, dmp2, dv2);
-}
-
 struct FwdLaunch {
   const int *rows, *cols;
   int cap;
@@ -239,26 +186,6 @@ struct FwdLaunch {
     cells_fwd_kernel<D, VDIM><<<dim3(B / TB), dim3(FWD_THREADS), 0, s>>>(
         rows, cols, cap, ok, tm, x, mu, pp, rad, v, out, over, N, njac,
         clamp);
-    return cudaGetLastError();
-  }
-};
-
-template <int NCOT>
-struct BwdLaunch {
-  const int *gt, *qt;
-  int cap;
-  const int *ok, *tm;
-  const float *x, *mu, *pp, *v, *d1, *d2;
-  float *m1, *v1, *m2, *v2;
-  int* over;
-  int B, N, njac, use_val;
-  float clamp;
-  cudaStream_t s;
-  template <int D, int VDIM>
-  int run() const {
-    cells_bwd_dn_kernel<D, VDIM, NCOT><<<dim3(N / TN), dim3(TN), 0, s>>>(
-        gt, qt, cap, ok, tm, x, mu, pp, v, d1, d2, m1, v1, m2, v2, over, B,
-        N, njac, use_val, clamp);
     return cudaGetLastError();
   }
 };
@@ -297,25 +224,28 @@ struct SplitLaunch {
 };
 
 template <int NCOT>
-int launch_bwd(const void* gtiles, const void* qtiles, int cap,
-               const void* ok, const void* tmask, const void* x,
-               const void* muT, const void* ppT, const void* v,
-               const void* dout1, const void* dout2, void* dmp1, void* dv1,
-               void* dmp2, void* dv2, void* overflows, int B, int N, int d,
-               int vdim, int njac, int use_val, float clamp, void* stream) {
-  if (bad_shape(B, N, d, vdim, njac) || (!use_val && njac == 0) || cap < 1)
+int launch_split(const void* gtiles, const void* qtiles, int cap,
+                 const void* ok, const void* tmask, const void* x,
+                 const void* muT, const void* ppT, const void* rad,
+                 const void* v, const void* dout1, const void* dout2,
+                 void* dmp1, void* dv1, void* dmp2, void* dv2,
+                 void* overflows, int B, int N, int d, int vdim, int njac,
+                 int use_val, float clamp, int W, int S, void* stream) {
+  if (bad_shape(B, N, d, vdim, njac) || (!use_val && njac == 0) ||
+      cap < 1 || bad_split(W, S))
     return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
-  const BwdLaunch<NCOT> f{
+  const SplitLaunch<NCOT> f{
       static_cast<const int*>(gtiles),  static_cast<const int*>(qtiles),
       cap,                              static_cast<const int*>(ok),
       static_cast<const int*>(tmask),   static_cast<const float*>(x),
       static_cast<const float*>(muT),   static_cast<const float*>(ppT),
-      static_cast<const float*>(v),     static_cast<const float*>(dout1),
-      static_cast<const float*>(dout2), static_cast<float*>(dmp1),
-      static_cast<float*>(dv1),         static_cast<float*>(dmp2),
-      static_cast<float*>(dv2),         static_cast<int*>(overflows),
-      B, N, njac, use_val, clamp, static_cast<cudaStream_t>(stream)};
+      static_cast<const float*>(rad),   static_cast<const float*>(v),
+      static_cast<const float*>(dout1), static_cast<const float*>(dout2),
+      static_cast<float*>(dmp1),        static_cast<float*>(dv1),
+      static_cast<float*>(dmp2),        static_cast<float*>(dv2),
+      static_cast<int*>(overflows),     B, N, njac, use_val, W, S, clamp,
+      static_cast<cudaStream_t>(stream)};
   return dispatch(d, vdim, f);
 }
 
@@ -353,43 +283,30 @@ int cells_fwd(const void* rows, const void* cols, int cap, const void* ok,
   return dispatch(d, vdim, f);
 }
 
-// Row 7, split W x S ways (W in 1, 2, 4, 8 workers a block, S in 1, 2,
-// 4, 8 blocks a cluster; anything else is refused), rad the rows' dilated
-// radii of the box test.
+// Rows 7 (one cotangent) and 6 (cells_bwd_dn2, two), split W x S ways
+// (W in 1, 2, 4, 8 workers a block, S in 1, 2, 4, 8 blocks a cluster;
+// anything else is refused), rad the rows' dilated radii of the box test.
 int cells_bwd_dn(const void* gtiles, const void* qtiles, int cap,
                  const void* ok, const void* tmask, const void* x,
                  const void* muT, const void* ppT, const void* rad,
                  const void* v, const void* dout, void* dmp, void* dv,
                  void* overflows, int B, int N, int d, int vdim, int njac,
                  int use_val, float clamp, int W, int S, void* stream) {
-  if (bad_shape(B, N, d, vdim, njac) || (!use_val && njac == 0) ||
-      cap < 1 || bad_split(W, S))
-    return cudaErrorInvalidValue;
-  if (N == 0) return cudaSuccess;
-  const SplitLaunch<1> f{
-      static_cast<const int*>(gtiles), static_cast<const int*>(qtiles),
-      cap,                             static_cast<const int*>(ok),
-      static_cast<const int*>(tmask),  static_cast<const float*>(x),
-      static_cast<const float*>(muT),  static_cast<const float*>(ppT),
-      static_cast<const float*>(rad),  static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(dout),
-      static_cast<float*>(dmp),        static_cast<float*>(dv),
-      static_cast<float*>(dmp),        static_cast<float*>(dv),
-      static_cast<int*>(overflows),    B, N, njac, use_val, W, S, clamp,
-      static_cast<cudaStream_t>(stream)};
-  return dispatch(d, vdim, f);
+  return launch_split<1>(gtiles, qtiles, cap, ok, tmask, x, muT, ppT, rad,
+                         v, dout, dout, dmp, dv, dmp, dv, overflows, B, N, d,
+                         vdim, njac, use_val, clamp, W, S, stream);
 }
 
 int cells_bwd_dn2(const void* gtiles, const void* qtiles, int cap,
                   const void* ok, const void* tmask, const void* x,
-                  const void* muT, const void* ppT, const void* v,
-                  const void* dout1, const void* dout2, void* dmp1,
-                  void* dv1, void* dmp2, void* dv2, void* overflows, int B,
-                  int N, int d, int vdim, int njac, int use_val, float clamp,
-                  void* stream) {
-  return launch_bwd<2>(gtiles, qtiles, cap, ok, tmask, x, muT, ppT, v,
-                       dout1, dout2, dmp1, dv1, dmp2, dv2, overflows, B, N,
-                       d, vdim, njac, use_val, clamp, stream);
+                  const void* muT, const void* ppT, const void* rad,
+                  const void* v, const void* dout1, const void* dout2,
+                  void* dmp1, void* dv1, void* dmp2, void* dv2,
+                  void* overflows, int B, int N, int d, int vdim, int njac,
+                  int use_val, float clamp, int W, int S, void* stream) {
+  return launch_split<2>(gtiles, qtiles, cap, ok, tmask, x, muT, ppT, rad,
+                         v, dout1, dout2, dmp1, dv1, dmp2, dv2, overflows, B,
+                         N, d, vdim, njac, use_val, clamp, W, S, stream);
 }
 
 }  // extern "C"

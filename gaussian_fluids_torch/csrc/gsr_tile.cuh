@@ -2,15 +2,17 @@
 // (sm_90a): the centered geometry of one query-Gaussian pair, the
 // backward accumulations, for d = 2 and 3 and vdim = 1, 2, 3; the staging
 // of Gaussian tiles in shared memory by cp.async with the block compaction
-// of the tiles to stage; and the staged forward walk (fwd_walk) that the
-// centered forward and the cells forward share, and the split parameter
-// backward's tile step and its fixed-order meeting of partial sums
-// (dn_tile, dn_meet_store), shared by the centered and the cells
-// backwards. Included by gsr_centered.cu (the tile-masked sweep),
-// gsr_cells.cu (the work-list walk), gsr_banded.cu (the replay's windowed
-// value) and rk4_fused.cu (the fused RK4 backtrace); the first two compute
-// the same terms over the same pairs (a box test skips only pairs outside
-// a row's support box, which add nothing).
+// of the tiles to stage; the staged forward walk (fwd_walk) that the
+// centered forward and the cells forward share, its sweep (fwd_sweep),
+// which the fused RK4 kernel runs at each stage over the tiles of its box
+// test (BoxTiles), and the split parameter backward's tile step and its
+// fixed-order meeting of partial sums (dn_tile, dn_meet_store), shared by
+// the centered and the cells backwards. Included by gsr_centered.cu (the
+// tile-masked sweep), gsr_cells.cu (the work-list walk), gsr_banded.cu
+// (the replay's windowed value) and rk4_fused.cu (the fused RK4
+// backtrace); all compute the same terms over the same pairs as their
+// plain twins (a box test skips only pairs outside a row's support box,
+// which add nothing).
 //
 // Math (the TPU kernels' _tile_quantities, all f32 on the CUDA cores):
 //   delta = x - mu;  Pd_k = sum_j P_kj delta_j;  quad = delta.Pd + bias
@@ -642,27 +644,50 @@ struct FwdSmem {
 static_assert(TB * 12 <= StagedTile<2, 1>::FLOATS,
               "a block's query sums fit one staging buffer");
 
-template <int D, int VDIM, bool WORKLIST>
-__device__ __forceinline__ void fwd_walk(
-    const LiveTiles<WORKLIST>& src, int i, const float* __restrict__ x,
-    const float* __restrict__ muT, const float* __restrict__ ppT,
-    const float* __restrict__ rad, const float* __restrict__ v,
-    float* __restrict__ out, int N, int njac, float clamp,
-    FwdSmem<D, VDIM>& sm) {
+// The Gaussian tiles whose boxes meet a query tile's box [qlo, qhi]:
+// lo, hi (D, nnt), each tile's box over its live rows, every row dilated
+// by its radius, +-inf on a tile with none (ops/field.py
+// gaussian_tile_boxes). Candidate c is tile c. A query tile whose box
+// misses a tile's holds no pair with g >= c there, however f32 rounds
+// (the margin of ops/field.py row_radius), so the test is a pure skip.
+// The live tiles of a fused RK4 stage (rk4_fused.cu), LiveTiles'
+// interface.
+template <int D>
+struct BoxTiles {
+  const float* lo;
+  const float* hi;
+  int nnt;
+  float qlo[D], qhi[D];
+  __device__ __forceinline__ bool live(int c, int& tile) const {
+    tile = c;
+    if (c >= nnt) return false;
+    bool meet = true;
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      meet &= __ldg(lo + k * nnt + c) <= qhi[k] &&
+              __ldg(hi + k * nnt + c) >= qlo[k];
+    return meet;
+  }
+  __device__ __forceinline__ bool last(int next, int, int) const {
+    return next >= nnt;
+  }
+};
+
+// The staged sweep of fwd_walk: this thread's query xq (registers) against
+// FWD_ROWS rows of every live tile that src gives (a LiveTiles or a
+// BoxTiles), rank s of S walking places s, s + S, ... of the compacted
+// list; adds the query's partial sums (njac Jacobian groups) to acc.
+// Every thread of the block calls it; it leaves no copy in flight, and a
+// __syncthreads lies between its start and its end.
+template <int D, int VDIM, class Src>
+__device__ __forceinline__ void fwd_sweep(
+    const Src& src, const float* xq, const Stager<D, VDIM, FWD_THREADS>& st,
+    int njac, float clamp, FwdSmem<D, VDIM>& sm, float* acc) {
   constexpr int NB = Dims<D>::NB;
-  constexpr int NACC = (1 + D) * VDIM;
   using ST = StagedTile<D, VDIM>;
   const int tid = threadIdx.x;
-  const int slot = tid % FWD_SLOTS, q = tid / FWD_SLOTS;
-  const int b = i * TB + q;
+  const int slot = tid % FWD_SLOTS;
   const int s = blockIdx.y, S = gridDim.y;
-  float xq[D];
-#pragma unroll
-  for (int k = 0; k < D; ++k) xq[k] = x[D * b + k];
-  float acc[NACC];
-#pragma unroll
-  for (int k = 0; k < NACC; ++k) acc[k] = 0.f;
-  const Stager<D, VDIM, FWD_THREADS> st(muT, ppT, rad, v, N);
   // A staged tile: rows FWD_ROWS slot .. FWD_ROWS (slot + 1) - 1 are
   // this thread's. Their box tests first (16-byte reads), then the
   // geometry of the rows that pass, ascending: a warp runs the geometry as
@@ -731,6 +756,28 @@ __device__ __forceinline__ void fwd_walk(
     seen += cnt;
     if (src.last(base + FWD_THREADS, cnt, FWD_THREADS)) break;
   }
+}
+
+template <int D, int VDIM, bool WORKLIST>
+__device__ __forceinline__ void fwd_walk(
+    const LiveTiles<WORKLIST>& src, int i, const float* __restrict__ x,
+    const float* __restrict__ muT, const float* __restrict__ ppT,
+    const float* __restrict__ rad, const float* __restrict__ v,
+    float* __restrict__ out, int N, int njac, float clamp,
+    FwdSmem<D, VDIM>& sm) {
+  constexpr int NACC = (1 + D) * VDIM;
+  const int tid = threadIdx.x;
+  const int slot = tid % FWD_SLOTS, q = tid / FWD_SLOTS;
+  const int b = i * TB + q;
+  const int s = blockIdx.y, S = gridDim.y;
+  float xq[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) xq[k] = x[D * b + k];
+  float acc[NACC];
+#pragma unroll
+  for (int k = 0; k < NACC; ++k) acc[k] = 0.f;
+  const Stager<D, VDIM, FWD_THREADS> st(muT, ppT, rad, v, N);
+  fwd_sweep<D, VDIM>(src, xq, st, njac, clamp, sm, acc);
 
   // the query's FWD_SLOTS partial sums, one fixed butterfly tree
 #pragma unroll

@@ -201,10 +201,14 @@ def support_radius(scalings: torch.Tensor, clamp: float) -> torch.Tensor:
 BOX_MARGIN = 1e-3   # relative, as gsr_banded.support_cut's margin on quad
 
 
-def _row_support(mix: GaussianMixture, spec: FieldSpec, tn: int):
+def _row_support(mix: GaussianMixture, spec: FieldSpec, tn: int,
+                 dead=None):
     """(dead, r), each (N_p,) per tn-padded row: dead or padded, and the
-    support radius; what the tile mask and the box tests share."""
-    dead = _pad_axis(~in_domain_mask(mix, spec), tn, fill=True)
+    support radius; what the tile mask and the box tests share. ``dead``:
+    the rows' ``~in_domain_mask``, when the caller has it."""
+    if dead is None:
+        dead = ~in_domain_mask(mix, spec)
+    dead = _pad_axis(dead, tn, fill=True)
     return dead, support_radius(_pad_axis(mix.scalings, tn),
                                 spec.clamp_threshold)
 
@@ -254,10 +258,13 @@ def _tile_mask(x_p, valid_b, mu_p, dead_n, r_n, tb: int,
     return ok.to(torch.int32)
 
 
-def _padded_param_rows(mix: GaussianMixture, spec: FieldSpec, tn: int):
+def _padded_param_rows(mix: GaussianMixture, spec: FieldSpec, tn: int,
+                       dead=None):
     """(mu_p, pp_p, v_p): tn-padded parameter rows with the dead/padded-row
-    +1e9 bias — the single differentiable source of the kernels' layout."""
-    dead = ~in_domain_mask(mix, spec)
+    +1e9 bias — the single differentiable source of the kernels' layout.
+    ``dead``: the rows' ``~in_domain_mask``, when the caller has it."""
+    if dead is None:
+        dead = ~in_domain_mask(mix, spec)
     pp = _packed_precisions(mix, dead)
     mu_p = _pad_axis(mix.positions, tn)
     pp_p = _pad_axis(pp, tn)
@@ -399,16 +406,12 @@ def gaussian_tile_boxes(mix: GaussianMixture, spec: FieldSpec, tn: int,
                         rad=None):
     """(lo, hi), each (d, nnt): per tn-row Gaussian tile, the box its live
     rows reach, each row dilated by ``row_radius`` (+-inf for a tile with
-    no live row). A query tile whose box misses a Gaussian tile's holds no
-    pair with g >= c there. Host-free: tensors on the mixture's device."""
-    nnt = -(-mix.capacity // tn)
+    no live row; ``gsr_centered.tile_boxes`` of the padded rows). A query
+    tile whose box misses a Gaussian tile's holds no pair with g >= c
+    there. Host-free: tensors on the mixture's device."""
     if rad is None:
         rad = row_radius(mix, spec, tn)
-    r = rad.reshape(nnt, tn, 1)
-    mun = _pad_axis(mix.positions, tn).reshape(nnt, tn, mix.d)
-    lo = torch.where(r < 0, _INF, mun - r).amin(dim=1)
-    hi = torch.where(r < 0, -_INF, mun + r).amax(dim=1)
-    return lo.T.contiguous(), hi.T.contiguous()
+    return gsr_centered.tile_boxes(_pad_axis(mix.positions, tn).T, rad, tn)
 
 
 def gaussian_tile_extents(mix: GaussianMixture, spec: FieldSpec, tn: int):
@@ -601,7 +604,7 @@ def _two_head_grads_kernels(params, alive, spec: FieldSpec, x: torch.Tensor,
     if cells:
         t1, t2 = gsr_cells.cells_bwd_dn2(
             gtiles, qtiles, ok, tmask, x_p, *args, douts[0], douts[1],
-            clamp, d, use_val=use_val)
+            clamp, d, rad, use_val=use_val)
     else:
         t1, t2 = gsr_centered.gsr_bwd_dn2(
             tmask, x_p, *args, douts[0], douts[1], clamp, d, use_val=use_val)
@@ -711,16 +714,24 @@ def rk4_valjac_fused(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
                      dt):
     """(phi, val, jac): the RK4 endpoint of x through the velocity field
     over ``dt`` and the value and Jacobian at the endpoint, in one launch
-    of the fused kernel (``ops/rk4_fused.py``; its plain twin on the CPU).
+    of the fused kernel (``ops/rk4_fused.py``; its plain twin on the CPU),
+    which culls each stage on the rows' radii (``row_radius``) and the
+    Gaussian tiles' boxes (``gaussian_tile_boxes``, here from the kernel
+    layout), computed once with the parameter rows from one dead mask.
     Forward only; velocity fields only (vdim == d)."""
     _check_queries(mix, x)
     d, vdim = mix.d, mix.vdim
     b = x.shape[0]
+    tn = rk4_fused.TN
     with torch.no_grad():
-        mu_p, pp_p, v_p = _padded_param_rows(mix, spec, gsr_centered.TN)
+        dead = ~in_domain_mask(mix, spec)
+        mu_p, pp_p, v_p = _padded_param_rows(mix, spec, tn, dead)
+        muT = mu_p.T.contiguous()
+        rad = _dilated(*_row_support(mix, spec, tn, dead))
         phi, vj = rk4_fused.fused_rk4(
-            x.contiguous(), mu_p.T.contiguous(), pp_p.T.contiguous(),
-            v_p.contiguous(), float(dt), spec.clamp_threshold, d)
+            x.contiguous(), muT, pp_p.T.contiguous(), v_p.contiguous(),
+            float(dt), spec.clamp_threshold, d, rad,
+            *gsr_centered.tile_boxes(muT, rad, tn))
     val, jac = _split_out(vj, b, d, vdim)
     return phi, val, jac
 

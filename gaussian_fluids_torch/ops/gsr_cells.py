@@ -24,12 +24,13 @@ plain PyTorch version below, which evaluates the centered kernels' plain
 twins on the mask the lists describe. ``launches`` counts kernel launches
 per wrapper.
 
-The forward and ``cells_bwd_dn`` box-test every pair on the rows' dilated
-radii (``rad``, ``field.row_radius``) before its geometry; the plain twins
-do not read them. ``cells_bwd_dn`` splits each Gaussian tile's run over W
-workers a block and S blocks of a cluster, as the centered backwards do
-(``gsr_centered.bwd_split`` picks them; ``split=`` forces them in tests
-and the smoke run); ``run_worker_tiles`` gives each worker's share.
+Every kernel box-tests each pair on the rows' dilated radii (``rad``,
+``field.row_radius``) before its geometry; the plain twins do not read
+them. The two backwards are one kernel over one or two cotangent blocks:
+it splits each Gaussian tile's run over W workers a block and S blocks of
+a cluster, as the centered backwards do (``gsr_centered.bwd_split`` picks
+them; ``split=`` forces them in tests and the smoke run);
+``run_worker_tiles`` gives each worker's share.
 """
 
 from __future__ import annotations
@@ -46,9 +47,9 @@ from gaussian_fluids_torch.ops.gsr_centered import (_F, _I, _P, _ptr,
                                                     _raise_on, _stream)
 
 TB, TN = gsr_centered.TB, gsr_centered.TN
-# row 7's kernel compacts a run (or a mask column) this many candidates at
-# a time and splits each window in equal contiguous shares (the kernel's
-# BWD_WINDOW, csrc/gsr_cells.cu)
+# the backwards' kernel compacts a run (or a mask column) this many
+# candidates at a time and splits each window in equal contiguous shares
+# (the kernel's BWD_WINDOW, csrc/gsr_cells.cu)
 BWD_WINDOW = 128
 SOURCE = cuda_build.CSRC / "gsr_cells.cu"
 NAMES = ("cells_fwd", "cells_bwd_dn", "cells_bwd_dn2")
@@ -107,8 +108,8 @@ def _lib():
         lib.cells_bwd_dn.argtypes = [_P, _P, _I] + [_P] * 11 + [_I] * 6 \
             + [_F, _I, _I, _P]
         lib.cells_bwd_dn.restype = _I
-        lib.cells_bwd_dn2.argtypes = [_P, _P, _I] + [_P] * 13 + [_I] * 6 \
-            + [_F, _P]
+        lib.cells_bwd_dn2.argtypes = [_P, _P, _I] + [_P] * 14 + [_I] * 6 \
+            + [_F, _I, _I, _P]
         lib.cells_bwd_dn2.restype = _I
         tb, tn = _I(), _I()
         lib.cells_tile_sizes(ctypes.byref(tb), ctypes.byref(tn))
@@ -157,7 +158,7 @@ def list_mask(heads, items, shape) -> torch.Tensor:
 def run_worker_tiles(gtiles, qtiles, ok, tmask,
                      split: Tuple[int, int]) -> torch.Tensor:
     """(nnt, W S) int64: the live query tiles each worker of each Gaussian
-    tile walks in ``cells_bwd_dn``'s kernel under ``split``: the equal
+    tile walks in the backwards' kernel under ``split``: the equal
     contiguous shares of each window of BWD_WINDOW candidates, which are
     the run's items while the lists hold every live pair (all live until
     the run's end) and the tile mask's column on overflow."""
@@ -272,20 +273,25 @@ def cells_bwd_dn(gtiles, qtiles, ok, tmask, x, muT, ppT, values, dout,
 
 
 def cells_bwd_dn2(gtiles, qtiles, ok, tmask, x, muT, ppT, values, dout1,
-                  dout2, clamp: float, njac: int, use_val: bool = True):
+                  dout2, clamp: float, njac: int, rad, use_val: bool = True,
+                  split=None):
     """((dmuT1, dppT1, dv1), (dmuT2, dppT2, dv2)) for two cotangent blocks
     in one walk of the transposed work list. ``use_val=False`` promises
-    zero value cotangents."""
+    zero value cotangents; ``rad`` and ``split`` as for
+    ``cells_bwd_dn``."""
     if not use_val and njac == 0:
         raise ValueError("use_val=False needs Jacobian columns")
+    gsr_centered._check_split(split)
     d, vdim, B, N = gsr_centered._check(tmask, x, muT, ppT, values, njac,
                                         (dout1, dout2))
     _check_lists(gtiles, qtiles, ok, x)
+    gsr_centered.check_rad(rad, x, N, (x,))
     if not x.is_cuda:
         return cells_bwd_dn2_plain(gtiles, qtiles, ok, tmask, x, muT, ppT,
                                    values, dout1, dout2, clamp, njac,
                                    use_val)
     lib = _lib()
+    w, s = gsr_centered._launch_split(split, x, tmask)
     nmp = d + ppT.shape[0]
     dmp1, dmp2 = (torch.empty((nmp, N), dtype=torch.float32, device=x.device)
                   for _ in range(2))
@@ -294,10 +300,11 @@ def cells_bwd_dn2(gtiles, qtiles, ok, tmask, x, muT, ppT, values, dout1,
     with torch.cuda.device(x.device):
         rc = lib.cells_bwd_dn2(
             _ptr(gtiles), _ptr(qtiles), gtiles.numel(), _ptr(ok),
-            _ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT), _ptr(values),
-            _ptr(dout1), _ptr(dout2), _ptr(dmp1), _ptr(dv1), _ptr(dmp2),
-            _ptr(dv2), _ptr(_counter(x.device, "cells_bwd_dn2")), B, N, d,
-            vdim, njac, int(use_val), float(clamp), _stream(x))
+            _ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT), _ptr(rad),
+            _ptr(values), _ptr(dout1), _ptr(dout2), _ptr(dmp1), _ptr(dv1),
+            _ptr(dmp2), _ptr(dv2), _ptr(_counter(x.device, "cells_bwd_dn2")),
+            B, N, d, vdim, njac, int(use_val), float(clamp), w, s,
+            _stream(x))
     _raise_on(rc, "cells_bwd_dn2")
     launches["cells_bwd_dn2"] += 1
     return (dmp1[:d], dmp1[d:], dv1), (dmp2[:d], dmp2[d:], dv2)

@@ -311,6 +311,20 @@ def check_rad(rad, x, N, staged=()):
                              "be 16-byte aligned")
 
 
+def tile_boxes(muT, rad, tn: int = TN):
+    """(lo, hi), each (d, N / tn): per tn-row Gaussian tile of the kernel
+    layout (muT (d, N)), the box its live rows reach, each row dilated by
+    its radius ``rad`` (-1 on dead and padded rows; +-inf for a tile with
+    no live row). A query tile whose box misses a Gaussian tile's holds no
+    pair with g >= c there. On the device of ``muT``, with no host read."""
+    d, N = muT.shape
+    m = muT.reshape(d, N // tn, tn)
+    r = rad.reshape(1, N // tn, tn)
+    dead = r < 0
+    return (torch.where(dead, float("inf"), m - r).amin(dim=2),
+            torch.where(dead, float("-inf"), m + r).amax(dim=2))
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path and the card-side reference)
 # ---------------------------------------------------------------------------

@@ -12,8 +12,9 @@ and the helicity target is hel = v_b . omega_b.
 
 Under ``GF_FUSED_RK4=1`` (read at call time) the 2D target on the card
 takes the fused RK4 kernel: the backtrace and the endpoint's Jacobian in
-one launch, over every Gaussian, in place of five tile-culled field
-evaluations. The default is the staged path, as in the JAX package.
+one launch, each stage culled at its own positions, in place of five
+tile-culled field evaluations. The default is the staged path, as in the
+JAX package.
 """
 
 from __future__ import annotations

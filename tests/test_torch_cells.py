@@ -235,7 +235,8 @@ def test_cells_wrappers_validate_lists():
         tc.cells_bwd_dn(gt, qt, ok, *args, torch.zeros(3, 12), c, 3, rad)
     with pytest.raises(ValueError):
         tc.cells_bwd_dn2(gt, qt, ok, *args, torch.zeros(x_p.shape[0], 3),
-                         torch.zeros(x_p.shape[0], 3), c, 0, use_val=False)
+                         torch.zeros(x_p.shape[0], 3), c, 0, rad,
+                         use_val=False)
 
 
 def test_cells_dispatch_rules():

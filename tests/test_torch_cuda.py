@@ -185,13 +185,18 @@ def test_bwd_dn_kernels_d3_match_plain(cuda_device, njac, split):
 @pytest.mark.parametrize("split", SPLITS)
 @pytest.mark.parametrize("use_val", [True, False])
 def test_bwd_dn2_kernels_d3_match_plain(cuda_device, use_val, split):
-    (_, _, gt, qt, ok), args, douts, clamp, _ = _inputs_3d(cuda_device)
+    """Rows 3 and 6 at the Ring-Collide shape, each at the split; row 6's
+    two launches bitwise equal."""
+    (_, _, gt, qt, ok), args, douts, clamp, rad = _inputs_3d(cuda_device)
     want = tk.bwd_dn2_plain(*args, *douts, clamp, 3, use_val=use_val)
     got = tk.gsr_bwd_dn2(*args, *douts, clamp, 3, use_val=use_val,
                          split=split)
     _close(got[0] + got[1], want[0] + want[1])
-    got = tc.cells_bwd_dn2(gt, qt, ok, *args, *douts, clamp, 3,
-                           use_val=use_val)
+    got, again = (tc.cells_bwd_dn2(gt, qt, ok, *args, *douts, clamp, 3, rad,
+                                   use_val=use_val, split=split)
+                  for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1],
+                                                  again[0] + again[1]))
     _close(got[0] + got[1], want[0] + want[1])
 
 
@@ -459,13 +464,21 @@ def test_cells_bwd_refuses_radii_and_splits_before_launch(cuda_device):
         with pytest.raises(ValueError, match="split"):
             tc.cells_bwd_dn(gt, qt, ok, *args, douts[0], clamp, 3, rad,
                             split=bad)
+    for bad in (rad[:-64], rad.cpu(), rad.double()):
+        with pytest.raises(ValueError, match="rad"):
+            tc.cells_bwd_dn2(gt, qt, ok, *args, *douts, clamp, 3, bad)
+    for bad in ((3, 1), (1, 16)):
+        with pytest.raises(ValueError, match="split"):
+            tc.cells_bwd_dn2(gt, qt, ok, *args, *douts, clamp, 3, rad,
+                             split=bad)
     assert not any(tc.launches.values())
 
 
 def test_cells_overflow_branch_sweeps_the_mask(cuda_device):
     """Flagged as overflowed, every cells kernel ignores its (here
     truncated) list and sweeps the whole fine mask: the same result, and
-    the device counter sees each such launch."""
+    the device counter sees each such launch (row 6 split over the
+    blocks of a cluster)."""
     (rows, cols, gt, qt, ok), args, douts, clamp, rad = \
         _inputs_3d(cuda_device)
     bad = torch.zeros_like(ok)
@@ -475,11 +488,17 @@ def test_cells_overflow_branch_sweeps_the_mask(cuda_device):
            [tk.fwd_plain(*args, clamp, 3)])
     _close(tc.cells_bwd_dn(gt, qt, bad, *args, douts[0], clamp, 3, rad),
            tk.bwd_dn_plain(*args, douts[0], clamp, 3))
-    got = tc.cells_bwd_dn2(gt, qt, bad, *args, *douts, clamp, 3)
+    got = tc.cells_bwd_dn2(gt, qt, bad, *args, *douts, clamp, 3, rad,
+                           split=(2, 4))
+    again = tc.cells_bwd_dn2(gt, qt, bad, *args, *douts, clamp, 3, rad,
+                             split=(2, 4))
+    assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1],
+                                                  again[0] + again[1]))
     want = tk.bwd_dn2_plain(*args, *douts, clamp, 3)
     _close(got[0] + got[1], want[0] + want[1])
-    assert tc.overflows() == {k: 1 for k in tc.NAMES}
-    assert tc.launches == {k: 1 for k in tc.NAMES}
+    n = {"cells_fwd": 1, "cells_bwd_dn": 1, "cells_bwd_dn2": 2}
+    assert tc.overflows() == n
+    assert tc.launches == n
 
 
 def _support_edge_queries(mix, spec, n_gauss=256, seed=107):
@@ -781,25 +800,74 @@ def test_bwd_dn3_matches_plain(cuda_device, data_rows, use_val12):
     _close([t for blk in got for t in blk], [t for blk in want for t in blk])
 
 
-def test_rk4_fused_matches_plain(cuda_device):
-    """Karman-2D width with dead Gaussian rows (killed, and moved out of
-    the domain) besides the capacity's padded tail, and padded query rows:
-    the kernel against its plain twin, forward and backward in time."""
-    mix, spec, x = karman_state(cuda_device, seed=106)
+def _rk4_queries(x, spec, kind):
+    """The queries of the fused RK4 test: ``x`` padded to 64 rows, plus 5
+    rows at 0 (B not a multiple of the query tile), sorted along x as the
+    covector target sorts them, in a seeded random order, or with 96 of
+    them moved onto and beyond the domain's faces and corners."""
+    xq = tf._pad_axis(x, 64)
+    xq = torch.cat([xq, torch.zeros((5, x.shape[1]), device=x.device)])
+    if kind == "unsorted":
+        perm = np.random.RandomState(113).permutation(xq.shape[0])
+        xq = xq[torch.as_tensor(perm, device=x.device)]
+    elif kind == "edge":
+        rng = np.random.RandomState(114)
+        lo, hi = np.float32(spec.lo), np.float32(spec.hi)
+        ext = hi - lo
+        e = rng.uniform(lo, hi, (96, x.shape[1])).astype(np.float32)
+        axis = rng.randint(0, x.shape[1], 96)
+        side = rng.randint(0, 2, 96)
+        beyond = np.float32([0.0, 1e-3, 0.05, 0.5])[rng.randint(0, 4, 96)]
+        for r in range(96):
+            k = axis[r]
+            e[r, k] = hi[k] + beyond[r] * ext[k] if side[r] \
+                else lo[k] - beyond[r] * ext[k]
+        e[:4] = [np.where([(c >> k) & 1 for k in range(x.shape[1])], hi, lo)
+                 for c in range(4)]          # corners
+        xq = xq.clone()
+        xq[:96] = torch.as_tensor(e, device=x.device)
+    return xq.contiguous()
+
+
+RK4_SPLITS = [None, 1, 2, 4, 8]
+
+
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "edge"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_rk4_fused_matches_plain(cuda_device, d, kind):
+    """Karman-2D width (d = 2) or the Leapfrog-3D state (d = 3), with dead
+    Gaussian rows (killed, and moved out of the domain) besides the
+    capacity's padded tail, padded query rows and a batch that is not a
+    whole number of query tiles: the kernel at every split S against its
+    plain twin, forward and backward in time, two launches bitwise equal;
+    sorted queries, unsorted, and queries at and beyond the domain's
+    edge."""
+    if d == 2:
+        mix, spec, x = karman_state(cuda_device, seed=106)
+    else:
+        mix, spec, x = ring_collide_state(cuda_device, seed=111, side=10,
+                                          n_queries=512)
     mix.alive[100:400] = False
     mix.positions[500:520] = 1e3
     mu_p, pp_p, v_p = tf._padded_param_rows(mix, spec, tk.TN)
+    rad = tf.row_radius(mix, spec, tk.TN)
     args = (mu_p.T.contiguous(), pp_p.T.contiguous(), v_p.contiguous())
-    xq = tf._pad_axis(x, 64)
-    xq = torch.cat([xq, torch.zeros((5, 2), device=cuda_device)])
+    boxes = tr.tile_boxes(args[0], rad)
+    xq = _rk4_queries(x, spec, kind)
+    assert xq.shape[0] % tr.TB != 0
     tr.reset_launches()
     for dt in (-0.01, 0.02):
-        for njac in (2, 0):
-            got = tr.fused_rk4(xq, *args, dt, spec.clamp_threshold, njac)
+        for njac in (d, 0):
             want = tr.rk4_plain(xq, *args, dt, spec.clamp_threshold, njac)
             assert float((want[0] - xq).abs().max()) > 1e-3   # it moved
-            _close(got, want)
-    assert tr.launches["rk4_fused"] == 4
+            for split in RK4_SPLITS:
+                got, again = (tr.fused_rk4(xq, *args, dt,
+                                           spec.clamp_threshold, njac, rad,
+                                           *boxes, split=split)
+                             for _ in range(2))
+                assert all(torch.equal(a, b) for a, b in zip(got, again))
+                _close(got, want)
+    assert tr.launches["rk4_fused"] == 2 * 2 * 2 * len(RK4_SPLITS)
 
 
 def test_rest_wrappers_refuse(cuda_device):
@@ -810,13 +878,30 @@ def test_rest_wrappers_refuse(cuda_device):
         tk.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2,
                        args[1].shape[0] + 8)
     _, x, muT, ppT, v = args
+    rad0 = torch.ones(muT.shape[1], device=x.device)
+    boxes0 = tr.tile_boxes(muT, rad0)
     with pytest.raises(ValueError):          # not a velocity field
-        tr.fused_rk4(x, muT, ppT, v[:, :1].contiguous(), -0.01, clamp, 2)
+        tr.fused_rk4(x, muT, ppT, v[:, :1].contiguous(), -0.01, clamp, 2,
+                     rad0, *boxes0)
     with pytest.raises(ValueError):          # operands on two devices
-        tr.fused_rk4(x, muT.cpu(), ppT, v, -0.01, clamp, 2)
+        tr.fused_rk4(x, muT.cpu(), ppT, v, -0.01, clamp, 2, rad0, *boxes0)
+    rad = -torch.ones(muT.shape[1], device=x.device)
+    lo, hi = tr.tile_boxes(muT, rad)
     with pytest.raises(ValueError):          # not contiguous
         tr.fused_rk4(x, muT, ppT, torch.cat([v, v], 1)[:, ::2], -0.01,
-                     clamp, 2)
+                     clamp, 2, rad, lo, hi)
+    tr.reset_launches()
+    for bad in (rad[:-64], rad.cpu(), rad.double()):
+        with pytest.raises(ValueError, match="rad"):
+            tr.fused_rk4(x, muT, ppT, v, -0.01, clamp, 2, bad, lo, hi)
+    for bad in (3, 16, (2, 1)):
+        with pytest.raises(ValueError, match="split"):
+            tr.fused_rk4(x, muT, ppT, v, -0.01, clamp, 2, rad, lo, hi,
+                         split=bad)
+    for bad in ((lo, None), (lo.cpu(), hi), (lo[:, :-1], hi[:, :-1])):
+        with pytest.raises(ValueError, match="box"):
+            tr.fused_rk4(x, muT, ppT, v, -0.01, clamp, 2, rad, *bad)
+    assert tr.launches["rk4_fused"] == 0
 
 
 @pytest.mark.parametrize("d", [2, 3])

@@ -6,7 +6,9 @@ outside its row's dilated box (``field.row_radius``: the cells forward's
 and the banded kernel's per-pair test), has g < clamp — on the seeded
 Ring-Collide-sized state and on the committed Ring-Collide checkpoint,
 at the replay's query tiles (128-node z-runs of the 512^3 grid) and at
-training queries (uniform in the domain, x-sorted, 8 to a tile).
+training queries (uniform in the domain, x-sorted, 8 to a tile); and on
+the seeded Karman-2D state at each of the fused RK4 kernel's five stage
+positions, whose query tiles it boxes anew at every stage.
 
 The float64 g is the exact value the f32 kernels approximate: a skipped
 pair must sit below the clamp by more than f32 can move it, which the
@@ -24,8 +26,11 @@ from gaussian_fluids_torch.models.mixture import GaussianMixture
 from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.ops import field as tf
 from gaussian_fluids_torch.ops import gsr_banded as tb
+from gaussian_fluids_torch.ops import gsr_centered as tk
+from gaussian_fluids_torch.ops import rk4_fused as tr
 from gaussian_fluids_torch.ops.rotations import precision_matrix
-from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
+from gaussian_fluids_torch.utils.seeded_state import (karman_state,
+                                                      ring_collide_state)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RING_CKPT = os.path.join(ROOT, "runs_r2_evidence", "ckpts",
@@ -186,4 +191,55 @@ def test_backward_box_misses_hold_no_support(which):
         support = g >= c
         assert bool(in_box[support].all())
         kept_support += int(support.sum())
+    assert kept_support > 0
+
+
+def _rk4_stage_points(x, muT, ppT, v, dt, clamp):
+    """The five positions at which the fused RK4 kernel evaluates the
+    field: the plain twin's recurrence (rk4_fused.rk4_plain)."""
+    live = torch.ones((x.shape[0], 1), dtype=torch.int32)
+    pts, vs = [x], []
+    for h in (0.5 * dt, 0.5 * dt, dt):
+        vs.append(tk.fwd_plain(live, pts[-1], muT, ppT, v, clamp, 0))
+        pts.append(x + h * vs[-1])
+    vs.append(tk.fwd_plain(live, pts[-1], muT, ppT, v, clamp, 0))
+    pts.append(x + dt / 6.0 * (vs[0] + 2.0 * vs[1] + 2.0 * vs[2] + vs[3]))
+    return pts
+
+
+@pytest.mark.parametrize("stage", range(5))
+def test_rk4_stage_box_misses_hold_no_support(stage):
+    """The fused RK4 kernel's view (row 9) on the seeded Karman state and
+    its 512 x-sorted queries, backtraced over the scene's dt as the
+    covector target does: at the stage's positions, in query tiles of TB,
+    every pair whose Gaussian tile box misses the tile's box, or whose
+    query lies outside the row's dilated box, has float64 g < c; the
+    pairs kept hold every pair with g >= c (there are such pairs); and
+    the tile test lets through under a tenth of the tile pairs, the
+    premise of the design."""
+    mix, spec, x = karman_state("cpu")
+    c = spec.clamp_threshold
+    mu_p, pp_p, v_p = tf._padded_param_rows(mix, spec, tr.TN)
+    rad = tf.row_radius(mix, spec, tr.TN)
+    lo, hi = tf.gaussian_tile_boxes(mix, spec, tr.TN, rad)
+    q = _rk4_stage_points(x, mu_p.T.contiguous(), pp_p.T.contiguous(),
+                          v_p, -0.01, c)[stage]
+    assert bool(torch.isfinite(q).all())
+    tiles = q.reshape(-1, tr.TB, 2)
+    meet = ((lo[None] <= tiles.amax(1)[:, :, None])
+            & (hi[None] >= tiles.amin(1)[:, :, None])).all(1)
+    assert float(meet.float().mean()) < 0.1
+    P = precision_matrix(mix.scalings.double(), mix.rotations.double(), 2)
+    live = tf.in_domain_mask(mix, spec)
+    kept_support = 0
+    for s in range(0, q.shape[0], 32):                # 32 queries at a time
+        dx = q[s:s + 32].double()[:, None] - mu_p.double()[None]
+        g = torch.exp(-0.5 * torch.einsum("bni,nij,bnj->bn", dx, P, dx))
+        g = torch.where(live[None], g, 0.0)
+        in_box = ((q[s:s + 32, None, :] - mu_p[None]).abs()
+                  <= rad[None, :, None]).all(-1)
+        kept = in_box & meet[s // tr.TB:(s + 32) // tr.TB] \
+            .repeat_interleave(tr.TB, 0).repeat_interleave(tr.TN, 1)
+        assert _max(g[~kept]) < c
+        kept_support += int((g >= c).sum())
     assert kept_support > 0

@@ -1,5 +1,6 @@
 """The centered forward's split along the Gaussian axis and the cells
-parameter backward's split of its run, on the CPU: the host rule
+parameter backwards' split of their runs (rows 7 and 6, one kernel), on
+the CPU: the host rule
 ``fwd_split`` at the main paths' shapes and for other SM counts, its
 limits (never more ranks than the Gaussian tiles allow, only the splits
 the kernel takes, filling the card where the tiles allow); the wrappers'
@@ -145,6 +146,30 @@ def test_cells_bwd_refuses_a_split_the_kernel_does_not_take(bad):
     assert not any(tc.launches.values())
 
 
+@pytest.mark.parametrize("bad", list(BAD_RADII))
+def test_cells_bwd_dn2_refuses_radii_of_other_rows(bad):
+    """Row 6 reads the radii of row 7's box test, and refuses them alike."""
+    args, douts, rad = _cpu_inputs()
+    gt, qt, ok = _lists(args[0])
+    tc.reset_launches()
+    with pytest.raises(ValueError, match="rad"):
+        tc.cells_bwd_dn2(gt, qt, ok, *args, *douts, 0.01, 3,
+                         BAD_RADII[bad](rad))
+    assert not any(tc.launches.values())
+
+
+@pytest.mark.parametrize("bad", [(3, 1), (1, 16), (0, 0), (2,), [2, 2],
+                                 "2x2"])
+def test_cells_bwd_dn2_refuses_a_split_the_kernel_does_not_take(bad):
+    args, douts, rad = _cpu_inputs()
+    gt, qt, ok = _lists(args[0])
+    tc.reset_launches()
+    with pytest.raises(ValueError, match="split"):
+        tc.cells_bwd_dn2(gt, qt, ok, *args, *douts, 0.01, 3, rad,
+                         split=bad)
+    assert not any(tc.launches.values())
+
+
 @pytest.fixture
 def one_thread():
     """One CPU thread: the plain twins' matrix products then sum in one
@@ -243,3 +268,24 @@ def test_run_worker_tiles_are_the_kernels_equal_shares(nbt, split,
     assert torch.equal(got.sum(1), tmask.sum(0).to(torch.int64))
     if nbt <= tc.BWD_WINDOW:  # one window: shares differ by at most one
         assert int((got.max(1).values - got.min(1).values).max()) <= 1
+
+
+@pytest.mark.parametrize("split", [None, (1, 1), (2, 1), (8, 8)])
+@pytest.mark.parametrize("overflow", [False, True])
+@pytest.mark.parametrize("use_val", [True, False])
+def test_cells_bwd_dn2_split_on_the_cpu_is_the_plain_twin(
+        one_thread, split, overflow, use_val):
+    """Row 6 on a CPU tensor: any valid split and any radii take its plain
+    twin, on the lists and, overflowed, on the mask."""
+    args, douts, rad = _cpu_inputs()
+    gt, qt, ok = _lists(args[0], 3 if overflow else None)
+    assert int(ok) == (0 if overflow else 1)
+    tc.reset_launches()
+    want = tc.cells_bwd_dn2_plain(gt, qt, ok, *args, *douts, 0.01, 3,
+                                  use_val)
+    assert float(want[1][0].abs().max()) > 0
+    for r in (rad, -torch.ones_like(rad)):
+        got = tc.cells_bwd_dn2(gt, qt, ok, *args, *douts, 0.01, 3, r,
+                               use_val, split=split)
+        _same(got[0] + got[1], want[0] + want[1])
+    assert not any(tc.launches.values())

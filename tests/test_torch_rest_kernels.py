@@ -64,7 +64,10 @@ def _queries(seed, b, d, lo=-4.0, hi=4.0):
 
 def _kernel_inputs(d, seed, b=256):
     """The kernels' layout from the JAX prep at tb=64, tn=256, with dead
-    rows; plus seeded cotangents of every shape the backwards take."""
+    rows, and the port's row radii of the same rows (``rad``) and their
+    Gaussian tiles' boxes (``boxes``), which the fused RK4 kernel's box
+    tests read; plus seeded cotangents of every
+    shape the backwards take."""
     mix, spec = _mix(300, d, seed, dead=True)
     x = _queries(seed + 1, b, d, -5.0, 5.0)
     x_p, _, _, mu_p, pp_p, v_p, tmask = jfield._centered_prep(
@@ -77,6 +80,9 @@ def _kernel_inputs(d, seed, b=256):
     j = dict(tmask=jnp.asarray(tmask), x=x_p, muT=mu_p.T, ppT=pp_p.T,
              v=v_p)
     tt = {k: t(v) for k, v in j.items()}
+    tm, ts = to_torch(mix, spec)
+    tt["rad"] = tfield.row_radius(tm, ts, TN)
+    tt["boxes"] = trk.tile_boxes(tt["muT"], tt["rad"])
     return j, tt, douts, float(spec.clamp_threshold)
 
 
@@ -208,7 +214,7 @@ def test_rk4_plain_matches_pallas(d):
         wphi, wvj = jrk.fused_rk4(j["x"], j["muT"], j["ppT"], j["v"], dt, d,
                                   clamp, 16, TN, d)
         phi, vj = trk.fused_rk4(tt["x"], tt["muT"], tt["ppT"], tt["v"], dt,
-                                clamp, d)
+                                clamp, d, tt["rad"], *tt["boxes"])
         close(phi, wphi, 1e-5, err_msg=f"phi dt={dt}")
         close(vj, wvj, 1e-5, err_msg=f"valjac dt={dt}")
 
@@ -234,9 +240,10 @@ def test_rk4_refuses_what_it_does_not_take():
     _, tt, _, clamp = _kernel_inputs(2, 34, b=64)
     with pytest.raises(ValueError):          # not a velocity field
         trk.fused_rk4(tt["x"], tt["muT"], tt["ppT"], tt["v"][:, :1], 0.1,
-                      clamp, 2)
+                      clamp, 2, tt["rad"], *tt["boxes"])
     with pytest.raises(ValueError):          # Jacobian groups of 1
-        trk.fused_rk4(tt["x"], tt["muT"], tt["ppT"], tt["v"], 0.1, clamp, 1)
+        trk.fused_rk4(tt["x"], tt["muT"], tt["ppT"], tt["v"], 0.1, clamp, 1,
+                      tt["rad"], *tt["boxes"])
     with pytest.raises(ValueError):          # queries of another dimension
         tfield.rk4_valjac_fused(tm, ts, torch.zeros(8, 3), 0.1)
 
