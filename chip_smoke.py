@@ -48,10 +48,15 @@ Phases, each printing one JSON line with its wall seconds:
                 kernel again at Leapfrog-3D shapes (N=1024; B=1024 as the
                 path's query_grad runs it, and B=8192), each against its
                 plain version; the forward (row 1) at Karman-2D shapes at
-                every split; the fused RK4 kernel at every split S, two
-                launches bitwise equal, each split timed, with the
-                Gaussian tiles its box test lets through at each stage
-                and the pairs they hold
+                every split; dL/dx (both shapes) and the fused RK4 kernel
+                at every split S, the triple backward at every split
+                (W, S), all variants, two launches bitwise equal, each
+                split timed, with the best split beside the chosen one;
+                the pairs the triple backward walks and those a box test
+                on the rows' radii would let through; the Gaussian tiles
+                the fused RK4
+                kernel's box test lets through at each stage and the pairs
+                they hold
   initialize    the leapfrog scene fitted at 71x71 = 5041 Gaussians through
                 the entry point ``gaussian_fluids_torch.initialize2d``
   advance       two frames (clone -> advect -> project) at dt .025 through
@@ -240,26 +245,10 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps=TIMED_LAUNCHES):
-    """Median device milliseconds of ``fn`` over ``reps`` calls. A sleep
-    kernel first keeps the card busy while the host queues every call and
-    its events, so host overhead between calls does not enter the gaps."""
-    for _ in range(min(reps, 3)):
-        fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t   # the host's time to queue one call
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    # ~2e9 cycles a second: sleep for twice the queueing time of all calls
-    torch.cuda._sleep(int(min(4e9, 1e7 + 2 * 2e9 * reps * host_s)))
-    ev[0].record()
-    for i in range(reps):
-        fn()
-        ev[i + 1].record()
-    torch.cuda.synchronize()
-    return statistics.median(ev[i].elapsed_time(ev[i + 1])
-                             for i in range(reps))
+    """Median device milliseconds of ``fn`` over ``reps`` calls, queued
+    behind a sleep kernel (``gaussian_fluids_torch.utils.timing``)."""
+    from gaussian_fluids_torch.utils.timing import time_ms as timed
+    return timed(fn, reps)
 
 
 def compare(name, got, want, tol):
@@ -408,6 +397,31 @@ def _fwd_key(split):
     return "chosen" if split is None else str(split)
 
 
+def check_splits(name, splits, variants, key=_fwd_key):
+    """Every variant (tag, kernel taking split=, plain) at every split
+    against its plain twin (TOL), two launches of each bitwise equal;
+    returns the largest relative error."""
+    errs = []
+    for tag, kern, plain in variants:
+        want = _flat(plain())
+        for sp in splits:
+            a, b = _flat(kern(split=sp)), _flat(kern(split=sp))
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"{name}[{tag}] at split {sp}: two "
+                                     f"launches differ")
+            errs.append(compare(f"{name}[{tag}, {key(sp)}]", a, want,
+                                TOL)[1])
+    return max(errs)
+
+
+def time_splits(kern, splits, key=_fwd_key):
+    """{split: median ms} of kern(split=) at every split, in this call,
+    and the fastest forced split."""
+    torch.cuda.synchronize()
+    ms = {key(sp): time_ms(lambda sp=sp: kern(split=sp)) for sp in splits}
+    return ms, min((k for k in ms if k != "chosen"), key=ms.get)
+
+
 def fwd_split_report(args, rad, clamp):
     """Row 1 at one shape, split along the Gaussian axis: both variants
     (njac = d, 0) at the chosen split and at every split S the kernel takes
@@ -418,25 +432,17 @@ def fwd_split_report(args, rad, clamp):
     tmask, x_p = args[0], args[1]
     d = x_p.shape[1]
     splits = [None] + list(gc.SPLIT_S)
-    errs = []
-    for nj in (d, 0):
-        want = gc.fwd_plain(*args, clamp, nj)
-        for sp in splits:
-            a, b = (gc.gsr_fwd(*args, clamp, nj, rad, split=sp)
-                    for _ in range(2))
-            if not torch.equal(a, b):
-                raise AssertionError(f"gsr_fwd[{nj}] at split {sp}: two "
-                                     f"launches differ")
-            errs.append(compare(f"gsr_fwd[{nj}, S={_fwd_key(sp)}]", [a],
-                                [want], TOL)[1])
-    torch.cuda.synchronize()
-    ms = {_fwd_key(sp): time_ms(lambda sp=sp: gc.gsr_fwd(
-        *args, clamp, d, rad, split=sp)) for sp in splits}
+    err = check_splits("gsr_fwd", splits, [
+        (nj, lambda split, nj=nj: gc.gsr_fwd(*args, clamp, nj, rad,
+                                             split=split),
+         lambda nj=nj: gc.fwd_plain(*args, clamp, nj)) for nj in (d, 0)])
+    ms, _ = time_splits(lambda split: gc.gsr_fwd(*args, clamp, d, rad,
+                                                 split=split), splits)
     chosen = gc.fwd_split(*tmask.shape, gc._sm_count(0))
     return {"split": chosen, "blocks": tmask.shape[0] * chosen,
             "ms": ms["chosen"], "ms_1": ms["1"], "ms_by_split": ms,
             "splits_checked": 2 * len(splits),
-            "max_rel_err_splits": max(errs), "bitwise_repeat": True}
+            "max_rel_err_splits": err, "bitwise_repeat": True}
 
 
 def fwd_shape_entry(args, rad, clamp, plain_reps=PLAIN_LAUNCHES_3D):
@@ -915,23 +921,11 @@ def _rk4_stage_tiles(pts, lo, hi):
             & (hi[None] >= tiles.amin(1)[:, :, None])).all(1)
 
 
-def karman_boundary_rows(scene, gen, n, device):
-    """The scene's boundary batches as one projection epoch draws them (the
-    cylinder's n Dirichlet points, the edges' 5n flux points), sorted along
-    x as one segment, with the order that undoes the sort."""
-    adv = torch.tensor(scene.advance_domain, device=device)
-    b1 = scene.boundary_sampler_1(gen, n, adv)
-    b2 = scene.boundary_sampler_2(gen, n, adv)
-    pts = torch.cat([b1[0], b2[0]])
-    order = torch.argsort(pts[:, 0])
-    return pts[order].contiguous(), torch.argsort(order), b1, b2
-
-
 def kernel_phase_rest(device):
     """Kernels 4, 9 and 10 at Karman-2D shapes on the seeded Karman state,
     and kernel 4 at Leapfrog-3D shapes, against their plain versions."""
-    from gaussian_fluids_torch.utils.seeded_state import (karman_state,
-                                                          ring_collide_state)
+    from gaussian_fluids_torch.utils.seeded_state import (
+        karman_boundary_rows, karman_state, ring_collide_state)
     from gaussian_fluids_torch.ops import field, gsr_centered as gc
     from gaussian_fluids_torch.ops import rk4_fused as rk
     from gaussian_fluids_torch.scenes import get_scene_2d
@@ -957,12 +951,13 @@ def kernel_phase_rest(device):
 
     # kernel 4 at d = 2 (Karman, B = 512) and at d = 3 where the path runs
     # it (the Leapfrog-3D frame's mixture, 1024 query points), with the
-    # d = 3 time at B = 8192 as a second number
+    # d = 3 time at B = 8192 as a second number; at the first two shapes
+    # every split S
     for d, (m, sp, xq) in ((2, (mix, spec, x)),
                            (3, ring_collide_state(device, side=10,
                                                   n_queries=1024)),
                            (3, ring_collide_state(device, side=10))):
-        x_p, _, _, mp, pp, vp, tmask, _ = field._centered_prep(
+        x_p, _, _, mp, pp, vp, tmask, rad4 = field._centered_prep(
             m, sp, xq, gc.TB, gc.TN, presorted=True)
         args = (tmask, x_p, mp.T.contiguous(), pp.T.contiguous(),
                 vp.contiguous())
@@ -974,20 +969,33 @@ def kernel_phase_rest(device):
         sup = _support_pairs(gc, tmask, *args[1:4], d, sp.clamp_threshold)
         c = sp.clamp_threshold
         tag = "" if d == 2 else ("[d=3]" if B == 1024 else "[d=3,B=8192]")
+        variants = [(nj, lambda split=None, a=args, o=o, nj=nj, c=c, r=rad4:
+                     gc.gsr_bwd_dx(*a, o, c, nj, r, split=split),
+                     lambda a=args, o=o, nj=nj, c=c: gc.bwd_dx_plain(
+                         *a, o, c, nj)) for nj, o in ((d, dout), (0, dval))]
         entry("gsr_bwd_dx", "gsr",
               pair_ops(OPS_GEOMETRY[d], OPS_SUPPORT[(d, "bwd_dx")], live,
                        sup),
-              [(lambda a=args, o=dout, d=d, c=c: gc.gsr_bwd_dx(*a, o, c, d),
-                lambda a=args, o=dout, d=d, c=c: gc.bwd_dx_plain(*a, o, c,
-                                                                 d)),
-               (lambda a=args, o=dval, c=c: gc.gsr_bwd_dx(*a, o, c, 0),
-                lambda a=args, o=dval, c=c: gc.bwd_dx_plain(*a, o, c, 0))],
+              [(k, p_) for _, k, p_ in variants],
               4 * (tmask.numel() + 2 * x_p.numel() + args[2].numel()
                    + args[3].numel() + args[4].numel() + dout.numel()),
               live, sup, tag)
-        shapes[f"bwd_dx_d{d}_B{B}"] = {"B": B, "N": args[2].shape[1],
-                                       "live_pairs": live,
-                                       "support_pairs": sup}
+        shapes[f"bwd_dx_d{d}_B{B}"] = {
+            "B": B, "N": args[2].shape[1], "live_pairs": live,
+            "box_pairs": _box_pairs(tmask, x_p, args[2], rad4, gc.TB,
+                                    gc.TN),
+            "support_pairs": sup}
+        if B == 8192:
+            continue
+        splits = [None] + list(gc.SPLIT_S)
+        err = check_splits("gsr_bwd_dx" + tag, splits, variants)
+        ms, best = time_splits(variants[0][1], splits)
+        chosen = gc.fwd_split(*tmask.shape, gc._sm_count(0), gc.DX_MIN_TILES)
+        stats["gsr_bwd_dx" + tag]["split"] = {
+            "split": chosen, "blocks": tmask.shape[0] * chosen,
+            "ms": ms["chosen"], "ms_by_split": ms, "best_split": best,
+            "splits_checked": 2 * len(splits), "max_rel_err_splits": err,
+            "bitwise_repeat": True}
     second = stats.pop("gsr_bwd_dx[d=3,B=8192]")
     stats["gsr_bwd_dx[d=3]"]["at_B8192"] = {k: second[k] for k in (
         "ms", "plain_ms", "bound_ms", "walked_bound_ms", "max_rel_err")}
@@ -999,13 +1007,14 @@ def kernel_phase_rest(device):
         (tmask, x_p, mp.T.contiguous(), pp.T.contiguous(), vp.contiguous()),
         rad, clamp, TIMED_LAUNCHES)
 
-    # kernel 10 over [512 data rows; the scene's 3072 boundary rows]
+    # kernel 10 over [512 data rows; the scene's 3072 boundary rows], at
+    # every split (W, S)
     scene = get_scene_2d("karman")
     gen = torch.Generator(device=device).manual_seed(6)
     xb, _, _, _ = karman_boundary_rows(scene, gen, 512, device)
     x_dp = field._pad_axis(x, gc.TB)
     rows = x_dp.shape[0]
-    x_c, _, _, _, _, _, tmask, _ = field._centered_prep(
+    x_c, _, _, _, _, _, tmask, rad10 = field._centered_prep(
         mix, spec, torch.cat([x_dp, xb]), gc.TB, gc.TN, presorted=True)
     B = x_c.shape[0]
     douts = [torch.zeros((B, 6), device=device) for _ in range(2)]
@@ -1026,18 +1035,40 @@ def kernel_phase_rest(device):
                               live, sup_d)
     need_b, walk_b = pair_ops(OPS_GEOMETRY[2],
                               OPS_SUPPORT[(2, "bwd_dn_val")], 0, sup_b)
+    variants = [(uv, lambda split=None, uv=uv: gc.gsr_bwd_dn3(
+        *args, *douts, dout3, clamp, 2, rows, use_val12=uv, split=split),
+        lambda uv=uv: gc.bwd_dn3_plain(*args, *douts, dout3, clamp, 2,
+                                       rows, use_val12=uv))
+        for uv in (False, True)]
     entry("gsr_bwd_dn3", "gsr", (need_d + need_b, walk_d + walk_b),
-          [(lambda uv=uv: gc.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2,
-                                         rows, use_val12=uv),
-            lambda uv=uv: gc.bwd_dn3_plain(*args, *douts, dout3, clamp, 2,
-                                           rows, use_val12=uv))
-           for uv in (False, True)],
+          [(k, p_) for _, k, p_ in variants],
           4 * (tmask.numel() + x_c.numel() + 2 * douts[0].numel()
                + dout3.numel()) + par_bytes + 3 * 4 * N * (6 + 2),
           live, sup_d + sup_b)
+    splits = [None] + [(w_, s_) for w_ in gc.SPLIT_W for s_ in gc.SPLIT_S]
+    err = check_splits("gsr_bwd_dn3", splits, variants, _split_key)
+    ms, best = time_splits(variants[0][1], splits, _split_key)
+    chosen = gc.bwd_split(*tmask.shape, gc._sm_count(0))
+    shares = gc.worker_tiles(tmask, chosen).double()
+    col_live = tmask.bool().sum(0).double()
+    stats["gsr_bwd_dn3"]["split"] = {
+        "split": list(chosen), "blocks": tmask.shape[1] * chosen[1],
+        "threads_per_block": gc.TN * chosen[0], "ms": ms["chosen"],
+        "ms_by_split": ms, "best_split": best,
+        "worker_tiles_mean": float(shares.mean()),
+        "worker_tiles_max": int(shares.max()),
+        "splits_checked": len(splits) * len(variants),
+        "max_rel_err_splits": err, "bitwise_repeat": True}
+    # the walked pairs a box test on the rows' radii would let through
+    # (the kernel does not box them: timed slower, csrc/gsr_centered.cu)
+    box = _box_pairs(tmask, x_c, muT, rad10, gc.TB, gc.TN)
     shapes["bwd_dn3"] = {"B": B, "data_rows": rows,
                          "boundary_rows": xb.shape[0], "N": N,
                          "live_tile_fraction": float(tmask.float().mean()),
+                         "column_live_tiles_mean": float(col_live.mean()),
+                         "column_live_tiles_max": int(col_live.max()),
+                         "walked_pairs": live, "box_pairs": box,
+                         "box_fraction": box / max(live, 1),
                          "support_pairs_data": sup_d,
                          "support_pairs_boundary": sup_b}
 
@@ -1056,40 +1087,27 @@ def kernel_phase_rest(device):
                           w_, n) for w_, n in zip(walked[:4], sup[:4])] \
         + [pair_ops(OPS_GEOMETRY[2], OPS_SUPPORT[(2, "fwd")], walked[4],
                     sup[4])]
-    variants = [(lambda nj=nj: rk.fused_rk4(x, muT, ppT, v, dt, clamp, nj,
-                                            rad, lo, hi),
-                 lambda nj=nj: rk.rk4_plain(x, muT, ppT, v, dt, clamp, nj))
-                for nj in (2, 0)]
+    variants = [(nj, lambda split=None, nj=nj: rk.fused_rk4(
+        x, muT, ppT, v, dt, clamp, nj, rad, lo, hi, split=split),
+        lambda nj=nj: rk.rk4_plain(x, muT, ppT, v, dt, clamp, nj))
+        for nj in (2, 0)]
     entry("rk4_fused", "rk4",
-          tuple(sum(o[i] for o in stage_ops) for i in range(2)), variants,
+          tuple(sum(o[i] for o in stage_ops) for i in range(2)),
+          [(k, p_) for _, k, p_ in variants],
           4 * x.numel() + par_bytes + 4 * x.shape[0] * (2 + 6),
           sum(walked), sum(sup))
     # every split S against the plain twin, two launches bitwise equal,
     # each split timed
     splits = [None] + list(gc.SPLIT_S)
-    errs = []
-    for nj in (2, 0):
-        want = rk.rk4_plain(x, muT, ppT, v, dt, clamp, nj)
-        for sp in splits:
-            a, b = (rk.fused_rk4(x, muT, ppT, v, dt, clamp, nj, rad, lo, hi,
-                                 split=sp) for _ in range(2))
-            if not all(torch.equal(p_, q_) for p_, q_ in zip(a, b)):
-                raise AssertionError(f"rk4_fused[{nj}] at split {sp}: two "
-                                     f"launches differ")
-            errs.append(compare(f"rk4_fused[{nj}, S={_fwd_key(sp)}]", a,
-                                want, TOL)[1])
-    torch.cuda.synchronize()
-    ms = {_fwd_key(sp): time_ms(lambda sp=sp: rk.fused_rk4(
-        x, muT, ppT, v, dt, clamp, 2, rad, lo, hi, split=sp))
-        for sp in splits}
+    err = check_splits("rk4_fused", splits, variants)
+    ms, best = time_splits(variants[0][1], splits)
     chosen = gc.fwd_split(x.shape[0] // rk.TB, N // rk.TN, gc._sm_count(0))
     pairs = x.shape[0] * N
     stats["rk4_fused"]["split"] = {
         "split": chosen, "blocks": x.shape[0] // rk.TB * chosen,
         "ms": ms["chosen"], "ms_1": ms["1"], "ms_by_split": ms,
-        "best_split": min((k for k in ms if k != "chosen"), key=ms.get),
-        "splits_checked": 2 * len(splits),
-        "max_rel_err_splits": max(errs), "bitwise_repeat": True}
+        "best_split": best, "splits_checked": 2 * len(splits),
+        "max_rel_err_splits": err, "bitwise_repeat": True}
     shapes["rk4_fused"] = {
         "B": x.shape[0], "N": N, "dt": dt, "pairs_per_stage": pairs,
         "tile_pairs_per_stage": meets[0].numel(),
@@ -1355,6 +1373,7 @@ def epoch_heads(mix, spec):
     from gaussian_fluids_torch.ops import field, gsr_centered
     from gaussian_fluids_torch.scenes import get_scene_2d
     from gaussian_fluids_torch.solver import covector, losses
+    from gaussian_fluids_torch.utils.seeded_state import karman_boundary_rows
 
     x, lo, hi, gen = _projection_batch(mix, spec, 8)
     scene = get_scene_2d("karman")

@@ -167,8 +167,8 @@ cells_bwd_split_kernel(const int* __restrict__ gtiles,
     __syncthreads();   // the next window refills the list and the rows
     if (!more) break;
   }
-  dn_meet_store<D, VDIM, NCOT>(red, g, w, W, s, S, n, N, accm, accv, dmp1,
-                               dv1, dmp2, dv2);
+  dn_meet_store<D, VDIM, NCOT>(red, g, w, W, s, S, n, N, accm, accv,
+                               DnOut{{dmp1, dmp2}, {dv1, dv2}});
 }
 
 struct FwdLaunch {

@@ -2,17 +2,18 @@
 // (sm_90a): the centered geometry of one query-Gaussian pair, the
 // backward accumulations, for d = 2 and 3 and vdim = 1, 2, 3; the staging
 // of Gaussian tiles in shared memory by cp.async with the block compaction
-// of the tiles to stage; the staged forward walk (fwd_walk) that the
-// centered forward and the cells forward share, its sweep (fwd_sweep),
-// which the fused RK4 kernel runs at each stage over the tiles of its box
-// test (BoxTiles), and the split parameter backward's tile step and its
-// fixed-order meeting of partial sums (dn_tile, dn_meet_store), shared by
-// the centered and the cells backwards. Included by gsr_centered.cu (the
-// tile-masked sweep), gsr_cells.cu (the work-list walk), gsr_banded.cu
-// (the replay's windowed value) and rk4_fused.cu (the fused RK4
-// backtrace); all compute the same terms over the same pairs as their
-// plain twins (a box test skips only pairs outside a row's support box,
-// which add nothing).
+// of the tiles to stage; the staged sweep of a query tile over its live
+// Gaussian tiles (fwd_sweep, templated on the per-pair body: the forward's
+// accumulation in the centered and the cells forwards and the fused RK4
+// kernel, dL/dx in the centered dL/dx kernel) with its fixed-order meeting
+// of a query's sums (query_meet); and the split parameter backward's tile
+// step and its fixed-order meeting of partial sums (dn_tile,
+// dn_meet_store), shared by the centered and the cells backwards.
+// Included by gsr_centered.cu (the tile-masked kernels), gsr_cells.cu (the
+// work-list kernels), gsr_banded.cu (the replay's windowed value) and
+// rk4_fused.cu (the fused RK4 backtrace); all compute the same terms over
+// the same pairs as their plain twins (a box test skips only pairs
+// outside a row's support box, which add nothing).
 //
 // Math (the TPU kernels' _tile_quantities, all f32 on the CUDA cores):
 //   delta = x - mu;  Pd_k = sum_j P_kj delta_j;  quad = delta.Pd + bias
@@ -215,46 +216,32 @@ __device__ __forceinline__ void dn_accumulate(
   accm[D + Dims<D>::NB] += gquad;   // dead-row bias
 }
 
-// Backward: the Gaussian G (one thread) against the TB queries of tile i,
-// for NCOT cotangent blocks sharing one geometry.
-template <int D, int VDIM, int NCOT>
-__device__ __forceinline__ void bwd_tile(
-    int i, const float* __restrict__ x, const Gauss<D>& G, const float* vv,
-    const float* __restrict__ dout1, const float* __restrict__ dout2,
-    int njac, int use_val, float clamp, float (*accm)[Dims<D>::NMP],
-    float (*accv)[VDIM]) {
-  const int cols = (1 + njac) * VDIM;
-  for (int r = 0; r < TB; ++r) {
-    const int b = i * TB + r;
-    const Geom<D> q = centered<D>(x + b * D, G);
-    // every term carries the mask m = g >= clamp
-    if (!(q.g >= clamp)) continue;
-    dn_accumulate<D, VDIM>(q, dout1 + b * cols, vv, G.p, njac, use_val,
-                           clamp, accm[0], accv[0]);
-    if (NCOT == 2)
-      dn_accumulate<D, VDIM>(q, dout2 + b * cols, vv, G.p, njac, use_val,
-                             clamp, accm[NCOT - 1], accv[NCOT - 1]);
-  }
-}
+// The outputs of up to MAX_NCOT cotangent blocks: block c's parameter rows
+// dmp[c] (D + NP, N) and values dv[c] (N, VDIM).
+constexpr int MAX_NCOT = 3;
+struct DnOut {
+  float* dmp[MAX_NCOT];
+  float* dv[MAX_NCOT];
+};
 
 template <int D, int VDIM, int NCOT>
-__device__ __forceinline__ void bwd_store(
-    int n, int N, float (*accm)[Dims<D>::NMP], float (*accv)[VDIM],
-    float* __restrict__ dmp1, float* __restrict__ dv1,
-    float* __restrict__ dmp2, float* __restrict__ dv2) {
+__device__ __forceinline__ void bwd_store(int n, int N,
+                                          float (*accm)[Dims<D>::NMP],
+                                          float (*accv)[VDIM],
+                                          const DnOut& out) {
+  static_assert(NCOT <= MAX_NCOT, "at most MAX_NCOT blocks");
 #pragma unroll
   for (int c = 0; c < NCOT; ++c) {
-    float* dmp = c == 0 ? dmp1 : dmp2;
-    float* dv = c == 0 ? dv1 : dv2;
 #pragma unroll
-    for (int k = 0; k < Dims<D>::NMP; ++k) dmp[k * N + n] = accm[c][k];
+    for (int k = 0; k < Dims<D>::NMP; ++k)
+      out.dmp[c][k * N + n] = accm[c][k];
 #pragma unroll
-    for (int a = 0; a < VDIM; ++a) dv[n * VDIM + a] = accv[c][a];
+    for (int a = 0; a < VDIM; ++a) out.dv[c][n * VDIM + a] = accv[c][a];
   }
 }
 
-// The split parameter backward (the centered rows 2 and 3, the cells
-// row 7): each Gaussian gets W x S threads, W workers of TN threads a
+// The split parameter backward (the centered rows 2, 3 and 10, the cells
+// rows 6 and 7): each Gaussian gets W x S threads, W workers of TN threads a
 // block and S blocks of a thread-block cluster, each walking an equal
 // share of its tile's live query tiles. Its limits: at most MAX_W workers
 // a block and MAX_S blocks a cluster (the portable cluster maximum).
@@ -274,7 +261,8 @@ constexpr int dn_sums() {   // the partial sums a thread keeps
 // The Gaussian G (one thread) against the TB queries of one tile, x rows
 // at xt and xg (the same values: xt may be a copy in registers, indexed
 // here only by constants; xg in global memory), cotangent rows at d1 and
-// d2 (cols apart), every term and its order bwd_tile's. Unboxed, the
+// d2 (cols apart), for NCOT <= 2 blocks sharing one geometry, the pairs
+// in query order and each pair's terms dn_accumulate's. Unboxed, the
 // support test of all TB pairs runs first as independent chains, then
 // the accumulation of the pairs inside, in query order, the recomputed
 // geometry bitwise the tested one. BOXED first tests every query against
@@ -292,6 +280,7 @@ __device__ __forceinline__ void dn_tile(const float* xt, const float* xg,
                                         int use_val, float clamp,
                                         float (*accm)[Dims<D>::NMP],
                                         float (*accv)[VDIM]) {
+  static_assert(NCOT <= 2, "dn_tile takes one or two blocks");
   unsigned in = 0;
   if (BOXED) {
 #pragma unroll
@@ -357,11 +346,12 @@ __device__ __forceinline__ void add_sums(const float* slot, int g,
 // stores. One owner and one fixed order per output element, no atomics.
 // Every thread of the cluster calls it.
 template <int D, int VDIM, int NCOT>
-__device__ __forceinline__ void dn_meet_store(
-    float* red, int g, int w, int W, int s, int S, int n, int N,
-    float (*accm)[Dims<D>::NMP], float (*accv)[VDIM],
-    float* __restrict__ dmp1, float* __restrict__ dv1,
-    float* __restrict__ dmp2, float* __restrict__ dv2) {
+__device__ __forceinline__ void dn_meet_store(float* red, int g, int w,
+                                              int W, int s, int S, int n,
+                                              int N,
+                                              float (*accm)[Dims<D>::NMP],
+                                              float (*accv)[VDIM],
+                                              const DnOut& out) {
   for (int r = 1; r < W; ++r) {
     if (w == r) put_sums<D, VDIM, NCOT>(red, g, accm, accv);
     __syncthreads();
@@ -380,8 +370,7 @@ __device__ __forceinline__ void dn_meet_store(
     }
     cluster.sync();   // the other blocks' slots stay until rank 0 read them
   }
-  if (w == 0 && s == 0)
-    bwd_store<D, VDIM, NCOT>(n, N, accm, accv, dmp1, dv1, dmp2, dv2);
+  if (w == 0 && s == 0) bwd_store<D, VDIM, NCOT>(n, N, accm, accv, out);
 }
 
 // Asynchronous 16-byte copies from global to shared memory (sm_80+
@@ -603,7 +592,8 @@ __device__ __forceinline__ int compact_window(const LiveTiles<WORKLIST>& src,
 }
 
 // The staged forward walk (the centered forward, row 1, and the cells
-// forward, row 5). Of the pairs of the live tiles at Ring-Collide only
+// forward, row 5; its sweep also runs the fused RK4 stages, row 9, and
+// dL/dx, row 4). Of the pairs of the live tiles at Ring-Collide only
 // ~1.3% have the query inside the Gaussian's support box, and a warp that
 // loads its tile from global memory itself has only two pairs a lane
 // before its next dependent load. So the block, query tile i (FWD_SLOTS
@@ -673,16 +663,43 @@ struct BoxTiles {
   }
 };
 
+// The forward's pair body: the value and njac Jacobian groups of one pair
+// inside the support (g >= clamp), v read from the staged tile t, added to
+// the query's partial sums acc.
+template <int D, int VDIM>
+struct FwdPair {
+  float* acc;
+  int njac;
+  float clamp;
+  __device__ __forceinline__ void operator()(const Geom<D>& qg,
+                                             const Gauss<D>&, const float* t,
+                                             int n) const {
+    const float gc = qg.g - clamp;
+#pragma unroll
+    for (int a = 0; a < VDIM; ++a) {
+      const float va = t[StagedTile<D, VDIM>::V + n * VDIM + a];
+      acc[a] += gc * va;
+      if (njac) {
+#pragma unroll
+        for (int k = 0; k < D; ++k)
+          acc[(1 + k) * VDIM + a] += -qg.g * qg.pd[k] * va;
+      }
+    }
+  }
+};
+
 // The staged sweep of fwd_walk: this thread's query xq (registers) against
 // FWD_ROWS rows of every live tile that src gives (a LiveTiles or a
 // BoxTiles), rank s of S walking places s, s + S, ... of the compacted
-// list; adds the query's partial sums (njac Jacobian groups) to acc.
-// Every thread of the block calls it; it leaves no copy in flight, and a
-// __syncthreads lies between its start and its end.
-template <int D, int VDIM, class Src>
+// list; calls pair(geometry, Gaussian, staged tile, row) for every pair
+// inside the support, tiles in order, rows ascending (FwdPair: the
+// forward's sums; DxPair in gsr_centered.cu: dL/dx). Every thread of the
+// block calls it; it leaves no copy in flight, and a __syncthreads lies
+// between its start and its end.
+template <int D, int VDIM, class Src, class Pair>
 __device__ __forceinline__ void fwd_sweep(
     const Src& src, const float* xq, const Stager<D, VDIM, FWD_THREADS>& st,
-    int njac, float clamp, FwdSmem<D, VDIM>& sm, float* acc) {
+    float clamp, FwdSmem<D, VDIM>& sm, const Pair& pair) {
   constexpr int NB = Dims<D>::NB;
   using ST = StagedTile<D, VDIM>;
   const int tid = threadIdx.x;
@@ -726,19 +743,7 @@ __device__ __forceinline__ void fwd_sweep(
       for (int k = 0; k < NB; ++k) G.p[k] = t[ST::PP + k * TN + n];
       G.bias = t[ST::PP + NB * TN + n];
       const Geom<D> qg = centered<D>(xq, G);
-      if (qg.g >= clamp) {
-        const float gc = qg.g - clamp;
-#pragma unroll
-        for (int a = 0; a < VDIM; ++a) {
-          const float va = t[ST::V + n * VDIM + a];
-          acc[a] += gc * va;
-          if (njac) {
-#pragma unroll
-            for (int k = 0; k < D; ++k)
-              acc[(1 + k) * VDIM + a] += -qg.g * qg.pd[k] * va;
-          }
-        }
-      }
+      if (qg.g >= clamp) pair(qg, G, t, n);
     }
   };
 
@@ -755,6 +760,40 @@ __device__ __forceinline__ void fwd_sweep(
         sm.stage, st, eval, S);
     seen += cnt;
     if (src.last(base + FWD_THREADS, cnt, FWD_THREADS)) break;
+  }
+}
+
+// A query's NACC partial sums after fwd_sweep (thread (q, slot), rank s
+// of S): its FWD_SLOTS threads' meet in one fixed butterfly tree, then the
+// S ranks' in rank order through distributed shared memory (the block's
+// first staging buffer, free after the sweep: no copy in flight, every
+// read of it behind a __syncthreads), added by rank 0, whose first slot
+// then holds the query's sums and alone stores them. Every thread of the
+// cluster calls it.
+template <int NACC, int D, int VDIM>
+__device__ __forceinline__ void query_meet(float* acc, FwdSmem<D, VDIM>& sm,
+                                           int q, int slot, int s, int S) {
+#pragma unroll
+  for (int k = 0; k < NACC; ++k)
+    for (int off = FWD_SLOTS / 2; off > 0; off >>= 1)
+      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+  if (S > 1) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    float* red = sm.stage[0] + q * NACC;
+    if (slot == 0 && s > 0) {
+#pragma unroll
+      for (int k = 0; k < NACC; ++k) red[k] = acc[k];
+    }
+    cluster.sync();
+    if (slot == 0 && s == 0) {
+      for (int r = 1; r < S; ++r) {
+        const float* o = cluster.map_shared_rank(red, r);
+#pragma unroll
+        for (int k = 0; k < NACC; ++k) acc[k] += o[k];
+      }
+    }
+    cluster.sync();   // the other blocks' sums stay until rank 0 read them
   }
 }
 
@@ -777,33 +816,9 @@ __device__ __forceinline__ void fwd_walk(
 #pragma unroll
   for (int k = 0; k < NACC; ++k) acc[k] = 0.f;
   const Stager<D, VDIM, FWD_THREADS> st(muT, ppT, rad, v, N);
-  fwd_sweep<D, VDIM>(src, xq, st, njac, clamp, sm, acc);
-
-  // the query's FWD_SLOTS partial sums, one fixed butterfly tree
-#pragma unroll
-  for (int k = 0; k < NACC; ++k)
-    for (int off = FWD_SLOTS / 2; off > 0; off >>= 1)
-      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-  // the ranks' sums in rank order, through the first staging buffer (free:
-  // no copy in flight, every read of it behind a __syncthreads)
-  if (S > 1) {
-    namespace cg = cooperative_groups;
-    cg::cluster_group cluster = cg::this_cluster();
-    float* red = sm.stage[0] + q * NACC;
-    if (slot == 0 && s > 0) {
-#pragma unroll
-      for (int k = 0; k < NACC; ++k) red[k] = acc[k];
-    }
-    cluster.sync();
-    if (slot == 0 && s == 0) {
-      for (int r = 1; r < S; ++r) {
-        const float* o = cluster.map_shared_rank(red, r);
-#pragma unroll
-        for (int k = 0; k < NACC; ++k) acc[k] += o[k];
-      }
-    }
-    cluster.sync();   // the other blocks' sums stay until rank 0 read them
-  }
+  fwd_sweep<D, VDIM>(src, xq, st, clamp, sm,
+                     FwdPair<D, VDIM>{acc, njac, clamp});
+  query_meet<NACC>(acc, sm, q, slot, s, S);
   if (s == 0 && slot == 0) {
     const int ncol = (1 + njac) * VDIM;
     for (int k = 0; k < ncol; ++k) out[b * ncol + k] = acc[k];

@@ -104,7 +104,8 @@ rk4_fused_kernel(const float* __restrict__ x, const float* __restrict__ muT,
     float tot[NACC];
 #pragma unroll
     for (int k = 0; k < NACC; ++k) tot[k] = 0.f;
-    fwd_sweep<D, VDIM>(src, p, st, nj, clamp, sm, tot);
+    fwd_sweep<D, VDIM>(src, p, st, clamp, sm,
+                       FwdPair<D, VDIM>{tot, nj, clamp});
     // the query's FWD_SLOTS partial sums, one fixed butterfly tree: every
     // slot holds the same sums (a + b == b + a)
 #pragma unroll

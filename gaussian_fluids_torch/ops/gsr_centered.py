@@ -20,13 +20,14 @@ a CPU tensor runs the plain PyTorch version below, which repeats the
 kernel's arithmetic on whole (B, N) planes with the tile mask expanded.
 There is no fallback from the kernel to the plain version.
 
-The forward stages each live Gaussian tile once per block and box-tests
-every pair on the rows' dilated radii (``rad``, ``field.row_radius``)
-before its geometry; where the query tiles are few it splits each query
-tile over S blocks of a cluster (``fwd_split`` picks S). The parameter
-backwards split each Gaussian tile's live query tiles over W x S threads
-a Gaussian (``bwd_split`` picks W and S from the shape and the card's SM
-count). ``split=`` forces either in tests and the smoke run.
+The forward and dL/dx stage each live Gaussian tile once per block and
+box-test every pair on the rows' dilated radii (``rad``,
+``field.row_radius``) before its geometry; where the query tiles are few
+they split each query tile over S blocks of a cluster (``fwd_split``
+picks S). The parameter backwards split each Gaussian tile's live query
+tiles over W x S threads a Gaussian (``bwd_split`` picks W and S from the
+shape and the card's SM count). ``split=`` forces either in tests and
+the smoke run.
 
 The kernels take d = 2 or 3 and vdim = 1, 2 or 3 (templates on both).
 The shared library is built with ``nvcc`` at first use into
@@ -111,9 +112,10 @@ def _lib():
         lib.gsr_bwd_dn2.argtypes = [_P] * 11 + [_I] * 6 + [_F] + [_I] * 2 \
             + [_P]
         lib.gsr_bwd_dn2.restype = _I
-        lib.gsr_bwd_dx.argtypes = [_P] * 7 + [_I] * 5 + [_F, _P]
+        lib.gsr_bwd_dx.argtypes = [_P] * 8 + [_I] * 5 + [_F, _I, _P]
         lib.gsr_bwd_dx.restype = _I
-        lib.gsr_bwd_dn3.argtypes = [_P] * 14 + [_I] * 7 + [_F, _P]
+        lib.gsr_bwd_dn3.argtypes = [_P] * 14 + [_I] * 7 + [_F] + [_I] * 2 \
+            + [_P]
         lib.gsr_bwd_dn3.restype = _I
         tb, tn = _I(), _I()
         lib.gsr_tile_sizes(ctypes.byref(tb), ctypes.byref(tn))
@@ -166,26 +168,33 @@ def bwd_split(nbt: int, nnt: int, sm_count: int) -> Tuple[int, int]:
 
 
 # The forward's block: TB queries of FWD_SLOTS threads (csrc/gsr_tile.cuh);
-# fwd_split aims at FWD_FILL_WARPS warps an SM.
+# fwd_split aims at FWD_FILL_WARPS warps an SM. dL/dx runs the forward's
+# walk with more work a pair in the support, and splits down to
+# DX_MIN_TILES Gaussian tiles a rank (chip_smoke.py on an H100 at d = 3,
+# B = 1024: S = 4 0.0108 ms, S = 1 0.0139).
 FWD_WARPS = TB * 16 // 32
 FWD_FILL_WARPS = 16
+FWD_MIN_TILES = 16
+DX_MIN_TILES = 4
 
 
-def fwd_split(nbt: int, nnt: int, sm_count: int) -> int:
+def fwd_split(nbt: int, nnt: int, sm_count: int,
+              min_tiles: int = FWD_MIN_TILES) -> int:
     """S, the blocks of a cluster that share each query tile of the
     forward, over ``nbt`` query tiles and ``nnt`` Gaussian tiles on a card
     of ``sm_count`` SMs. S doubles until the launch holds FWD_FILL_WARPS
     warps an SM (a quarter of what an SM holds) or S reaches 8; then
-    halves until every rank has at least 16 Gaussian tiles of its row to
-    draw on (at 10-50% live, 2-8 to walk), and so never more ranks than
-    Gaussian tiles. On an H100: Leapfrog-2D (64 query tiles) 4, Karman-2D
-    8, Leapfrog-3D 1; Ring-Collide 2 at 4096 queries, 1 at 8192 and
-    32,768."""
+    halves until every rank has at least ``min_tiles`` Gaussian tiles of
+    its row to draw on (the forward's 16: at 10-50% live, 2-8 to walk), and
+    so never more ranks than Gaussian tiles. On an H100: Leapfrog-2D (64
+    query tiles) 4, Karman-2D 8, Leapfrog-3D 1; Ring-Collide 2 at 4096
+    queries, 1 at 8192 and 32,768; dL/dx (``DX_MIN_TILES``) Karman-2D 8,
+    Leapfrog-3D 4 at 1024 queries and 1 at 8192."""
     s = 1
     while nbt * s * FWD_WARPS < FWD_FILL_WARPS * sm_count \
             and s < SPLIT_S[-1]:
         s *= 2
-    while s > 1 and nnt < 16 * s:
+    while s > 1 and nnt < min_tiles * s:
         s //= 2
     return s
 
@@ -233,12 +242,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch_fwd_split(split, x, tmask) -> int:
+def _launch_fwd_split(split, x, tmask, min_tiles=FWD_MIN_TILES) -> int:
     """The forced split, or ``fwd_split``'s for this shape on x's card."""
     if split is not None:
         return split
     return fwd_split(tmask.shape[0], tmask.shape[1],
-                     _sm_count(x.device.index))
+                     _sm_count(x.device.index), min_tiles)
 
 
 def _launch_split(split, x, tmask) -> Tuple[int, int]:
@@ -606,17 +615,25 @@ def gsr_bwd_dn2(tmask, x, muT, ppT, values, dout1, dout2, clamp: float,
     return (dmp1[:d], dmp1[d:], dv1), (dmp2[:d], dmp2[d:], dv2)
 
 
-def gsr_bwd_dx(tmask, x, muT, ppT, values, dout, clamp: float, njac: int):
-    """dL/dx (B, d) for the cotangent ``dout`` (B, (1+njac)*vdim)."""
+def gsr_bwd_dx(tmask, x, muT, ppT, values, dout, clamp: float, njac: int,
+               rad, split=None):
+    """dL/dx (B, d) for the cotangent ``dout`` (B, (1+njac)*vdim).
+    ``rad`` and ``split`` S as for ``gsr_fwd``, whose staged walk the
+    kernel runs (by default ``fwd_split`` at ``DX_MIN_TILES``); the plain
+    version reads neither."""
+    _check_fwd_split(split)
     d, vdim, B, N = _check(tmask, x, muT, ppT, values, njac, (dout,))
+    check_rad(rad, x, N, (muT, ppT, values))
     if not x.is_cuda:
         return bwd_dx_plain(tmask, x, muT, ppT, values, dout, clamp, njac)
     lib = _lib()
+    s = _launch_fwd_split(split, x, tmask, DX_MIN_TILES)
     dx = torch.empty((B, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.gsr_bwd_dx(_ptr(tmask), _ptr(x), _ptr(muT), _ptr(ppT),
-                            _ptr(values), _ptr(dout), _ptr(dx), B, N, d,
-                            vdim, njac, float(clamp), _stream(x))
+                            _ptr(rad), _ptr(values), _ptr(dout), _ptr(dx),
+                            B, N, d, vdim, njac, float(clamp), s,
+                            _stream(x))
     _raise_on(rc, "gsr_bwd_dx")
     launches["gsr_bwd_dx"] += 1
     return dx
@@ -624,15 +641,16 @@ def gsr_bwd_dx(tmask, x, muT, ppT, values, dout, clamp: float, njac: int):
 
 def gsr_bwd_dn3(tmask, x, muT, ppT, values, dout1, dout2, dout3,
                 clamp: float, njac: int, data_rows: int,
-                use_val12: bool = True):
+                use_val12: bool = True, split=None):
     """Three (dmuT, dppT, dv) blocks in one sweep over the fused [data;
     boundary] rows: blocks 1 and 2 from the (val, jac) cotangents ``dout1``
     and ``dout2`` on the first ``data_rows`` rows (a multiple of the query
     tile), block 3 from the value-only cotangent ``dout3`` (B, vdim) on the
     rows after them. ``use_val12=False`` promises zero value cotangents in
-    blocks 1 and 2."""
+    blocks 1 and 2. ``split`` (W, S) as for ``gsr_bwd_dn``."""
     if not use_val12 and njac == 0:
         raise ValueError("use_val12=False needs Jacobian columns")
+    _check_split(split)
     d, vdim, B, N = _check(tmask, x, muT, ppT, values, njac, (dout1, dout2))
     _check(tmask, x, muT, ppT, values, 0, (dout3,))
     tb = B // tmask.shape[0]
@@ -644,6 +662,7 @@ def gsr_bwd_dn3(tmask, x, muT, ppT, values, dout1, dout2, dout3,
         return bwd_dn3_plain(tmask, x, muT, ppT, values, dout1, dout2,
                              dout3, clamp, njac, data_rows, use_val12)
     lib = _lib()
+    w, s = _launch_split(split, x, tmask)
     nmp = d + ppT.shape[0]
     dmp = [torch.empty((nmp, N), dtype=torch.float32, device=x.device)
            for _ in range(3)]
@@ -656,7 +675,7 @@ def gsr_bwd_dn3(tmask, x, muT, ppT, values, dout1, dout2, dout3,
                              _ptr(dmp[1]), _ptr(dv[1]), _ptr(dmp[2]),
                              _ptr(dv[2]), B, N, d, vdim, njac,
                              int(use_val12), int(data_rows), float(clamp),
-                             _stream(x))
+                             w, s, _stream(x))
     _raise_on(rc, "gsr_bwd_dn3")
     launches["gsr_bwd_dn3"] += 1
     return tuple((m[:d], m[d:], v) for m, v in zip(dmp, dv))
@@ -670,18 +689,18 @@ class _FusedGsrCentered(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tmask, x, muT, ppT, values, rad, clamp, njac):
-        ctx.save_for_backward(tmask, x, muT, ppT, values)
+        ctx.save_for_backward(tmask, x, muT, ppT, values, rad)
         ctx.clamp, ctx.njac = clamp, njac
         return gsr_fwd(tmask, x, muT, ppT, values, clamp, njac, rad)
 
     @staticmethod
     def backward(ctx, dout):
-        tmask, x, muT, ppT, values = ctx.saved_tensors
+        tmask, x, muT, ppT, values, rad = ctx.saved_tensors
         dout = dout.contiguous()
         dx = dmuT = dppT = dv = None
         if ctx.needs_input_grad[1]:
             dx = gsr_bwd_dx(tmask, x, muT, ppT, values, dout, ctx.clamp,
-                            ctx.njac)
+                            ctx.njac, rad)
         if any(ctx.needs_input_grad[2:5]):
             dmuT, dppT, dv = gsr_bwd_dn(tmask, x, muT, ppT, values, dout,
                                         ctx.clamp, ctx.njac)
@@ -691,6 +710,7 @@ class _FusedGsrCentered(torch.autograd.Function):
 def fused_gsr_centered(tmask, x, muT, ppT, values, clamp: float, njac: int,
                        rad):
     """Differentiable in (muT, ppT, values) and in x. ``rad``: the rows'
-    dilated radii of the forward's box test (``gsr_fwd``)."""
+    dilated radii of the forward's and dL/dx's box tests (``gsr_fwd``,
+    ``gsr_bwd_dx``)."""
     return _FusedGsrCentered.apply(tmask, x, muT, ppT, values, rad,
                                    float(clamp), int(njac))

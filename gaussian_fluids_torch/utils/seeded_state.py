@@ -87,3 +87,16 @@ def karman_state(device, seed: int = 0, n_queries: int = 512):
     x = rng.uniform(lo, hi, (n_queries, 2)).astype(np.float32)
     x = torch.as_tensor(x[np.argsort(x[:, 0])], device=device)
     return mix, spec, x
+
+
+def karman_boundary_rows(scene, gen, n, device):
+    """The Karman scene's boundary batches as one projection epoch draws
+    them (the cylinder's n Dirichlet points, the edges' 5n flux points),
+    sorted along x as one segment, with the order that undoes the sort:
+    the boundary rows of the fused [data; boundary] projection geometry."""
+    adv = torch.tensor(scene.advance_domain, device=device)
+    b1 = scene.boundary_sampler_1(gen, n, adv)
+    b2 = scene.boundary_sampler_2(gen, n, adv)
+    pts = torch.cat([b1[0], b2[0]])
+    order = torch.argsort(pts[:, 0])
+    return pts[order].contiguous(), torch.argsort(order), b1, b2

@@ -3,16 +3,20 @@ CPU: the host rule ``bwd_split`` at the main paths' shapes and for other
 SM counts, its limits (never more workers than query tiles, only the
 splits the kernel takes), the workers' shares of the live query tiles
 (``worker_tiles``, the kernel's equal contiguous shares of each window's
-compacted list) against a direct count, and the wrappers' refusal of a
-forced split the kernel does not take, before any launch. The kernel at
-every split against its plain twin is in tests/test_torch_cuda.py, which
-runs on the card."""
+compacted list) against a direct count, also on the triple backward's
+fused [data; boundary] mask at Karman-2D, and the wrappers' refusal of a
+forced split the kernel does not take, before any launch — for dL/dx
+(split S along the Gaussian axis) and the triple backward too, with
+dL/dx's refusal of bad radii. The kernels at every split against their
+plain twins are in tests/test_torch_cuda.py, which runs on the card."""
 
 import numpy as np
 import pytest
 import torch
 
 from gaussian_fluids_torch.ops import gsr_centered as tk
+
+from torch_parity import karman_heads_geometry
 
 H100_SMS = 132
 
@@ -152,3 +156,97 @@ def test_split_on_the_cpu_is_the_plain_twin(split):
     want = tk.bwd_dn2_plain(*args, *douts, 0.01, 3, use_val=False)
     _same(got[0] + got[1], want[0] + want[1])
     assert not any(tk.launches.values())
+
+
+# ---- rows 4 (dL/dx) and 10 (the triple backward) ----
+
+def _dn3_args():
+    """The small CPU inputs with a value-only cotangent for the triple
+    backward (blocks 1 and 2 on the first 32 rows, block 3 on the rest)
+    and rows' radii for dL/dx's box test."""
+    args, douts = _cpu_inputs()
+    dout3 = douts[0][:, :3].contiguous()
+    rad = torch.full((args[2].shape[1],), 0.5)
+    return args, douts, dout3, rad
+
+
+BAD_FWD_SPLITS = [0, 3, 16, -1, (2, 1), [4], "4", 2.0, True]
+
+
+@pytest.mark.parametrize("bad", BAD_SPLITS)
+def test_dn3_refuses_a_split_the_kernel_does_not_take(bad):
+    args, douts, dout3, _ = _dn3_args()
+    tk.reset_launches()
+    with pytest.raises(ValueError, match="split"):
+        tk.gsr_bwd_dn3(*args, *douts, dout3, 0.01, 3, 32, split=bad)
+    assert not any(tk.launches.values())
+
+
+@pytest.mark.parametrize("bad", BAD_FWD_SPLITS)
+def test_dx_refuses_a_split_the_kernel_does_not_take(bad):
+    args, douts, _, rad = _dn3_args()
+    tk.reset_launches()
+    with pytest.raises(ValueError, match="split"):
+        tk.gsr_bwd_dx(*args, douts[0], 0.01, 3, rad, split=bad)
+    assert not any(tk.launches.values())
+
+
+@pytest.mark.parametrize("bad", ["short", "long", "matrix", "none", "list"])
+def test_dx_refuses_bad_radii(bad):
+    args, douts, _, rad = _dn3_args()
+    bad_rad = {"short": rad[:-1], "long": torch.cat([rad, rad[:1]]),
+               "matrix": rad[:, None], "none": None,
+               "list": rad.tolist()}[bad]
+    tk.reset_launches()
+    with pytest.raises(ValueError, match="rad"):
+        tk.gsr_bwd_dx(*args, douts[0], 0.01, 3, bad_rad)
+    assert not any(tk.launches.values())
+
+
+@pytest.mark.parametrize("split", [None, 1, 8])
+def test_dx_split_on_the_cpu_is_the_plain_twin(split):
+    args, douts, _, rad = _dn3_args()
+    tk.reset_launches()
+    for njac, dout in ((3, douts[0]), (0, douts[0][:, :3].contiguous())):
+        _same([tk.gsr_bwd_dx(*args, dout, 0.01, njac, rad, split=split)],
+              [tk.bwd_dx_plain(*args, dout, 0.01, njac)])
+    assert not any(tk.launches.values())
+
+
+@pytest.mark.parametrize("split", [None, (1, 1), (8, 1), (8, 8)])
+def test_dn3_split_on_the_cpu_is_the_plain_twin(split):
+    args, douts, dout3, _ = _dn3_args()
+    tk.reset_launches()
+    for use_val12 in (True, False):
+        got = tk.gsr_bwd_dn3(*args, *douts, dout3, 0.01, 3, 32,
+                             use_val12=use_val12, split=split)
+        want = tk.bwd_dn3_plain(*args, *douts, dout3, 0.01, 3, 32,
+                                use_val12=use_val12)
+        _same([t for blk in got for t in blk],
+              [t for blk in want for t in blk])
+    assert not any(tk.launches.values())
+
+
+@pytest.mark.parametrize("split", [(1, 1), (8, 1), (4, 2), (2, 8), (8, 8)])
+def test_worker_tiles_give_each_fused_karman_tile_to_one_worker(split):
+    """The triple backward's mask at the smoke's Karman-2D shapes (512
+    data rows, 3072 boundary rows: 448 query tiles, one window): each
+    column's compacted live query tiles cut into the kernel's contiguous
+    shares go to exactly one worker each, in order, and ``worker_tiles``
+    counts those shares. Its busiest column holds ~7 times the mean."""
+    tmask = karman_heads_geometry()[7]
+    assert tmask.shape == (448, 384) and tmask.shape[0] <= tk.LIST_CAP
+    u_all = split[0] * split[1]
+    got = tk.worker_tiles(tmask, split)
+    live = tmask != 0
+    for j in range(tmask.shape[1]):
+        tiles = torch.nonzero(live[:, j]).flatten().tolist()
+        owner = []
+        for u in range(u_all):
+            lo, hi = u * len(tiles) // u_all, (u + 1) * len(tiles) // u_all
+            owner += [u] * (hi - lo)
+            assert int(got[j, u]) == hi - lo
+        assert owner == sorted(owner) and len(owner) == len(tiles)
+    per_col = live.sum(0)
+    assert int(per_col.max()) >= 6 * float(per_col.double().mean())
+    assert int(got.sum()) == int(live.sum())

@@ -9,9 +9,11 @@ edge (pairs within a few 1e-6 of the clamp), and the banded value kernel
 of the density replay at its production chunk (262,144 grid nodes), on
 the slab-major and the x-sorted order, with its guard's full sweep and a
 batch that is not a whole number of query tiles, the dL/dx kernel at
-d = 2 and 3, the triple-cotangent backward and the fused RK4 backtrace
-at Karman-2D shapes (B = 512, N = 24,576) — the wrappers' refusals, the
-field through the kernels, query gradients and the fused projection
+d = 2 and 3 at every split S, the triple-cotangent backward at every
+split (W, S) and the fused RK4 backtrace at Karman-2D shapes (B = 512,
+N = 24,576), each bitwise repeatable — the wrappers' refusals, the
+field through the kernels, query gradients (also through
+``fused_gsr_centered`` itself) and the fused projection
 heads through the kernels, one fit, clone and projection epoch, 2D and
 3D, through the kernels against the dense path in float64, and the
 replay's RK4 backtrace through the banded kernel against the dense one
@@ -24,6 +26,8 @@ Tolerance: 1e-4 of the largest reference entry for a kernel against its
 plain version (f32 on the card: FMA contraction and another summation
 order), 1e-5 for an epoch's losses and gradients, as stated at each
 check."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -735,32 +739,73 @@ def test_density_backtrace_through_kernel_matches_dense_f64(cuda_device):
 
 # ---- the last three kernels: dL/dx, the triple backward, fused RK4 ----
 
+@functools.lru_cache(maxsize=2)
 def _inputs_dx(device, d):
-    """Centered-kernel inputs and a cotangent at d = 2 (Karman-2D shapes)
-    or d = 3 (Leapfrog-3D shapes: B = 8192, N = 1024)."""
+    """Centered-kernel inputs, a cotangent and the rows' radii at d = 2
+    (Karman-2D shapes) or d = 3 (Leapfrog-3D shapes: B = 8192,
+    N = 1024)."""
     if d == 2:
         mix, spec, x = karman_state(device, seed=101)
     else:
         mix, spec, x = ring_collide_state(device, seed=102, side=10)
-    x_p, _, _, mu_p, pp_p, v_p, tmask, _ = tf._centered_prep(
+    x_p, _, _, mu_p, pp_p, v_p, tmask, rad = tf._centered_prep(
         mix, spec, x, tk.TB, tk.TN, presorted=True)
     dout = torch.as_tensor(np.random.RandomState(103).randn(
         x_p.shape[0], (1 + d) * d).astype(np.float32), device=device)
     return (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
-            v_p.contiguous()), dout, spec.clamp_threshold
+            v_p.contiguous()), dout, spec.clamp_threshold, rad
 
 
+@pytest.mark.parametrize("split", FWD_SPLITS)
 @pytest.mark.parametrize("d", [2, 3])
 @pytest.mark.parametrize("njac", [0, "d"])
-def test_bwd_dx_matches_plain(cuda_device, d, njac):
+def test_bwd_dx_matches_plain(cuda_device, d, njac, split):
+    """Row 4 at the split S (the chosen one for None) against its plain
+    twin, two launches bitwise equal."""
     njac = d if njac == "d" else 0
-    args, dout, clamp = _inputs_dx(cuda_device, d)
+    args, dout, clamp, rad = _inputs_dx(cuda_device, d)
     dout = dout[:, :(1 + njac) * d].contiguous()
     want = tk.bwd_dx_plain(*args, dout, clamp, njac)
     assert float(want.abs().max()) > 0
-    _close([tk.gsr_bwd_dx(*args, dout, clamp, njac)], [want])
+    got, again = (tk.gsr_bwd_dx(*args, dout, clamp, njac, rad, split=split)
+                  for _ in range(2))
+    assert torch.equal(got, again)
+    _close([got], [want])
 
 
+@pytest.mark.parametrize("d", [2, 3])
+def test_fused_query_gradient_matches_dense_f64(cuda_device, d):
+    """dL/dx through ``fused_gsr_centered`` itself (x requires a gradient:
+    the forward, then row 4 in its backward) against float64 dense
+    autograd of the same weighted sum of value and Jacobian columns: 1e-4
+    of the largest entry."""
+    if d == 2:
+        mix, spec, x = karman_state(cuda_device, seed=115)
+    else:
+        mix, spec, x = ring_collide_state(cuda_device, seed=116, side=10,
+                                          n_queries=1024)
+    x_p, b, _, mu_p, pp_p, v_p, tmask, rad = tf._centered_prep(
+        mix, spec, x, tk.TB, tk.TN, presorted=True)
+    w = torch.as_tensor(np.random.RandomState(117).randn(
+        b, (1 + d) * d).astype(np.float32), device=cuda_device)
+    tk.reset_launches()
+    xg = x_p.clone().requires_grad_(True)
+    out = tk.fused_gsr_centered(tmask, xg, mu_p.T.contiguous(),
+                                pp_p.T.contiguous(), v_p.contiguous(),
+                                spec.clamp_threshold, d, rad)
+    (gx,) = torch.autograd.grad((out[:b] * w).sum(), [xg])
+    assert tk.launches["gsr_bwd_dx"] == 1 and tk.launches["gsr_bwd_dn"] == 0
+    m64 = tf.mixture_of({k: p.double() for k, p in mix.params().items()},
+                        mix.alive)
+    x64 = x.double().requires_grad_(True)
+    val, jac = tf.value_and_jac_dense(m64, spec, x64)
+    dense = torch.cat([val, jac.transpose(1, 2).reshape(b, d * d)], 1)
+    (want,) = torch.autograd.grad((dense * w.double()).sum(), [x64])
+    assert float(want.abs().max()) > 0
+    _close([gx[:b].double()], [want])
+
+
+@functools.lru_cache(maxsize=4)
 def _karman_heads_inputs(device, n_bnd=3072):
     """The fused [data; boundary] geometry at Karman-2D width: 512 data
     rows, ``n_bnd`` sorted boundary rows along the domain's edges, and
@@ -772,7 +817,7 @@ def _karman_heads_inputs(device, n_bnd=3072):
     xb[: n_bnd // 2, 1] = lo[1]
     xb = torch.as_tensor(xb[np.argsort(xb[:, 0])], device=device)
     xc = torch.cat([tf._pad_axis(x, tk.TB), xb])
-    x_p, _, _, mu_p, pp_p, v_p, tmask, _ = tf._centered_prep(
+    x_p, _, _, mu_p, pp_p, v_p, tmask, rad = tf._centered_prep(
         mix, spec, xc, tk.TB, tk.TN, presorted=True)
     B = x_p.shape[0]
     douts = [torch.zeros((B, 6), device=device) for _ in range(2)]
@@ -783,21 +828,27 @@ def _karman_heads_inputs(device, n_bnd=3072):
     dout3[512:512 + n_bnd] = torch.as_tensor(
         rng.randn(n_bnd, 2).astype(np.float32), device=device)
     return (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
-            v_p.contiguous()), douts, dout3, spec.clamp_threshold
+            v_p.contiguous()), douts, dout3, spec.clamp_threshold, rad
 
 
+@pytest.mark.parametrize("split", SPLITS)
 @pytest.mark.parametrize("data_rows", [0, 512, "B"])
 @pytest.mark.parametrize("use_val12", [True, False])
-def test_bwd_dn3_matches_plain(cuda_device, data_rows, use_val12):
+def test_bwd_dn3_matches_plain(cuda_device, data_rows, use_val12, split):
     """Data rows at 0 (every tile a boundary tile), at the data segment's
-    end, and at B (no boundary tile)."""
-    args, douts, dout3, clamp = _karman_heads_inputs(cuda_device)
+    end, and at B (no boundary tile), at the split (W, S) (the chosen one
+    for None); two launches bitwise equal."""
+    args, douts, dout3, clamp, _ = _karman_heads_inputs(cuda_device)
     rows = args[1].shape[0] if data_rows == "B" else data_rows
-    got = tk.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2, rows,
-                         use_val12=use_val12)
+    got, again = (tk.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2, rows,
+                                 use_val12=use_val12, split=split)
+                  for _ in range(2))
+    got, again = [t for blk in got for t in blk], \
+        [t for blk in again for t in blk]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = tk.bwd_dn3_plain(*args, *douts, dout3, clamp, 2, rows,
                             use_val12=use_val12)
-    _close([t for blk in got for t in blk], [t for blk in want for t in blk])
+    _close(got, [t for blk in want for t in blk])
 
 
 def _rk4_queries(x, spec, kind):
@@ -871,12 +922,23 @@ def test_rk4_fused_matches_plain(cuda_device, d, kind):
 
 
 def test_rest_wrappers_refuse(cuda_device):
-    args, douts, dout3, clamp = _karman_heads_inputs(cuda_device, 512)
+    args, douts, dout3, clamp, rad3 = _karman_heads_inputs(cuda_device, 512)
     with pytest.raises(ValueError):          # data_rows off the query tile
         tk.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2, 12)
     with pytest.raises(ValueError):          # data_rows beyond B
         tk.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2,
                        args[1].shape[0] + 8)
+    tk.reset_launches()
+    for bad in (rad3[:-64], rad3.cpu(), rad3.double()):
+        with pytest.raises(ValueError, match="rad"):
+            tk.gsr_bwd_dx(*args, douts[0], clamp, 2, bad)
+    for bad in ((3, 1), (1, 16), 4):
+        with pytest.raises(ValueError, match="split"):
+            tk.gsr_bwd_dn3(*args, *douts, dout3, clamp, 2, 512, split=bad)
+    for bad in (3, 16, (2, 1)):
+        with pytest.raises(ValueError, match="split"):
+            tk.gsr_bwd_dx(*args, douts[0], clamp, 2, rad3, split=bad)
+    assert tk.launches["gsr_bwd_dn3"] == tk.launches["gsr_bwd_dx"] == 0
     _, x, muT, ppT, v = args
     rad0 = torch.ones(muT.shape[1], device=x.device)
     boxes0 = tr.tile_boxes(muT, rad0)

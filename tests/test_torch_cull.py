@@ -8,7 +8,10 @@ Ring-Collide-sized state and on the committed Ring-Collide checkpoint,
 at the replay's query tiles (128-node z-runs of the 512^3 grid) and at
 training queries (uniform in the domain, x-sorted, 8 to a tile); and on
 the seeded Karman-2D state at each of the fused RK4 kernel's five stage
-positions, whose query tiles it boxes anew at every stage.
+positions, whose query tiles it boxes anew at every stage; and at the
+smoke's Karman-2D shapes, the per-pair test on the rows' radii over the
+triple backward's fused [data; boundary] rows, which the dL/dx kernel
+runs on the data rows.
 
 The float64 g is the exact value the f32 kernels approximate: a skipped
 pair must sit below the clamp by more than f32 can move it, which the
@@ -31,6 +34,8 @@ from gaussian_fluids_torch.ops import rk4_fused as tr
 from gaussian_fluids_torch.ops.rotations import precision_matrix
 from gaussian_fluids_torch.utils.seeded_state import (karman_state,
                                                       ring_collide_state)
+
+from torch_parity import karman_heads_geometry
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RING_CKPT = os.path.join(ROOT, "runs_r2_evidence", "ckpts",
@@ -243,3 +248,42 @@ def test_rk4_stage_box_misses_hold_no_support(stage):
         assert _max(g[~kept]) < c
         kept_support += int((g >= c).sum())
     assert kept_support > 0
+
+
+@pytest.mark.parametrize("segment", ["data", "boundary"])
+def test_dx_and_dn3_box_misses_hold_no_support(segment):
+    """The per-pair box on the rows' radii at the smoke's Karman-2D shapes,
+    over the fused [data; boundary] rows: the seeded state's 512 data rows
+    (dL/dx's queries, whose kernel box-tests every pair; the triple
+    backward's blocks 1-2) and the scene's 3072 boundary rows (its block
+    3; the triple backward, timed faster without the box, walks them
+    unboxed). In the live tiles of the fused tile mask, every pair whose
+    query lies outside the row's dilated box (the prep's ``rad``) has
+    float64 g < c; the pairs kept hold every pair with g >= c (there are
+    such pairs); and the box lets through under a tenth of the walked
+    pairs."""
+    mix, spec, x_c, data_rows, muT, _, _, tmask, rad = karman_heads_geometry()
+    c = spec.clamp_threshold
+    rows = slice(0, data_rows) if segment == "data" \
+        else slice(data_rows, x_c.shape[0])
+    q = x_c[rows]
+    tiles = tmask[rows.start // tk.TB:rows.stop // tk.TB].bool()
+    mu = muT.T
+    P = precision_matrix(mix.scalings.double(), mix.rotations.double(), 2)
+    live = tf.in_domain_mask(mix, spec)
+    kept_support = walked = passed = 0
+    for s in range(0, q.shape[0], 64):                # 64 queries at a time
+        dx = q[s:s + 64].double()[:, None] - mu.double()[None]
+        g = torch.exp(-0.5 * torch.einsum("bni,nij,bnj->bn", dx, P, dx))
+        g = torch.where(live[None], g, 0.0)
+        in_tile = tiles[s // tk.TB:(s + 64) // tk.TB] \
+            .repeat_interleave(tk.TB, 0).repeat_interleave(tk.TN, 1)
+        in_box = ((q[s:s + 64, None, :] - mu[None]).abs()
+                  <= rad[None, :, None]).all(-1)
+        kept = in_tile & in_box
+        assert _max(g[~kept]) < c
+        kept_support += int((g >= c).sum())
+        walked += int(in_tile.sum())
+        passed += int(kept.sum())
+    assert kept_support > 0
+    assert passed < 0.1 * walked

@@ -52,6 +52,20 @@ def test_fwd_split_at_the_main_shapes_and_other_cards(sms, shape, want):
     assert tk.fwd_split(*shape, sms) == want
 
 
+@pytest.mark.parametrize("sms, shape, want", [
+    (H100_SMS, KARMAN_2D, 8),
+    (H100_SMS, (128, 16), 4),           # Leapfrog-3D, 1024 query points
+    (H100_SMS, LEAPFROG_3D, 1),
+    (H100_SMS, (128, 3), 1),
+    (16, (128, 16), 1),
+])
+def test_dx_split_at_its_shapes(sms, shape, want):
+    """dL/dx's rule: the forward's, down to DX_MIN_TILES Gaussian tiles a
+    rank."""
+    assert tk.fwd_split(*shape, sms, tk.DX_MIN_TILES) == want
+    assert want * tk.DX_MIN_TILES <= max(shape[1], tk.DX_MIN_TILES)
+
+
 @pytest.mark.parametrize("sms", [1, 16, 132, 1000])
 def test_fwd_split_never_asks_for_more_ranks_than_tiles_allow(sms):
     for nbt in (0, 1, 2, 7, 64, 512, 1024, 4096):

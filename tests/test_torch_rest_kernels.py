@@ -97,7 +97,7 @@ def test_bwd_dx_plain_matches_pallas(d, njac):
     want = jk._bwd(j["tmask"], j["x"], j["muT"], j["ppT"], j["v"], dout, d,
                    d, clamp, TB, TN, njac, need_dx=True)[0]
     got = tk.gsr_bwd_dx(tt["tmask"], tt["x"], tt["muT"], tt["ppT"], tt["v"],
-                        t(dout), clamp, njac)
+                        t(dout), clamp, njac, tt["rad"])
     assert tuple(got.shape) == want.shape
     assert float(jnp.abs(want).max()) > 0
     close(got, want, 1e-5)

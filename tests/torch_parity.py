@@ -1,6 +1,8 @@
 """Shared helpers for the PyTorch-port parity tests: the same seeded numpy
 inputs go through the JAX package (on the CPU) and through the port."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -289,6 +291,28 @@ def assert_epochs_agree(a, b, tol):
         err = float((got.double() - want.double()).abs().max())
         assert torch.isfinite(got).all(), what
         assert err <= tol * scale, (what, err, scale)
+
+
+@functools.lru_cache(maxsize=2)
+def karman_heads_geometry(device="cpu"):
+    """The triple backward's geometry at the smoke's Karman-2D shapes: the
+    seeded Karman state, its 512 data rows padded to the query tile, then
+    the scene's 3072 boundary rows as one projection epoch draws them
+    (generator seed 6); (mix, spec, fused rows x_c, data_rows, and the
+    centered prep's muT, ppT, v, tile mask and dilated radii). Cached:
+    callers must not change it."""
+    from gaussian_fluids_torch.ops import field
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    from gaussian_fluids_torch.utils.seeded_state import (
+        karman_boundary_rows, karman_state)
+    mix, spec, x = karman_state(device)
+    gen = torch.Generator(device=device).manual_seed(6)
+    xb = karman_boundary_rows(get_scene_2d("karman"), gen, 512, device)[0]
+    x_dp = field._pad_axis(x, 8)
+    x_c, _, _, mu_p, pp_p, v_p, tmask, rad = field._centered_prep(
+        mix, spec, torch.cat([x_dp, xb]), 8, 64, presorted=True)
+    return (mix, spec, x_c, x_dp.shape[0], mu_p.T.contiguous(),
+            pp_p.T.contiguous(), v_p.contiguous(), tmask, rad)
 
 
 @pytest.fixture
