@@ -83,10 +83,12 @@ Phases, each printing one JSON line with its wall seconds:
   initialize3d  3D scenes fitted through ``gaussian_fluids_torch.initialize3d``:
                 leapfrog (10^3 = 1000 Gaussians, the centered kernels at
                 d=3) and ring_collide (40^3 = 64,000 Gaussians, capacity
-                75,776, B=8192, the cells kernels)
+                75,776, B=8192, the cells kernels), under --no_viz (no
+                volumes: the times are the solver's)
   advance3d     one frame each (clone -> advect -> project) at dt .02
                 through ``gaussian_fluids_torch.advance3d`` on the scene's
-                128^3 test grid; losses and the divergence residual
+                128^3 test grid, --no_viz; losses and the divergence
+                residual
   epoch_3d      one Ring-Collide projection epoch (seeded state, B=8192)
                 under torch.profiler: device ms per epoch and the cells
                 forward's share
@@ -121,8 +123,32 @@ Phases, each printing one JSON line with its wall seconds:
   density512    one advected_density step of one density at the production
                 512^3 grid on frame 1's mixture, timed (fails on a guard
                 failure), with the banded kernel's device ms of such a step;
-                one timed write of its .vti as the replay writes it; and the
-                card's busy share over a 128^3 step (torch.profiler)
+                one timed write of its .vti as the replay writes it
+                (transposed on the card, copied, written as appended raw
+                data: the file's encoding is checked); and the card's busy
+                share over a 128^3 step
+                (torch.profiler)
+  obstacle3d    ring_with_obstacle (40^3 = 64,000 Gaussians, capacity
+                75,776, B=8192, the boundary batch box + mesh 2 x 8192)
+                through initialize3d (100 fit epochs) and one frame of
+                advance3d (100 + 100 epochs) with the volumes on, at the
+                scene's 128^3 grid: the JAX package's file set
+                (obstacle.obj, the four *_ref.vti,
+                vorticity_/divergence_{0,1}.vti, the checkpoints; not its
+                loss_1.png figure), the final field and 4096 seeded nodes
+                of each frame-1 volume against float64 dense, the seconds
+                of the volumes apart from the solve, and the obstacle's
+                mean |u.n| on 4096 mesh samples after the fit and after
+                the frame
+  replay_vs_jax the committed Ring-Collide run's checkpoint 0 (written by
+                the JAX package) replayed one step through
+                ``advance_density3d`` at 512^3; its pooled float16
+                densities of frame 1 against the JAX replay's
+                (runs_r2_evidence/ckpts/output_3d_ring_collide/
+                density_small_{a,b}_1.npz): max abs and relative L2
+                difference and mass, within REPLAY_TOL; the replay's own
+                .vti writes (seconds, bytes, and the encoding read back
+                from the files)
 Launches are counted per path: each path's counts are set to 0 just
 before it and read just after; the 2D lines of the kernel summary carry
 the Leapfrog-2D path's launches, the d=3 and cells lines the 3D path's;
@@ -132,7 +158,9 @@ The run fails if a kernel of a path was not launched there, or if a cells
 work list overflowed at the default capacity. The banded kernel's path is
 the replay (density3d and density512: its launches are their sum), the
 fused RK4 kernel's the Karman frame, the triple backward's epoch_heads,
-the dL/dx kernel's query_grad. Then the per-kernel summary (each bound
+the dL/dx kernel's query_grad; obstacle3d is a second path of rows 1 and
+5-7 (the 3D lines add its launches to the 3D path's), replay_vs_jax a
+third of row 8. Then the per-kernel summary (each bound
 counted on the pairs the inputs need, those with g >= c, with the bound
 of the pairs the kernel walks beside it), the card's name and power
 limit, and as the last line
@@ -209,6 +237,22 @@ DENSITY_TOL_POS = 1e-5    # backtrace positions, domain units: f32 grid
 DENSITY_TOL_SAMPLE = 2e-3  # a sampled density: DENSITY_TOL_POS times the
 #                            steepest step of an indicator seed, 1 over one
 #                            cell of the 128^3 grid (h = 1/127), rounded up
+# The committed Ring-Collide run's replay against the JAX replay's pooled
+# float16 volumes (reasoned in PERF.md §6 before its first run): f16
+# storage (2^-11 at 1, each side half of it), a seed node flipped by f32
+# rounding (1/512 of a cell), and the JAX kernel's single bf16 pass of
+# its value contraction (2^-8 of a term) over the backtrace (reasoned at
+# dt .02, 6e-3 or 3 nodes of the 512^3 grid; the committed run's dt .1
+# makes it 5x longer), of which a quarter of a cell's nodes sample the
+# indicator's sloped layer.
+REPLAY_TOL = {"max_abs_diff": 1e-2, "rel_l2_diff": 1e-2,
+              "rel_mass_diff": 1e-3}
+REPLAY_DT = 0.1  # the committed replay's step: --dt .1 in
+#                  scripts/run_production_chain5.sh:119
+OBSTACLE_INIT_EPOCHS = 100     # the obstacle scene's fit; default 500
+OBSTACLE_ADVANCE_EPOCHS = 100  # per phase of its frame; default 20000
+OBSTACLE_VOLUME_TOL = 1e-3     # frame volumes against float64 dense, of
+#                                the largest entry (as check3d's field)
 NO_LIBRARY_BANDED = ("no single PyTorch call computes the clamp-masked "
                      "Gaussian sum over a per-query-tile window")
 
@@ -1489,7 +1533,7 @@ def run_3d(tmp):
         t0 = time.perf_counter()
         mix, spec = initialize3d.main(
             ["--init_cond", scene, "--dir", d, "--max_epoch",
-             str(INIT3D_EPOCHS)])
+             str(INIT3D_EPOCHS), "--no_viz"])
         mid = counts()
         emit({"phase": "initialize3d", "scene": scene,
               "seconds": time.perf_counter() - t0, "epochs": INIT3D_EPOCHS,
@@ -1499,7 +1543,8 @@ def run_3d(tmp):
         t0 = time.perf_counter()
         mix, spec, frames = advance3d.main(
             ["--init_cond", scene, "--dir", d, "--dt", ".02",
-             "--last_time", ".02", "--max_epoch", str(ADVANCE3D_EPOCHS)])
+             "--last_time", ".02", "--max_epoch", str(ADVANCE3D_EPOCHS),
+             "--no_viz"])
         after = counts()
         check_frames(frames, 1, scene)
         f = frames[0]
@@ -1527,6 +1572,218 @@ def run_3d(tmp):
           "gsr_fwd_launches_by_shape": by_shape,
           **check_field(mix, spec, pts, f64=True)})
     return total, by_shape
+
+
+def _flux(mix, spec, pts, nrm):
+    """analysis.flux_stats of the mixture's velocity at boundary points:
+    (mean |u.n|, max |u.n|)."""
+    from gaussian_fluids_torch.ops import field
+    from gaussian_fluids_torch.utils import analysis
+    with torch.no_grad():
+        vel = field.value(mix, spec, pts, need_dx=False)
+    return analysis.flux_stats(vel.double().cpu().numpy(),
+                               nrm.double().cpu().numpy())
+
+
+def check_volumes(d, mix, spec, domain, shape, tag, n=4096):
+    """``n`` seeded nodes of ``vorticity_{tag}.vti`` and
+    ``divergence_{tag}.vti`` against |curl u| and div u of the float64
+    dense Jacobian at those nodes, each within OBSTACLE_VOLUME_TOL of its
+    largest entry there."""
+    from gaussian_fluids_torch.io import vti
+    from gaussian_fluids_torch.models.mixture import mixture_of
+    from gaussian_fluids_torch.ops import field
+    from gaussian_fluids_torch.solver import losses
+    from gaussian_fluids_torch.utils.grids import axis_nodes
+
+    idx = np.random.RandomState(12).randint(0, shape, (n, 3))
+    pts = np.stack([axis_nodes(domain[2 * i], domain[2 * i + 1], shape[i])
+                    [idx[:, i]] for i in range(3)], -1)
+    m64 = mixture_of({k: p.double() for k, p in mix.params().items()},
+                     mix.alive)
+    with torch.no_grad():
+        jac = field.value_and_jac_dense(
+            m64, spec, torch.as_tensor(pts, device=mix.device).double())[1]
+    want = {"vorticity": torch.linalg.vector_norm(losses.curl3d(jac), dim=-1),
+            "divergence": losses.divergence(jac)}
+    out = {}
+    for name, ref in want.items():
+        vol = vti.read_vti_array(os.path.join(d, f"{name}_{tag}.vti"))
+        if vol.shape != tuple(shape) or not np.isfinite(vol).all():
+            raise AssertionError(f"{name}_{tag}.vti: {vol.shape}")
+        got = torch.as_tensor(vol[idx[:, 0], idx[:, 1], idx[:, 2]])
+        err, rel = compare(f"{name}_{tag}.vti", [got], [ref.cpu()],
+                           OBSTACLE_VOLUME_TOL)
+        out[name] = {"max_abs_err": err, "max_rel_err": rel,
+                     "max_abs_reference": float(ref.abs().max())}
+    return out
+
+
+def run_obstacle(d, device):
+    """ring_with_obstacle through the 3D entry points with the volumes on
+    (the JAX CLI's default): initialize3d and one frame of advance3d at the
+    scene's width (40^3 = 64,000 Gaussians, capacity 75,776, B = 8192)
+    and its 128^3 grid. Checks the written files against the JAX
+    package's set (without its loss_1.png figure), the final field and
+    4096 nodes of each frame-1 volume against float64 dense, finite
+    losses, no work-list overflow, and launches of rows 1, 5, 6 and 7;
+    reports the obstacle's mean |u.n| on 4096 seeded mesh samples before
+    (frame 0, the fit) and after the projection (frame 1). Returns the
+    path's launches per wrapper and row 1's by shape."""
+    from gaussian_fluids_torch import advance3d, initialize3d
+    from gaussian_fluids_torch.io import checkpoint
+    from gaussian_fluids_torch.ops import gsr_cells, gsr_centered
+    from gaussian_fluids_torch.scenes import get_scene_3d
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**gsr_centered.launches, **gsr_cells.launches}
+
+    scene = get_scene_3d("ring_with_obstacle")
+    gsr_centered.reset_launches()
+    gsr_cells.reset_launches()
+    t0 = time.perf_counter()
+    mix0, spec = initialize3d.main(
+        ["--init_cond", scene.name, "--dir", d, "--max_epoch",
+         str(OBSTACLE_INIT_EPOCHS)])
+    init_seconds = time.perf_counter() - t0
+    mid = counts()
+    mix, spec, frames = advance3d.main(
+        ["--init_cond", scene.name, "--dir", d, "--dt", ".02",
+         "--last_time", ".02", "--max_epoch", str(OBSTACLE_ADVANCE_EPOCHS)])
+    after = counts()
+    by_shape = _shape_counts(gsr_centered.fwd_shapes)
+    overflows = gsr_cells.overflows()
+    check_frames(frames, 1, scene.name)
+    files = sorted(os.listdir(d))
+    want = sorted(["obstacle.obj", "gaussian_velocity_0.pt",
+                   "gaussian_velocity_1.pt"]
+                  + [f"{n}_ref.vti" for n in ("velocity", "vorticity",
+                                              "divergence", "helicity")]
+                  + [f"{n}_{f}.vti" for n in ("vorticity", "divergence")
+                     for f in (0, 1)])
+    if files != want:
+        raise AssertionError(f"ring_with_obstacle wrote {files}")
+    fit = checkpoint.load_checkpoint(
+        os.path.join(d, "gaussian_velocity_0.pt"), device=device)[0]
+    if fit.n_alive() != math.prod(scene.particle_count):
+        raise AssertionError(f"fit: {fit.n_alive()} of {fit.capacity}")
+    lo, hi = np.float32(scene.domain).reshape(3, 2).T
+    pts = np.random.RandomState(13).uniform(lo, hi, (4096, 3)) \
+        .astype(np.float32)
+    field_check = check_field(mix, spec, pts, f64=True)
+    volumes = check_volumes(d, mix, spec, scene.domain,
+                            scene.visualize_res, "1")
+    gen = torch.Generator(device=device).manual_seed(14)
+    mpts, mnrm = scene.mesh_sampler.sample(gen, 4096)
+    flux = {"fit": _flux(fit, spec, mpts, mnrm),
+            "frame_1": _flux(mix, spec, mpts, mnrm)}
+    path = {k: after[k] for k in after}
+    rows = ("gsr_fwd", "cells_fwd", "cells_bwd_dn2", "cells_bwd_dn")
+    if any(overflows.values()) or any(path[k] == 0 for k in rows):
+        raise AssertionError(f"ring_with_obstacle: overflows {overflows}, "
+                             f"launches {path}")
+    f = frames[0]
+    emit({"phase": "obstacle3d", "scene": scene.name,
+          "seconds": time.perf_counter() - t0,
+          "init_seconds": init_seconds, "init_epochs":
+          OBSTACLE_INIT_EPOCHS, "frame": f["frame"],
+          "frame_seconds": f["seconds"],
+          "clone_seconds": f["clone_seconds"],
+          "advect_seconds": f["advect_seconds"],
+          "project_seconds": f["project_seconds"],
+          "volume_seconds": f["viz_seconds"],
+          "save_seconds": f["save_seconds"],
+          "frame_epochs": OBSTACLE_ADVANCE_EPOCHS,
+          "n_gaussians": f["n_alive"], "capacity": f["capacity"],
+          "boundary_batch": 2 * 8192, "grid": list(scene.visualize_res),
+          "clone": f["clone"], "project": f["project"],
+          "files": files, "final_field": field_check, "volumes": volumes,
+          "mesh_flux_mean_max": flux, "cells_overflows": overflows,
+          "launches_initialize": mid,
+          "launches_advance": {k: after[k] - mid[k] for k in after},
+          "gsr_fwd_launches_by_shape": by_shape})
+    return path, by_shape
+
+
+def _pooled_diff(got, want):
+    """Max abs and relative L2 difference and both masses of two pooled
+    density volumes, in float64."""
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    return {"max_abs_diff": float(np.abs(g - w).max()),
+            "rel_l2_diff": float(np.linalg.norm(g - w) / np.linalg.norm(w)),
+            "mass": float(g.sum()), "mass_jax": float(w.sum()),
+            "rel_mass_diff": float(abs(g.sum() - w.sum()) / w.sum())}
+
+
+def _vti_encoding(path):
+    """``appended_raw`` or ``base64``: how the .vti at ``path`` holds its
+    data, read from its header."""
+    with open(path, "rb") as fd:
+        head = fd.read(2048)
+    if b'<AppendedData encoding="raw">' in head:
+        return "appended_raw"
+    return "base64" if b'format="binary"' in head else "unknown"
+
+
+def replay_vs_jax(device):
+    """The committed Ring-Collide run's frame 0 -> 1 replayed on the card
+    through ``advance_density3d`` at its default 512^3 grid and the
+    committed replay's dt (its checkpoint 0, which the JAX package wrote,
+    copied to a temporary directory), and the pooled float16 densities a
+    and b of frame 1 against the JAX replay's own
+    (``density_small_{a,b}_1.npz``) within REPLAY_TOL; frame 0 (the seeds) reported beside them. Also the
+    replay's .vti writes: seconds, bytes, and the encoding read back from
+    the files. Returns the banded kernel's launches."""
+    from gaussian_fluids_torch import advance_density3d
+    from gaussian_fluids_torch.ops import gsr_banded
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "runs_r2_evidence", "ckpts", "output_3d_ring_collide")
+    with tempfile.TemporaryDirectory(prefix="gf_replay_") as d:
+        shutil.copy(os.path.join(src, "gaussian_velocity_0.pt"), d)
+        gsr_banded.reset_launches()
+        t0 = time.perf_counter()
+        records = advance_density3d.main(
+            ["--init_cond", "ring_collide", "--dir", d, "--dt",
+             str(REPLAY_DT)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gsr_banded.launches["gsr_value_banded"]
+        guard = gsr_banded.guard_failures()
+        frames = {}
+        for frame in (0, 1):
+            for tag in "ab":
+                name = f"density_small_{tag}_{frame}.npz"
+                got, want = np.load(os.path.join(d, name)), \
+                    np.load(os.path.join(src, name))
+                for k in ("origin", "spacing", "full_shape"):
+                    if not np.array_equal(got[k], want[k]):
+                        raise AssertionError(f"{name}: {k} {got[k]} "
+                                             f"against {want[k]}")
+                frames[f"{tag}{frame}"] = _pooled_diff(got["density"],
+                                                       want["density"])
+        encodings = {tag: _vti_encoding(
+            os.path.join(d, f"density_{tag}_1.vti")) for tag in "ab"}
+    rec = records[0]
+    emit({"phase": "replay_vs_jax", "seconds": wall, "grid": [512] * 3,
+          "checkpoint": "runs_r2_evidence/ckpts/output_3d_ring_collide/"
+                        "gaussian_velocity_0.pt",
+          "dt": REPLAY_DT, "band": rec["band"],
+          "step_seconds": rec["seconds"], "vti_writes": rec["vti_writes"],
+          "vti_encodings": encodings,
+          "against_jax": frames, "tolerance": REPLAY_TOL,
+          "guard_failures": guard, "launches": launches})
+    if [r["frame"] for r in records] != [1] or guard or launches == 0 \
+            or set(encodings.values()) != {"appended_raw"}:
+        raise AssertionError(f"replay frames {records}, guard {guard}, "
+                             f"launches {launches}, encodings {encodings}")
+    for tag in "ab":
+        r = frames[f"{tag}1"]
+        if not all(r[k] <= tol for k, tol in REPLAY_TOL.items()):
+            raise AssertionError(f"replay density {tag}, frame 1, against "
+                                 f"the JAX replay: {r} beyond {REPLAY_TOL}")
+    return launches
 
 
 def _banded_culling(x, B, prep, jlo, ok, band, tb, tn, warp=32):
@@ -1861,23 +2118,32 @@ def density_512(d, device):
     if not after["finite"] or after["max"] > 1 + 1e-5 or after["mass"] <= 0 \
             or guard:
         raise AssertionError(f"512^3 density: {after}, guard {guard}")
-    # the replay writes each 512^3 density as inline-base64 .vti on a
-    # background thread; time one such write (and its size) to set beside
-    # the step's seconds
+    # the replay writes each 512^3 density as .vti on a background thread,
+    # transposed on the card and copied first; time one such copy and
+    # write (and the file's size) to set beside the step's seconds
     lo, hi = np.asarray(domain[0::2]), np.asarray(domain[1::2])
     with tempfile.TemporaryDirectory(dir=d) as tmp:
         path = os.path.join(tmp, "density_512.vti")
         t0 = time.perf_counter()
-        vti.write_vti_array(host, lo, (hi - lo) / 512, path)
-        write_seconds = time.perf_counter() - t0
+        x_fastest = vti.x_fastest(out).cpu().numpy()
+        t1 = time.perf_counter()
+        vti.write_vti_x_fastest(x_fastest, lo, (hi - lo) / 512, path)
+        write_seconds = time.perf_counter() - t1
+        copy_seconds = t1 - t0
         write_bytes = os.path.getsize(path)
+        encoding = _vti_encoding(path)
+        del x_fastest
+    if encoding != "appended_raw":
+        raise AssertionError(f"512^3 .vti written as {encoding}")
     small = interp.seed_ring_density((128,) * 3, domain, r.center, r.normal,
                                      r.radius, r.thickness, device=device)
     prof = profile_epoch(lambda: advected_density(
         small, mix, spec, domain, DENSITY_DT, (128,) * 3), 1)
     emit({"phase": "density512", "seconds": seconds, "setup_seconds": setup,
           "banded_ms_per_step": banded_ms, "order_ab": ab,
-          "vti_write_seconds": write_seconds, "vti_bytes": write_bytes,
+          "vti_write_seconds": write_seconds,
+          "vti_copy_seconds": copy_seconds, "vti_bytes": write_bytes,
+          "vti_encoding": encoding,
           "grid": [512] * 3, "chunks": -(-512 ** 3 // DENSITY_CHUNK),
           "band": _suggest_band(mix, spec, DENSITY_DT),
           "launches": launches, "guard_failures": guard,
@@ -2009,6 +2275,9 @@ def main():
         launches_density = run_density(ring)
         check_density(ring, device)
         launches_512 = density_512(ring, device)
+        launches_obstacle, shapes_obstacle = run_obstacle(
+            os.path.join(tmp, "obstacle"), device)
+        launches_replay = replay_vs_jax(device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2025,8 +2294,12 @@ def main():
         k: fitted_rc[k] for k in ("gsr_fwd_batch", "gsr_fwd_test_grid_chunk")}
     for name in ("cells_bwd_dn", "cells_bwd_dn2"):
         stats3[name]["fitted_ring_collide"] = fitted_rc[name]
+    stats3["gsr_fwd[d=3]"]["launches_by_shape_obstacle"] = shapes_obstacle
     for name, s in stats3.items():
-        s["launches"] = launches_3d[name.split("[")[0]]
+        base = name.split("[")[0]
+        s.update(launches=launches_3d[base] + launches_obstacle[base],
+                 launches_3d_path=launches_3d[base],
+                 launches_obstacle=launches_obstacle[base])
         if name.split("[")[0] in fitted:
             s["fitted_leapfrog_3d"] = {
                 k: fitted[name.split("[")[0]][k] for k in (
@@ -2034,9 +2307,11 @@ def main():
                     "worker_tiles_max", "max_rel_err_splits",
                     "live_tile_fraction", "support_pairs")}
     for name, s in stats_d.items():
-        s.update(launches=launches_density[name] + launches_512,
+        s.update(launches=launches_density[name] + launches_512
+                 + launches_replay,
                  launches_replay_128=launches_density[name],
-                 launches_512_step=launches_512)
+                 launches_512_step=launches_512,
+                 launches_replay_vs_jax=launches_replay)
     stats_r["gsr_bwd_dx"]["launches"] = launches_dx[2]["gsr_bwd_dx"]
     stats_r["gsr_bwd_dx[d=3]"]["launches"] = launches_dx[3]["gsr_bwd_dx"]
     stats_r["gsr_bwd_dn3"]["launches"] = launches_heads["gsr_bwd_dn3"]

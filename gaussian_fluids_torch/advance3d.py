@@ -14,7 +14,7 @@ def main(argv=None):
                       start_frame=args.start_frame,
                       max_epoch=args.max_epoch,
                       boundary_lambda=args.boundary, seed=args.seed,
-                      device=args.device)
+                      viz=not args.no_viz, device=args.device)
 
 
 if __name__ == "__main__":

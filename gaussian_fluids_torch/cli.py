@@ -1,7 +1,10 @@
 """Command-line flags of the entry points — the JAX package's
 ``cli.parse_args_2d`` / ``parse_args_3d`` flag surface, with the same
-defaults. Figures and the frame loop's volumes are not part of this port
-yet: it always runs as the JAX CLI does under ``--no_viz``.
+defaults. In 3D, ``--no_viz`` switches off the ``.vti`` volumes, which are
+written by default as the JAX CLI writes them (every one of its files but
+the loss-curve figure ``loss_{n}.png``, not ported yet). The 2D figures
+are not ported yet: 2D always runs as the JAX CLI does under
+``--no_viz``.
 """
 
 from __future__ import annotations
@@ -12,8 +15,10 @@ import argparse
 def _parser(dim: int) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=f"Gaussian Fluids {dim}D in PyTorch on one NVIDIA GPU. "
-                    "Runs without figures, as the JAX CLI does under "
-                    "--no_viz.")
+                    + ("Runs without figures, as the JAX CLI does under "
+                       "--no_viz." if dim == 2 else
+                       "Writes the JAX CLI's .vti volumes unless --no_viz "
+                       "(not yet its loss_{n}.png figures)."))
     p.add_argument("--device", type=str, default="0",
                    help="'cpu' runs on the CPU; an index K runs on "
                         "cuda:K (default: the first GPU)")
@@ -25,8 +30,8 @@ def _parser(dim: int) -> argparse.ArgumentParser:
                    help="scene: taylor_vortex, leapfrog, taylor_green or "
                         "karman"
                         if dim == 2 else
-                        "scene: leapfrog, single_vortex_ring or "
-                        "ring_collide")
+                        "scene: leapfrog, single_vortex_ring, "
+                        "ring_collide or ring_with_obstacle")
     p.add_argument("--dt", type=float, default=0.01 if dim == 2 else 0.02)
     p.add_argument("--last_time", type=float,
                    default=10.0 if dim == 2 else 100.0)
@@ -43,8 +48,12 @@ def _parser(dim: int) -> argparse.ArgumentParser:
     p.add_argument("--mesh", type=str, default=None,
                    help="multi-device runs are not ported; must be unset")
     p.add_argument("--no_viz", action="store_true",
-                   help="accepted for compatibility: figures are never "
-                        "drawn by this port")
+                   help="accepted for compatibility: 2D figures are never "
+                        "drawn by this port"
+                        if dim == 2 else
+                        "write no .vti volumes (by default: the analytic "
+                        "field's four reference volumes and every frame's "
+                        "vorticity and divergence)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--profile", type=str, default=None,
                    help="tracing is not ported; must be unset")

@@ -11,7 +11,8 @@ from gaussian_fluids_torch.solver.simulate3d import initialize_3d
 def main(argv=None):
     args = parse_args_3d(argv, default_max_epoch=500)
     return initialize_3d(args.init_cond, args.dir, max_epoch=args.max_epoch,
-                         seed=args.seed, device=args.device)
+                         seed=args.seed, viz=not args.no_viz,
+                         device=args.device)
 
 
 if __name__ == "__main__":

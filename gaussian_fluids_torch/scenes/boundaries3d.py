@@ -1,13 +1,23 @@
-"""3D boundary sampler: area-weighted points on the six faces of the
-domain box with inward normals, the box half of the JAX package's
-``scenes/boundaries3d.py`` (the obstacle-mesh sampler is not ported yet).
-The random draws come from the caller's ``torch.Generator``;
-``sample_on_box`` takes them as arguments, so tests can feed the JAX
-package's draws."""
+"""3D boundary samplers — the port of the JAX package's
+``scenes/boundaries3d.py`` (reference 3D/init_cond.py:223-265):
+area-weighted points on the six faces of the domain box with inward
+normals, and for an obstacle scene the box and the obstacle mesh together.
+The random draws come from the caller's ``torch.Generator``; the
+arithmetic (``sample_on_box``, ``sample_box_and_mesh``) takes them as
+arguments, so tests can feed the JAX package's draws."""
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
+
+from gaussian_fluids_torch.scenes import mesh as mesh_mod
+
+ASSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                         "..", "assets")
+SUBSTITUTE_OBJ = "bunny_substitute.obj"
 
 
 def sample_on_box(t, u, v, domain):
@@ -39,10 +49,47 @@ def sample_on_box(t, u, v, domain):
     return torch.stack([px, py, pz], -1), normals[face]
 
 
-def make_sampler(domain):
-    """(gen, n) -> (points, normals) on the box faces."""
+def load_obstacle_mesh(info) -> mesh_mod.MeshSampler:
+    """The scene's obstacle: ``info["obj_file"]`` from ``assets/`` when the
+    repository has it, else the committed trefoil-tube substitute
+    (``assets/bunny_substitute.obj``); where that file is absent too, the
+    same trefoil generated in memory (nothing is written into
+    ``assets/``). Scaled and translated by the scene's ``info``."""
+    rotate = np.eye(3, dtype=np.float32)
+    for name in (info["obj_file"], SUBSTITUTE_OBJ):
+        path = os.path.join(ASSET_DIR, name)
+        if os.path.exists(path):
+            return mesh_mod.MeshSampler(path, info["scale"], rotate,
+                                        info["translate"])
+    v, nrm, f = mesh_mod.generate_trefoil_tube()
+    print(f"[scenes3d] assets/{info['obj_file']} and {SUBSTITUTE_OBJ} "
+          f"missing; generated the trefoil-tube substitute in memory")
+    return mesh_mod.MeshSampler.from_arrays(v, nrm, f, f, info["scale"],
+                                            rotate, info["translate"])
+
+
+def sample_box_and_mesh(box_u, mesh_u, domain, mesh):
+    """2n points and normals: n on the box faces from the (3, n) uniforms
+    ``box_u`` (``sample_on_box``), then n on the obstacle from the (3, n)
+    uniforms ``mesh_u`` (``MeshSampler.sample_with``), as the reference
+    concatenates them (3D/init_cond.py:255-258)."""
+    d1, n1 = sample_on_box(*box_u, domain)
+    d2, n2 = mesh.sample_with(*mesh_u)
+    return torch.cat([d1, d2]), torch.cat([n1, n2])
+
+
+def make_sampler(domain, mesh=None):
+    """(gen, n) -> (points, normals): n on the box faces, or with an
+    obstacle ``mesh`` 2n, box then mesh (``sample_box_and_mesh``)."""
     def box_sampler(gen, n):
         t, u, v = torch.rand((3, n), generator=gen, device=gen.device)
         return sample_on_box(t, u, v, domain)
 
-    return box_sampler
+    if mesh is None:
+        return box_sampler
+
+    def combined(gen, n):
+        r = torch.rand((6, n), generator=gen, device=gen.device)
+        return sample_box_and_mesh(r[:3], r[3:], domain, mesh)
+
+    return combined

@@ -108,16 +108,19 @@ DOMAIN = {
     "leapfrog": (0.0, 1.0, 0.0, 1.0, 0.0, 1.0),
     "single_vortex_ring": (0.0, 1.0, 0.0, 1.0, 0.0, 1.0),
     "ring_collide": (0.0, 1.0, 0.0, 1.0, 0.0, 1.0),
+    "ring_with_obstacle": (0.0, 1.0, 0.0, 1.0, 0.0, 1.0),
 }
 
 PARTICLE_COUNT = {
     "leapfrog": (10, 10, 10),
     "single_vortex_ring": (40, 40, 40),
     "ring_collide": (40, 40, 40),
+    "ring_with_obstacle": (40, 40, 40),
 }
 
 VISUALIZE_RES = {name: (128, 128, 128) for name in DOMAIN}
 
+_N = 1.0 / 1.08
 OTHER_INFO = {
     "leapfrog": {
         "ring1": Ring((0.75, 0.5, 0.5), (-1.0, 0.0, 0.0), 1.0 / 6,
@@ -135,6 +138,19 @@ OTHER_INFO = {
         "ring2": Ring((0.5 / 6 + 0.5, 0.5, 0.5), (-1.0, 0.0, 0.0), 0.3 / 6,
                       0.12 / 6, 0.1 / 6, 500),
     },
+    # the rings' normal (0.2, 0.2, -1) / 1.08 is not of unit length, as in
+    # the reference: the rings are slightly elliptical, their tangents not
+    # of unit length
+    "ring_with_obstacle": {
+        "obj_file": "bunny.obj",
+        "scale": 1.0 / 4.8,
+        "translate": (0.8225, 0.3150, 0.2650),
+        "ring1": Ring((0.475, 0.6, 0.53), (0.2 * _N, 0.2 * _N, -1.0 * _N),
+                      0.05, 0.02, 0.2 / 6, 500),
+        "ring2": Ring((0.4380, 0.5630, 0.7152),
+                      (0.2 * _N, 0.2 * _N, -1.0 * _N),
+                      0.05, 0.02, 0.2 / 6, 500),
+    },
 }
 
 
@@ -148,21 +164,23 @@ class Scene3D:
     velocity: Callable
     velocity_jac: Callable
     boundary_sampler: Optional[Callable]  # (gen, n) -> (points, normals)
+    mesh_sampler: Optional[object] = None  # scenes.mesh.MeshSampler
 
 
 def build_scene(name: str) -> Scene3D:
     from gaussian_fluids_torch.scenes import boundaries3d
-    if name == "ring_with_obstacle":
-        raise NotImplementedError(
-            "ring_with_obstacle needs the obstacle mesh sampler "
-            "(scenes/mesh.py), which is not ported yet")
     if name not in DOMAIN:
         raise KeyError(f"unknown 3D scene {name!r}; valid: {sorted(DOMAIN)}")
     info = OTHER_INFO[name]
     rings = [v for v in info.values() if isinstance(v, Ring)]
     vel, jac = make_ring_field(rings)
+    mesh = None
+    if "obj_file" in info:
+        mesh = boundaries3d.load_obstacle_mesh(info)
     return Scene3D(name=name, domain=DOMAIN[name],
                    particle_count=PARTICLE_COUNT[name],
                    visualize_res=VISUALIZE_RES[name], info=info,
                    velocity=vel, velocity_jac=jac,
-                   boundary_sampler=boundaries3d.make_sampler(DOMAIN[name]))
+                   boundary_sampler=boundaries3d.make_sampler(DOMAIN[name],
+                                                              mesh),
+                   mesh_sampler=mesh)

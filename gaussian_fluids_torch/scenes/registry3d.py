@@ -1,9 +1,10 @@
-"""3D scene registry (vortex rings) — see fields3d.py. ``ring_with_obstacle``
-waits for the obstacle mesh sampler and is refused with a clear error."""
+"""3D scene registry (vortex rings, the obstacle scene) — see
+fields3d.py."""
 
 from __future__ import annotations
 
-SCENES_3D = ("leapfrog", "single_vortex_ring", "ring_collide")
+SCENES_3D = ("leapfrog", "single_vortex_ring", "ring_collide",
+             "ring_with_obstacle")
 
 
 def get_scene_3d(name: str):

@@ -1,7 +1,11 @@
 """3D end-to-end flows: initialization, the frame loop
 clone -> advect -> project -> save, and the offline smoke-density replay,
-as in the JAX package's ``solver/simulate3d.py`` run with ``viz=False``
-(the frame loop's VTI volumes and loss plots are not ported yet).
+as in the JAX package's ``solver/simulate3d.py``. With ``viz`` (the
+default, as there) they write that package's ``.vti`` volumes: the
+obstacle's ``obstacle.obj``, the analytic field's ``velocity_ref``,
+``vorticity_ref``, ``divergence_ref`` and ``helicity_ref``, and each
+frame's ``vorticity_{n}`` and ``divergence_{n}``. The per-frame loss-curve
+figure (``loss_{n}.png``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,12 +25,13 @@ from gaussian_fluids_torch.models.mixture import GaussianMixture
 from gaussian_fluids_torch.ops import field, gsr_banded, interp
 from gaussian_fluids_torch.ops.advect import rk4_pos_stages
 from gaussian_fluids_torch.scenes import get_scene_3d
+from gaussian_fluids_torch.solver import losses
 from gaussian_fluids_torch.solver.advect_field import advect_covector_field_3d
 from gaussian_fluids_torch.solver.clone import clone_velocity_field
 from gaussian_fluids_torch.solver.fit import fit_velocity_with_gradient
 from gaussian_fluids_torch.solver.project import ProjectWeights, project_3d
 from gaussian_fluids_torch.solver.simulate2d import _generator
-from gaussian_fluids_torch.utils.grids import axis_nodes, grid_points_3d
+from gaussian_fluids_torch.utils.grids import grid_nodes, grid_points_3d
 
 FIT_LRS_3D = {"positions": 1e-3, "scalings": 1e-3, "rotations": 1e-3,
               "values": 1e-3}
@@ -37,11 +42,58 @@ def _box(domain):
     return (x_min, y_min, z_min), (x_max, y_max, z_max)
 
 
+def _write_volumes(out_dir, names, field_fn, domain, shape, device):
+    """``field_fn`` ((c, 3) points -> (c, len(names))) on the grid nodes,
+    evaluated once, its columns written as ``{name}.vti`` with the JAX
+    package's ``write_vti_field`` geometry."""
+    vol = vti.grid_values(field_fn, domain, shape, device=device)
+    spacing = vti.field_spacing(domain, shape)
+    for i, name in enumerate(names):
+        vti.write_vti_array(vol[..., i], domain[0::2], spacing,
+                            os.path.join(out_dir, f"{name}.vti"))
+
+
+def _reference_fields_fn(scene):
+    """(c, 3) points -> (c, 4): the analytic field's |u|, |curl u|, div u
+    and helicity u . curl u, from one velocity and one Jacobian
+    evaluation."""
+    def f(x):
+        vel = scene.velocity(x)
+        jac = scene.velocity_jac(x)
+        vor = losses.curl3d(jac)
+        return torch.stack([torch.linalg.vector_norm(vel, dim=-1),
+                            torch.linalg.vector_norm(vor, dim=-1),
+                            losses.divergence(jac), (vor * vel).sum(-1)], -1)
+    return f
+
+
+def _frame_fields_fn(mix: GaussianMixture, spec: FieldSpec):
+    """(c, 3) points -> (c, 2): the mixture's |curl u| and div u, from one
+    value + Jacobian evaluation (``field.value_and_jac_chunked``)."""
+    def f(x):
+        jac = field.value_and_jac_chunked(mix, spec, x)[1]
+        return torch.stack([
+            torch.linalg.vector_norm(losses.curl3d(jac), dim=-1),
+            losses.divergence(jac)], -1)
+    return f
+
+
+def _write_frame_vti(out_dir, tag, mix, spec, scene, viz_res=None):
+    """``vorticity_{tag}.vti`` and ``divergence_{tag}.vti`` of the mixture
+    on the scene's grid (``viz_res`` overrides it)."""
+    _write_volumes(out_dir, (f"vorticity_{tag}", f"divergence_{tag}"),
+                   _frame_fields_fn(mix, spec), scene.domain,
+                   tuple(viz_res or scene.visualize_res), mix.device)
+
+
 def initialize_3d(init_cond: str, out_dir: str, max_epoch: int = 500,
-                  batch_size: int = 8192, seed: int = 42,
-                  particle_count=None, verbose: int = 1, device="cuda"):
-    """Fit the scene's ring field; writes gaussian_velocity_0.pt. Returns
-    (mix, spec)."""
+                  batch_size: int = 8192, seed: int = 42, viz: bool = True,
+                  particle_count=None, viz_res=None, verbose: int = 1,
+                  device="cuda"):
+    """Fit the scene's ring field; writes gaussian_velocity_0.pt, an
+    obstacle scene's obstacle.obj, and with ``viz`` the four reference
+    volumes and the frame-0 volumes (on the scene's grid, or
+    ``viz_res``). Returns (mix, spec)."""
     device = torch.device(device)
     os.makedirs(out_dir, exist_ok=True)
     scene = get_scene_3d(init_cond)
@@ -51,24 +103,37 @@ def initialize_3d(init_cond: str, out_dir: str, max_epoch: int = 500,
     spec = FieldSpec.create(lo, hi, pos.shape[0], d=3, vdim=3)
     mix = GaussianMixture.create(pos, spec, device=device).spatially_sorted()
     print("Particle count:", pos.shape[0])
+    if scene.mesh_sampler is not None:
+        scene.mesh_sampler.save_obj(os.path.join(out_dir, "obstacle.obj"))
+    if viz:
+        with torch.no_grad():
+            _write_volumes(out_dir, ("velocity_ref", "vorticity_ref",
+                                     "divergence_ref", "helicity_ref"),
+                           _reference_fields_fn(scene), scene.domain,
+                           tuple(viz_res or scene.visualize_res), device)
     mix = fit_velocity_with_gradient(
         mix, spec, scene.velocity, scene.velocity_jac, lo, hi,
         lrs=dict(FIT_LRS_3D), batch_size=batch_size, max_epoch=max_epoch,
         gen=_generator(seed, device), verbose=verbose)
     checkpoint.save_checkpoint(
         os.path.join(out_dir, "gaussian_velocity_0.pt"), mix, spec)
+    if viz:
+        _write_frame_vti(out_dir, "0", mix, spec, scene, viz_res)
     return mix, spec
 
 
 def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
                start_frame: int = 0, max_epoch: int = 20000,
                batch_size: int = 8192, boundary_lambda: float = 10.0,
-               seed: int = 42, test_res: Optional[tuple] = None,
-               verbose: int = 1, device="cuda"):
+               seed: int = 42, viz: bool = True, viz_res=None,
+               test_res: Optional[tuple] = None, verbose: int = 1,
+               device="cuda"):
     """Frame loop from gaussian_velocity_{start_frame}.pt; writes one
-    checkpoint per frame. Returns (mix, spec, frames), ``frames`` holding
-    per frame its number, alive count, seconds per phase and the last test
-    metrics of the clone and projection phases."""
+    checkpoint per frame and, with ``viz``, the start frame's and every
+    frame's vorticity and divergence volumes. Returns (mix, spec, frames),
+    ``frames`` holding per frame its number, alive count, seconds per
+    phase (clone, advect, project, the volumes, the save) and the last
+    test metrics of the clone and projection phases."""
     device = torch.device(device)
     scene = get_scene_3d(init_cond)
     domain = scene.domain
@@ -79,6 +144,9 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
     gen = _generator(seed + start_frame, device)
     xnv, ynv, znv = test_res or scene.visualize_res
     test_x = grid_points_3d(*domain, xnv, ynv, znv)
+    if viz:
+        _write_frame_vti(out_dir, str(start_frame), mix, spec, scene,
+                         viz_res)
 
     frames = []
     t, cnt = 0.0, start_frame + 1
@@ -100,20 +168,25 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
         mix = new_mix
         print(f"Wrote frame {cnt}")
         ft1 = time.perf_counter()
+        if viz:
+            _write_frame_vti(out_dir, str(cnt), mix, spec, scene, viz_res)
+        ft2 = time.perf_counter()
         checkpoint.save_checkpoint(
             os.path.join(out_dir, f"gaussian_velocity_{cnt}.pt"), mix, spec)
-        ft2 = time.perf_counter()
+        ft3 = time.perf_counter()
         n_alive = mix.n_alive()
         if verbose:
             print(f"[frame {cnt}] solve {ft1 - ft0:.1f}s (clone "
                   f"{ftc - ft0:.1f} advect {fta - ftc:.1f} project "
-                  f"{ft1 - fta:.1f}) save {ft2 - ft1:.1f}s "
-                  f"(N={n_alive}/{mix.capacity})", flush=True)
+                  f"{ft1 - fta:.1f}) viz {ft2 - ft1:.1f}s save "
+                  f"{ft3 - ft2:.1f}s (N={n_alive}/{mix.capacity})",
+                  flush=True)
         frames.append({"frame": cnt, "n_alive": n_alive,
-                       "capacity": mix.capacity, "seconds": ft2 - ft0,
+                       "capacity": mix.capacity, "seconds": ft3 - ft0,
                        "clone_seconds": ftc - ft0,
                        "advect_seconds": fta - ftc,
                        "project_seconds": ft1 - fta,
+                       "viz_seconds": ft2 - ft1, "save_seconds": ft3 - ft2,
                        "clone": clone_m, "project": proj_m})
         cnt += 1
         t += dt
@@ -133,11 +206,7 @@ def _grid_chunks_device(domain: tuple, grid_shape: tuple, chunk: int,
     split into views. The grid is x-slowest, so the padded array stays
     sorted by x and the banded sweep runs presorted. Constant across frames
     and densities, so built once (a 512^3 grid is 1.6 GB)."""
-    axes = [torch.as_tensor(axis_nodes(domain[2 * i], domain[2 * i + 1], s),
-                            device=device)
-            for i, s in enumerate(grid_shape)]
-    pts = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1) \
-        .reshape(-1, 3)
+    pts = grid_nodes(domain, grid_shape, device)
     n = pts.shape[0]
     pad = (-n) % chunk
     if pad:
@@ -305,36 +374,45 @@ def _write_density_small(host: np.ndarray, origin, spacing, path):
 
 
 class _AsyncVtiWriter:
-    """Single-slot pipelined volume writer: the copy to the host is queued
-    on the device right after the density it copies (into pinned memory,
-    so the host does not wait), and a background thread waits for it and
-    writes the files while the next density's chunks run. At most one
-    extra host volume is alive at a time."""
+    """Single-slot pipelined volume writer: the volume is transposed to
+    the file's x-fastest order on its device (``vti.x_fastest``) and the
+    copy to the host queued right after the density it copies (into
+    pinned memory, so the host does not wait); a background thread waits
+    for it and writes the files while the next density's chunks run. At
+    most one extra host volume is alive at a time. ``writes`` maps each
+    .vti path written to its seconds (the write alone, after the copy) and
+    bytes."""
 
     def __init__(self):
         self._pending = None
         self._error = None
+        self.writes = {}
 
     def submit(self, volume: torch.Tensor, origin, spacing, path,
                small_path=None):
         self.drain()
-        if volume.is_cuda:
-            host = torch.empty(volume.shape, dtype=volume.dtype,
-                               pin_memory=True)
-            host.copy_(volume, non_blocking=True)
+        src = vti.x_fastest(volume)
+        if src.is_cuda:
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            host.copy_(src, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
         else:
-            host, done = volume, None
+            host, done = src, None
 
         def work():
             try:
                 if done is not None:
                     done.synchronize()
                 arr = host.numpy()
-                vti.write_vti_array(arr, origin, spacing, path)
+                t0 = time.perf_counter()
+                vti.write_vti_x_fastest(arr, origin, spacing, path)
+                self.writes[path] = {
+                    "seconds": time.perf_counter() - t0,
+                    "bytes": os.path.getsize(path)}
                 if small_path is not None:
-                    _write_density_small(arr, origin, spacing, small_path)
+                    _write_density_small(arr.transpose(2, 1, 0), origin,
+                                         spacing, small_path)
             except BaseException as e:  # re-raised on the caller's thread
                 self._error = e
 
@@ -390,8 +468,9 @@ def advance_density(init_cond: str, out_dir: str, dt: float,
     ring_collide. The grid is ``visualize_res * res_multiplier`` (512^3 by
     default); ``grid_res`` overrides it. ``start_frame`` resumes from the
     replay's own ``density_{tag}_{start_frame}.vti``. Returns one record per
-    advected frame: its number, the band (None on the CPU) and the seconds
-    per density."""
+    advected frame: its number, the band (None on the CPU), the seconds
+    per density and, per density, its .vti write (``_AsyncVtiWriter``
+    ``writes``: seconds and bytes)."""
     from gaussian_fluids_torch.scenes.fields3d import Ring
     device = torch.device(device)
     scene = get_scene_3d(init_cond)
@@ -409,17 +488,18 @@ def advance_density(init_cond: str, out_dir: str, dt: float,
     origin = (domain[0], domain[2], domain[4])
     writer = _AsyncVtiWriter()
 
+    def vti_path(tag, frame):
+        return os.path.join(out_dir, f"density_{tag}_{frame}.vti")
+
     def submit(tag, frame, volume):
-        writer.submit(volume, origin, spacing,
-                      os.path.join(out_dir, f"density_{tag}_{frame}.vti"),
+        writer.submit(volume, origin, spacing, vti_path(tag, frame),
                       os.path.join(out_dir,
                                    f"density_small_{tag}_{frame}.npz"))
 
     if start_frame > 0:
         frame = start_frame
-        dens = [torch.as_tensor(vti.read_vti_array(os.path.join(
-            out_dir, f"density_{tag}_{frame}.vti")).copy(), device=device)
-            for tag in tags]
+        dens = [torch.as_tensor(vti.read_vti_array(vti_path(tag, frame))
+                                .copy(), device=device) for tag in tags]
     else:
         frame = 0
         dens = [interp.seed_ring_density((xn, yn, zn), domain, r.center,
@@ -454,4 +534,6 @@ def advance_density(init_cond: str, out_dir: str, dt: float,
     for rec in records:
         rec["seconds"] = {tag: clock.seconds(m)
                           for tag, m in rec.pop("marks").items()}
+        rec["vti_writes"] = {tag: writer.writes[vti_path(tag, rec["frame"])]
+                             for tag in tags}
     return records

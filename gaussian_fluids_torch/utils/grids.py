@@ -38,6 +38,17 @@ def grid_points_3d(x_min, x_max, y_min, y_max, z_min, z_max,
     return np.stack([X, Y, Z], axis=-1).reshape(-1, 3)
 
 
+def grid_nodes(domain, shape, device="cpu") -> torch.Tensor:
+    """(nx * ny * nz, 3) f32 nodes of ``grid_points_3d`` over the
+    (x_min, x_max, y_min, y_max, z_min, z_max) ``domain``, built on
+    ``device``."""
+    axes = [torch.as_tensor(axis_nodes(domain[2 * i], domain[2 * i + 1], n),
+                            device=device)
+            for i, n in enumerate(shape)]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), -1) \
+        .reshape(-1, 3)
+
+
 def default_chunk(x: torch.Tensor) -> int:
     """The JAX package's chunk of large query sets: 32768 on the
     accelerator (here the card), 4096 elsewhere, where the dense path's

@@ -150,9 +150,13 @@ def test_box_sampler_matches_on_the_same_uniforms():
 
 
 def test_obstacle_scene_is_refused_clearly():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tscene("ring_with_obstacle")
-    with pytest.raises(KeyError):
+    """The obstacle scene, refused until its mesh sampler was ported, now
+    builds with it (tests/test_torch_mesh.py holds it against the JAX
+    package); an unknown scene is refused with the valid names."""
+    scene = tscene("ring_with_obstacle")
+    assert scene.mesh_sampler is not None
+    assert scene.domain == jscene("ring_with_obstacle").domain
+    with pytest.raises(KeyError, match="ring_with_obstacle"):
         tscene("no_such_scene")
 
 

@@ -210,7 +210,9 @@ def test_seed_ring_density_matches(scene):
 
 @pytest.mark.parametrize("writer", ["torch", "jax"])
 def test_vti_round_trip_and_cross_read(tmp_path, writer):
-    """A volume written by either package reads back bitwise in both."""
+    """A volume written by either package reads back bitwise in both. The
+    port's file is the JAX package's native appended-raw file, byte for
+    byte; the port also reads the JAX package's inline-base64 fallback."""
     v = np.random.RandomState(1).rand(6, 5, 4).astype(np.float32)
     path = str(tmp_path / "v.vti")
     (tvti if writer == "torch" else jvti).write_vti_array(
@@ -218,21 +220,26 @@ def test_vti_round_trip_and_cross_read(tmp_path, writer):
     np.testing.assert_array_equal(tvti.read_vti_array(path), v)
     np.testing.assert_array_equal(jvti.read_vti_array(path), v)
     if writer == "torch":
-        assert open(path).read() == _jax_inline_vti(tmp_path, v)
+        assert open(path, "rb").read() == _jax_vti(tmp_path, v)
+    else:
+        _jax_vti(tmp_path, v, native=False)
+        np.testing.assert_array_equal(
+            tvti.read_vti_array(str(tmp_path / "j.vti")), v)
 
 
-def _jax_inline_vti(tmp_path, v):
-    """The JAX package's file for the same volume by its pure-Python path
-    (the native writer is the other encoding)."""
-    from gaussian_fluids_tpu.utils import native
+def _jax_vti(tmp_path, v, native=True):
+    """The JAX package's file for the same volume: by its native writer,
+    or with ``native`` False by its pure-Python path."""
+    from gaussian_fluids_tpu.utils import native as jnative
     path = str(tmp_path / "j.vti")
-    orig = native.vti_write_f32
-    native.vti_write_f32 = lambda *a, **k: False
+    orig = jnative.vti_write_f32
+    if not native:
+        jnative.vti_write_f32 = lambda *a, **k: False
     try:
         jvti.write_vti_array(v, (0.0, -1.0, 2.0), (0.1, 0.2, 0.3), path)
     finally:
-        native.vti_write_f32 = orig
-    return open(path).read()
+        jnative.vti_write_f32 = orig
+    return open(path, "rb").read()
 
 
 def test_write_density_small_matches(tmp_path):

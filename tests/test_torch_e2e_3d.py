@@ -37,9 +37,9 @@ def runs(tmp_path_factory):
                max_epoch=FRAME_EPOCHS, batch_size=BATCH, viz=False,
                test_res=TEST_RES, verbose=0)
     ts3.initialize_3d("leapfrog", tdir, max_epoch=FIT_EPOCHS,
-                      batch_size=BATCH, verbose=0, device="cpu")
+                      batch_size=BATCH, viz=False, verbose=0, device="cpu")
     out = ts3.advance_3d("leapfrog", tdir, dt=.02, last_time=.02,
-                         max_epoch=FRAME_EPOCHS, batch_size=BATCH,
+                         max_epoch=FRAME_EPOCHS, batch_size=BATCH, viz=False,
                          test_res=TEST_RES, verbose=0, device="cpu")
     return jdir, tdir, out
 
