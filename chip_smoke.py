@@ -59,9 +59,9 @@ Phases, each printing one JSON line with its wall seconds:
                 they hold
   initialize    the leapfrog scene fitted at 71x71 = 5041 Gaussians through
                 the entry point ``gaussian_fluids_torch.initialize2d``
-  advance       two frames (clone -> advect -> project) at dt .025 through
-                ``gaussian_fluids_torch.advance2d``; losses and the
-                divergence residual per frame
+  advance       one frame (clone -> advect -> project) at dt .025 through
+                ``gaussian_fluids_torch.advance2d``;
+                losses and the divergence residual
   check         the final 2D field through the kernels against the plain
                 dense field evaluation in float64
   karman_init   the karman scene (400x60 = 24,000 Gaussians, capacity
@@ -80,6 +80,13 @@ Phases, each printing one JSON line with its wall seconds:
                 geometry (512 data rows, the cylinder's 512 and the edges'
                 2560 boundary rows) against ``two_head_grads`` plus a
                 separate boundary value backward: losses, gradients, times
+  vortices_pass_2d  vortices_pass (71x71 = 5041 Gaussians, capacity 6144,
+                B=512, its flux batch 3 x 512) through initialize2d (100
+                fit epochs) and one advance2d frame at dt .01 (100 + 100
+                epochs, the targets hoisted): the final field against
+                float64 dense, the obstacles' mean |u.n| on 4096 circle
+                points after the fit and after the frame, row 1's
+                launches by shape
   initialize3d  3D scenes fitted through ``gaussian_fluids_torch.initialize3d``:
                 leapfrog (10^3 = 1000 Gaussians, the centered kernels at
                 d=3) and ring_collide (40^3 = 64,000 Gaussians, capacity
@@ -89,9 +96,31 @@ Phases, each printing one JSON line with its wall seconds:
                 through ``gaussian_fluids_torch.advance3d`` on the scene's
                 128^3 test grid, --no_viz; losses and the divergence
                 residual
-  epoch_3d      one Ring-Collide projection epoch (seeded state, B=8192)
-                under torch.profiler: device ms per epoch and the cells
-                forward's share
+  hoist         the exact-target hoist (the default on the card): the
+                hoisted targets against the per-epoch ones on the same
+                draws (Ring-Collide 25 x 8192, vortices_pass 100 x 512,
+                Karman 100 x 512 under GF_FUSED_RK4=1; bitwise or not, the
+                largest difference, within HOIST_TOL); rows 1, 5 and 9 at
+                the shapes the hoist and the target grid give them (row 1
+                d=2 at B=51,200 and 1536, row 5 at B=204,800 against
+                N=75,776 and N=1024 and at B=32,768, row 9 at B=51,200)
+                against their plain versions (on batch-sized row slices
+                where the dense planes would not fit), timed, with their
+                bounds; the Ring-Collide projection epoch in chunks of 25,
+                hoisted and under GF_HOIST_TARGETS=0: wall ms alternated
+                p c c p, then each mode under torch.profiler (device ms,
+                busy share, host operators, launches; the hoisted mode as
+                its chunk's inputs over 25 plus its epochs); no work list
+                overflowed
+  epoch_3d      the first (GF_HOIST_TARGETS=0) of those projection runs,
+                as the phase reported it before the hoist
+  target_grid_rc  a Ring-Collide projection chunk under --target_grid 128
+                on the fitted Ring-Collide field: the grid's build seconds
+                and launches; the grid at 8192 of its nodes against the
+                exact targets there (1e-4 of the largest entry); the
+                interpolated targets against the exact ones at 8192
+                points off the nodes, reported (largest, 99th percentile,
+                mean difference); 25 epochs on the interpolated targets
   check3d       the final Ring-Collide field through the kernels against
                 the dense plain evaluation in float64 on 4096 points
   query_grad    dL/dx through ``field.value_and_jac`` (Jacobian summed) and
@@ -153,11 +182,16 @@ Launches are counted per path: each path's counts are set to 0 just
 before it and read just after; the 2D lines of the kernel summary carry
 the Leapfrog-2D path's launches, the d=3 and cells lines the 3D path's;
 the forward's are also counted per shape (d, B, N) on every path
-(``launches_by_shape``; the Karman path's under ``karman_2d``).
+(``launches_by_shape``; the Karman path's under ``karman_2d``, the
+vortices_pass path's under ``vortices_pass_2d``), and so are the cells
+forward's (B, N) and the fused RK4 kernel's; each shape the hoist or the
+target grid adds carries its own entry (``hoisted_B...``) with its
+launches on the path that runs it.
 The run fails if a kernel of a path was not launched there, or if a cells
 work list overflowed at the default capacity. The banded kernel's path is
 the replay (density3d and density512: its launches are their sum), the
-fused RK4 kernel's the Karman frame, the triple backward's epoch_heads,
+fused RK4 kernel's the Karman frame (row 9 by shape: the hoisted sweep
+at B=51,200), the triple backward's epoch_heads,
 the dL/dx kernel's query_grad; obstacle3d is a second path of rows 1 and
 5-7 (the 3D lines add its launches to the 3D path's), replay_vs_jax a
 third of row 8. Then the per-kernel summary (each bound
@@ -169,6 +203,7 @@ directory outside the checkout, deleted at the end. Any failure raises;
 without a CUDA device the script exits non-zero before printing results.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -253,6 +288,25 @@ OBSTACLE_INIT_EPOCHS = 100     # the obstacle scene's fit; default 500
 OBSTACLE_ADVANCE_EPOCHS = 100  # per phase of its frame; default 20000
 OBSTACLE_VOLUME_TOL = 1e-3     # frame volumes against float64 dense, of
 #                                the largest entry (as check3d's field)
+VP_INIT_EPOCHS = 100      # the vortices_pass fit; the default is 10000
+VP_ADVANCE_EPOCHS = 100   # per phase of its frame; the default is 20000
+VP_DT = 0.01              # the committed vortices_pass runs' step
+#                           (scripts/run_production_chain5.sh:137)
+HOIST_CHUNK = 25          # epochs of the hoist A/B's and the grid mode's
+#                           chunks: one sweep of 25 x 8192 at Ring-Collide,
+#                           the shape of the solver's (check_iter 100 gives
+#                           four: sweep_group(100, 8192) = 25)
+HOIST_TOL = 1e-4          # hoisted against per-epoch targets, of the
+#                           largest entry (reasoned in PERF.md §6 before the
+#                           first run)
+GRID_RES = 128            # the committed Ring-Collide run's --target_grid
+#                           (scripts/run_production_chain5.sh:251)
+GRID_TOL = 0.02           # interpolated against exact targets, of the
+#                           largest entry: tests/test_target_grid.py:34
+#                           holds the JAX package's grid mode to it on a
+#                           smooth field; reported here, not gated (the
+#                           fitted Ring-Collide field misses it at its
+#                           worst points: PERF.md §6)
 NO_LIBRARY_BANDED = ("no single PyTorch call computes the clamp-masked "
                      "Gaussian sum over a per-query-tile window")
 
@@ -1223,11 +1277,11 @@ def run_2d(tmp):
     t0 = time.perf_counter()
     mix, spec, frames = advance2d.main(
         ["--init_cond", "leapfrog", "--dir", tmp, "--dt", ".025",
-         "--last_time", ".05", "--max_epoch", str(ADVANCE_EPOCHS)])
+         "--last_time", ".025", "--max_epoch", str(ADVANCE_EPOCHS)])
     torch.cuda.synchronize()
     launches = dict(gsr_centered.launches)   # initialize + advance
     by_shape = _shape_counts(gsr_centered.fwd_shapes)
-    check_frames(frames, 2, "2D")
+    check_frames(frames, 1, "2D")
     for f in frames:
         emit({"phase": "advance", "frame": f["frame"],
               "seconds": f["seconds"], "n_gaussians": f["n_alive"],
@@ -1241,7 +1295,7 @@ def run_2d(tmp):
 
     t0 = time.perf_counter()
     written = sorted(os.listdir(tmp))
-    want = [f"gaussian_velocity_{i}.pt" for i in range(3)]
+    want = [f"gaussian_velocity_{i}.pt" for i in range(2)]
     if written != want:
         raise AssertionError(f"checkpoints {written} != {want}")
     pts = grid_points_2d(-5, 5, -5, 5, 64, 64)
@@ -1253,6 +1307,12 @@ def run_2d(tmp):
 def _shape_counts(fwd_shapes):
     """Row 1's launches by shape, keyed for JSON."""
     return {f"d={d},B={b},N={n}": c for (d, b, n), c in fwd_shapes.items()}
+
+
+def _cells_shapes():
+    """Row 5's launches by shape since the last reset, keyed for JSON."""
+    from gaussian_fluids_torch.ops import gsr_cells
+    return {f"B={b},N={n}": c for (b, n), c in gsr_cells.fwd_shapes.items()}
 
 
 def wall_ms(fn, reps=TIMED_LAUNCHES):
@@ -1325,6 +1385,7 @@ def run_karman(tmp):
         else:
             os.environ["GF_FUSED_RK4"] = before
     launches = counts()
+    rk4_shapes = {f"B={b},N={n}": c for (b, n), c in rk4_fused.shapes.items()}
     for k, n in _shape_counts(gsr_centered.fwd_shapes).items():
         by_shape[k] = by_shape.get(k, 0) + n
     check_frames(frames, 1, "karman")
@@ -1354,9 +1415,10 @@ def run_karman(tmp):
           "project": f["project"],
           "divergence_residual": f["project"]["loss_div"],
           "launches": launches, "gsr_fwd_launches_by_shape": by_shape,
+          "rk4_fused_launches_by_shape": rk4_shapes,
           **{"check_" + k: v for k, v in check_field(
               mix, spec, pts, f64=True).items()}})
-    return mix, spec, launches, by_shape
+    return mix, spec, launches, by_shape, rk4_shapes
 
 
 def _projection_batch(mix, spec, seed):
@@ -1561,6 +1623,7 @@ def run_3d(tmp):
             raise AssertionError(f"{scene}: checkpoints {os.listdir(d)}")
         total = after
     by_shape = _shape_counts(gsr_centered.fwd_shapes)
+    cells_shapes = _cells_shapes()
     overflows = gsr_cells.overflows()
     if any(overflows.values()):
         raise AssertionError(f"cells work lists overflowed: {overflows}")
@@ -1570,8 +1633,9 @@ def run_3d(tmp):
     emit({"phase": "check3d", "scene": "ring_collide",
           "seconds": time.perf_counter() - t0, "cells_overflows": overflows,
           "gsr_fwd_launches_by_shape": by_shape,
+          "cells_fwd_launches_by_shape": cells_shapes,
           **check_field(mix, spec, pts, f64=True)})
-    return total, by_shape
+    return total, by_shape, cells_shapes
 
 
 def _flux(mix, spec, pts, nrm):
@@ -1653,6 +1717,7 @@ def run_obstacle(d, device):
          "--last_time", ".02", "--max_epoch", str(OBSTACLE_ADVANCE_EPOCHS)])
     after = counts()
     by_shape = _shape_counts(gsr_centered.fwd_shapes)
+    cells_shapes = _cells_shapes()
     overflows = gsr_cells.overflows()
     check_frames(frames, 1, scene.name)
     files = sorted(os.listdir(d))
@@ -1702,7 +1767,8 @@ def run_obstacle(d, device):
           "mesh_flux_mean_max": flux, "cells_overflows": overflows,
           "launches_initialize": mid,
           "launches_advance": {k: after[k] - mid[k] for k in after},
-          "gsr_fwd_launches_by_shape": by_shape})
+          "gsr_fwd_launches_by_shape": by_shape,
+          "cells_fwd_launches_by_shape": cells_shapes})
     return path, by_shape
 
 
@@ -2156,24 +2222,526 @@ def density_512(d, device):
     return launches
 
 
-def epoch_3d(device, epochs=10):
-    """The Ring-Collide projection epoch under torch.profiler (seeded
-    state, B = 8192, the cells kernels): device ms per epoch, the cells
-    forward's share of it, the busy share."""
+@contextlib.contextmanager
+def env_set(name, value):
+    """``os.environ[name] = value`` inside the block, restored after."""
+    before = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = before
+
+
+def run_vortices_pass(d, device):
+    """vortices_pass (71 x 71 = 5041 Gaussians, capacity 6144, B = 512, the
+    flux batch 3 x 512 on the two obstacle circles and the walls) through
+    initialize2d (VP_INIT_EPOCHS) and one advance2d frame at dt VP_DT
+    (VP_ADVANCE_EPOCHS a phase), its targets hoisted: the final field
+    against float64 dense, the obstacles' mean |u.n| on 4096 circle
+    points after the fit and after the frame, launches of rows 1-3 and
+    row 1's by shape (the hoisted sweep at B = 51,200 among them).
+    Returns (final mixture, spec, the frame's launches, row 1's by
+    shape)."""
+    from gaussian_fluids_torch import advance2d, initialize2d
+    from gaussian_fluids_torch.ops import gsr_centered
+    from gaussian_fluids_torch.scenes import boundaries2d, get_scene_2d
+    from gaussian_fluids_torch.utils.grids import grid_points_2d
+
+    scene = get_scene_2d("vortices_pass")
+    sf = scene.scaling_factor
+    gsr_centered.reset_launches()
+    t0 = time.perf_counter()
+    fit, spec = initialize2d.main(
+        ["--init_cond", scene.name, "--dir", d, "--max_epoch",
+         str(VP_INIT_EPOCHS)])
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    init = dict(gsr_centered.launches)
+    gsr_centered.reset_launches()
+    mix, spec, frames = advance2d.main(
+        ["--init_cond", scene.name, "--dir", d, "--dt", str(VP_DT),
+         "--last_time", str(VP_DT), "--max_epoch", str(VP_ADVANCE_EPOCHS)])
+    torch.cuda.synchronize()
+    launches = dict(gsr_centered.launches)
+    by_shape = _shape_counts(gsr_centered.fwd_shapes)
+    check_frames(frames, 1, scene.name)
+    if sorted(os.listdir(d)) != ["gaussian_velocity_0.pt",
+                                 "gaussian_velocity_1.pt"]:
+        raise AssertionError(f"{scene.name}: checkpoints {os.listdir(d)}")
+    if fit.n_alive() != 5041 or fit.capacity != 6144:
+        raise AssertionError(f"{scene.name} width {fit.n_alive()}/"
+                             f"{fit.capacity}")
+    hoisted = f"d=2,B={100 * 512},N={mix.capacity}"
+    if by_shape.get(hoisted, 0) == 0 or any(
+            launches[k] == 0 for k in ("gsr_fwd", "gsr_bwd_dn",
+                                       "gsr_bwd_dn2")):
+        raise AssertionError(f"{scene.name}: launches {launches}, "
+                             f"{by_shape}")
+    gen = torch.Generator(device=device).manual_seed(15)
+    u = torch.rand((2, 2048), generator=gen, device=device)
+    pts, nrm = boundaries2d.obstacle_circles(u[0], u[1], scene.info)
+    flux = {"fit": _flux(fit, spec, pts * sf, nrm),
+            "frame_1": _flux(mix, spec, pts * sf, nrm)}
+    f = frames[0]
+    emit({"phase": "vortices_pass_2d", "scene": scene.name,
+          "seconds": time.perf_counter() - t0, "init_seconds": init_seconds,
+          "init_epochs": VP_INIT_EPOCHS, "dt": VP_DT, "frame": f["frame"],
+          "frame_seconds": f["seconds"],
+          "clone_seconds": f["clone_seconds"],
+          "advect_seconds": f["advect_seconds"],
+          "project_seconds": f["project_seconds"],
+          "epochs_per_phase": VP_ADVANCE_EPOCHS,
+          "n_gaussians": f["n_alive"], "capacity": f["capacity"],
+          "batch": 512, "boundary_batch": 3 * 512,
+          "clone": f["clone"], "project": f["project"],
+          "obstacle_flux_mean_max": flux,
+          "obstacle_flux_lower_after_frame":
+              flux["frame_1"][0] < flux["fit"][0],
+          "launches_initialize": init, "launches_advance": launches,
+          "gsr_fwd_launches_by_shape": by_shape,
+          "final_field": check_field(
+              mix, spec, grid_points_2d(0, 10, 0, 10, 64, 64), f64=True)})
+    return mix, spec, launches, by_shape
+
+
+def _sorted_draws(gen, n, b, lo, hi):
+    """n batches of b uniform points in [lo, hi], each sorted along x as
+    the hoist sorts them: (n, b, d)."""
+    from gaussian_fluids_torch.solver.fit import uniform_batch
+    from gaussian_fluids_torch.solver.loop import sorted_batches
+    return sorted_batches(torch.stack([uniform_batch(gen, b, lo, hi)
+                                       for _ in range(n)]))
+
+
+def hoist_targets(device, vp_mix, vp_spec):
+    """The exact covector targets of a chunk's batches, hoisted (sweeps of
+    sweep_group(n, B) batches) against per epoch (each batch alone), on
+    the same draws: Ring-Collide (25 x 8192 on the seeded states, the cells
+    path), vortices_pass (100 x 512 on its fitted field, row 1) and Karman
+    under GF_FUSED_RK4=1 (100 x 512 on the seeded state, row 9). Whether
+    they are bitwise equal, the largest difference over the largest
+    entry, within HOIST_TOL."""
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    from gaussian_fluids_torch.solver import covector
+    from gaussian_fluids_torch.solver.loop import swept
+    from gaussian_fluids_torch.utils.seeded_state import (karman_state,
+                                                          ring_collide_state)
+    out = {}
+    rc, rc_spec, _ = ring_collide_state(device, seed=1)
+    gen = torch.Generator(device=device).manual_seed(16)
+    cube = (torch.zeros(3, device=device), torch.ones(3, device=device))
+    km, kspec, _ = karman_state(device)
+    kscene = get_scene_2d("karman")
+    ksf = kscene.scaling_factor
+    kadv = kscene.advance_domain
+    kbox = (torch.tensor([kadv[0] * ksf, kadv[2] * ksf], device=device),
+            torch.tensor([kadv[1] * ksf, kadv[3] * ksf], device=device))
+    vp_box = (torch.zeros(2, device=device),
+              torch.full((2,), 10.0, device=device))
+    cases = [
+        ("ring_collide", 25, 8192, cube, lambda c: covector.
+         advected_vorticity_3d(rc, rc_spec, c, 0.02, presorted=True), None),
+        ("vortices_pass", 100, 512, vp_box, lambda c: covector.
+         advected_vorticity_2d(vp_mix, vp_spec, c, VP_DT, *vp_box,
+                               presorted=True), None),
+        ("karman_fused", 100, 512, kbox, lambda c: covector.
+         advected_vorticity_2d(km, kspec, c, KARMAN_DT, *kbox,
+                               presorted=True), "1")]
+    for name, n, b, box, fn, fused in cases:
+        with env_set("GF_FUSED_RK4", fused or "0"):
+            data = _sorted_draws(gen, n, b, *box)
+            t0 = time.perf_counter()
+            hoisted = _flat(swept(fn, data))
+            torch.cuda.synchronize()
+            t_h = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            per = [_flat(fn(data[i])) for i in range(n)]
+            torch.cuda.synchronize()
+            t_p = time.perf_counter() - t0
+        per = [torch.stack([p[j] for p in per]) for j in range(len(hoisted))]
+        bitwise = all(torch.equal(h, p) for h, p in zip(hoisted, per))
+        err, rel = compare(f"hoisted targets {name}", hoisted, per,
+                           HOIST_TOL)
+        out[name] = {"batches": n, "batch": b, "sweep_rows": n * b,
+                     "bitwise_equal": bitwise, "max_abs_diff": err,
+                     "max_rel_diff": rel, "tolerance": HOIST_TOL,
+                     "hoisted_seconds": t_h, "per_epoch_seconds": t_p}
+    return out
+
+
+def kernels_hoisted(device, vp_mix, vp_spec):
+    """Rows 1, 5 and 9 at the shapes the hoist and the target grid give
+    them, each against its plain twin (TOL) — on the whole batch where
+    the twin's dense (B, N) planes fit, else on two batch-sized row
+    slices (rows are independent) — timed, with the bound on need and
+    the walked bound: row 1 at d = 2, B = 51,200 (vortices_pass's fitted
+    field, 100 sorted batches of 512) and B = 1536 (its flux batch,
+    value only); row 5 at Ring-Collide B = 204,800 (25 sorted batches of
+    8192; twin on slices), at Leapfrog-3D B = 204,800, N = 1024 (also
+    on the lists of ``GF_CELLS_CAP=0.3``, which overflow there: the
+    kernel sweeps the whole mask; its ms and the lists' preparation
+    seconds beside the default whole-grid list's), and at B = 32,768 (a
+    chunk of the 128^3 target grid); row 9 at Karman B = 51,200 (twin on
+    slices). Returns {shape tag: entry}."""
+    from gaussian_fluids_torch.ops import field, gsr_cells as gk
+    from gaussian_fluids_torch.ops import gsr_centered as gc
+    from gaussian_fluids_torch.ops import rk4_fused as rk
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    from gaussian_fluids_torch.utils.grids import grid_nodes
+    from gaussian_fluids_torch.utils.seeded_state import (karman_state,
+                                                          ring_collide_state)
+    gen = torch.Generator(device=device).manual_seed(17)
+    out = {}
+
+    def centered_args(mix, spec, x):
+        x_p, _, _, mp, pp, vp, tm, rad = field._centered_prep(
+            mix, spec, x, gc.TB, gc.TN, presorted=True)
+        return (tm, x_p, mp.T.contiguous(), pp.T.contiguous(),
+                vp.contiguous()), rad
+
+    # row 1, d = 2: the vortices_pass projection's hoisted sweep and its
+    # flux batch
+    box = (torch.zeros(2, device=device),
+           torch.full((2,), 10.0, device=device))
+    x = _sorted_draws(gen, 100, 512, *box).reshape(-1, 2)
+    args, rad = centered_args(vp_mix, vp_spec, x)
+    out["gsr_fwd_B51200"] = fwd_shape_entry(args, rad,
+                                            vp_spec.clamp_threshold, 3)
+    scene = get_scene_2d("vortices_pass")
+    bd = scene.boundary_sampler_2(gen, 512, torch.tensor(
+        scene.advance_domain, device=device))[0]
+    bd = bd[torch.argsort(bd[:, 0], stable=True)]
+    args, rad = centered_args(vp_mix, vp_spec, bd)
+    out["gsr_fwd_B1536"] = fwd_shape_entry(args, rad,
+                                           vp_spec.clamp_threshold,
+                                           TIMED_LAUNCHES)
+
+    def prep_seconds(mix, spec, x):
+        """Median wall seconds of the lists' preparation, of 5."""
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            field._cells_prep(mix, spec, x)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return sorted(ts)[2]
+
+    def cells_entry(mix, spec, x, slices, budget=None):
+        clamp = spec.clamp_threshold
+        x_p, _, tmask, (rows, cols, gt, qt, ok), rad = field._cells_prep(
+            mix, spec, x)
+        mu_p, pp_p, v_p = field._padded_param_rows(mix, spec, gk.TN)
+        muT, ppT, v = (mu_p.T.contiguous(), pp_p.T.contiguous(),
+                       v_p.contiguous())
+        B, N = x_p.shape[0], muT.shape[1]
+
+        def kern(nj):
+            return gk.cells_fwd(rows, cols, ok, tmask, x_p, muT, ppT, v,
+                                clamp, nj, rad)
+
+        def twin(sl, nj):
+            xs = x[sl]
+            xs_p, _, tms, (r_, c_, _, _, ok_), _ = field._cells_prep(
+                mix, spec, xs)
+            return gk.cells_fwd_plain(r_, c_, ok_, tms, xs_p, muT, ppT, v,
+                                      clamp, nj)[:xs.shape[0]]
+        errs = [compare(f"cells_fwd[B={B},N={N},{sl.start}:{sl.stop},{nj}]",
+                        [kern(nj)[sl]], [twin(sl, nj)], TOL)
+                for sl in slices for nj in (3, 0)]
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: kern(3))
+        plain_ms = time_ms(lambda: twin(slices[0], 3), 1)
+        live = int(tmask.sum())
+        sup = _support_pairs(gc, tmask, x_p, muT, ppT, 3, clamp)
+        nbytes = 4 * (x_p.numel() + muT.numel() + ppT.numel() + v.numel()
+                      + B * 12) + 2 * 4 * live
+        e = _entry("cells_fwd", "cells", errs, ms, plain_ms,
+                   pair_ops(OPS_GEOMETRY[3], OPS_SUPPORT[(3, "fwd")],
+                            live * gk.TB * gk.TN, sup),
+                   nbytes, live * gk.TB * gk.TN, sup)
+        extra = {}
+        if budget is not None:
+            with env_set("GF_CELLS_CAP", budget):
+                _, _, _, (r_b, c_b, _, _, ok_b), _ = field._cells_prep(
+                    mix, spec, x)
+                prep_b = prep_seconds(mix, spec, x)
+
+            def kern_b():
+                return gk.cells_fwd(r_b, c_b, ok_b, tmask, x_p, muT, ppT, v,
+                                    clamp, 3, rad)
+            err_b = compare(f"cells_fwd[B={B},N={N}] GF_CELLS_CAP={budget}",
+                            [kern_b()], [kern(3)], TOL)
+            torch.cuda.synchronize()
+            extra = {"prep_seconds": prep_seconds(mix, spec, x),
+                     f"cap_{budget}": {
+                         "list_capacity": r_b.numel(), "list_ok": int(ok_b),
+                         "ms": time_ms(kern_b), "prep_seconds": prep_b,
+                         "max_abs_err_vs_whole_list": err_b[0]}}
+        return {**extra, "B": B, "N": N, "twin_rows": [[s.start, s.stop]
+                                              for s in slices],
+                "list_ok": int(ok), "list_capacity": rows.numel(),
+                "live_tiles": live, "tiles": list(tmask.shape),
+                "live_tile_fraction": live / tmask.numel(),
+                **{k: e[k] for k in ("max_abs_err", "max_rel_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "walked_bound_ms", "support_pairs",
+                                     "walked_pairs")}}
+
+    cube = (torch.zeros(3, device=device), torch.ones(3, device=device))
+    rc, rc_spec, _ = ring_collide_state(device, seed=1)
+    x = _sorted_draws(gen, 25, 8192, *cube).reshape(-1, 3)
+    out["cells_fwd_B204800"] = cells_entry(
+        rc, rc_spec, x, [slice(0, 8192), slice(12 * 8192, 13 * 8192)])
+    lf, lf_spec, _ = ring_collide_state(device, seed=2, side=10)
+    x = _sorted_draws(gen, 25, 8192, *cube).reshape(-1, 3)
+    out["cells_fwd_B204800_N1024"] = cells_entry(
+        lf, lf_spec, x, [slice(0, 8192), slice(12 * 8192, 13 * 8192)],
+        "0.3")
+    nodes = grid_nodes((0, 1, 0, 1, 0, 1), (GRID_RES,) * 3, device)
+    x = nodes[32 * 32768:33 * 32768]           # the grid's middle chunk
+    out["cells_fwd_B32768"] = cells_entry(rc, rc_spec, x,
+                                          [slice(0, 32768)])
+
+    # row 9: Karman's hoisted sweep under GF_FUSED_RK4=1
+    km, kspec, _ = karman_state(device)
+    scene = get_scene_2d("karman")
+    sf, adv = scene.scaling_factor, scene.advance_domain
+    x = _sorted_draws(gen, 100, 512,
+                      torch.tensor([adv[0] * sf, adv[2] * sf],
+                                   device=device),
+                      torch.tensor([adv[1] * sf, adv[3] * sf],
+                                   device=device)).reshape(-1, 2)
+    clamp = kspec.clamp_threshold
+    mu_p, pp_p, v_p = field._padded_param_rows(km, kspec, gc.TN)
+    muT, ppT, v = (mu_p.T.contiguous(), pp_p.T.contiguous(),
+                   v_p.contiguous())
+    rad = field.row_radius(km, kspec, gc.TN)
+    lo, hi = rk.tile_boxes(muT, rad)
+    dt = -KARMAN_DT
+    slices = [slice(0, 512), slice(50 * 512, 51 * 512)]
+    errs = [compare(f"rk4_fused[B=51200,{s.start}:{s.stop},{nj}]",
+                    [o[s] for o in rk.fused_rk4(x, muT, ppT, v, dt, clamp,
+                                                nj, rad, lo, hi)],
+                    list(rk.rk4_plain(x[s], muT, ppT, v, dt, clamp, nj)),
+                    TOL) for s in slices for nj in (2, 0)]
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: rk.fused_rk4(x, muT, ppT, v, dt, clamp, 2, rad, lo,
+                                      hi))
+    plain_ms = time_ms(lambda: rk.rk4_plain(x[slices[0]], muT, ppT, v, dt,
+                                            clamp, 2), 3)
+    pts = _rk4_stage_points(x, muT, ppT, v, dt, clamp)
+    ones = torch.ones((x.shape[0], 1), dtype=torch.int32, device=device)
+    sup = [_support_pairs(gc, ones, p_, muT, ppT, 2, clamp) for p_ in pts]
+    walked = [int(_rk4_stage_tiles(p_, lo, hi).sum()) * rk.TB * rk.TN
+              for p_ in pts]
+    ops = [pair_ops(OPS_GEOMETRY[2], OPS_SUPPORT[(2, "rk4_stage")], w_, n)
+           for w_, n in zip(walked[:4], sup[:4])] \
+        + [pair_ops(OPS_GEOMETRY[2], OPS_SUPPORT[(2, "fwd")], walked[4],
+                    sup[4])]
+    e = _entry("rk4_fused", "rk4", errs, ms, plain_ms,
+               tuple(sum(o[i] for o in ops) for i in range(2)),
+               4 * x.numel() + 4 * (muT.numel() + ppT.numel() + v.numel())
+               + 4 * x.shape[0] * (2 + 6), sum(walked), sum(sup))
+    out["rk4_fused_B51200"] = {
+        "B": x.shape[0], "N": muT.shape[1],
+        "twin_rows": [[s.start, s.stop] for s in slices],
+        "split": gc.fwd_split(x.shape[0] // rk.TB, muT.shape[1] // rk.TN,
+                              gc._sm_count(0)),
+        "walked_pairs_per_stage": walked, "support_pairs_per_stage": sup,
+        **{k: e[k] for k in ("max_abs_err", "max_rel_err", "ms", "plain_ms",
+                             "bound_ms", "bound_by", "walked_bound_ms")}}
+    return out
+
+
+def hoist_ab(device):
+    """The Ring-Collide projection epoch (seeded state, B = 8192) hoisted
+    and under GF_HOIST_TARGETS=0: wall ms per epoch over a chunk of
+    HOIST_CHUNK epochs after a warm-up chunk, alternated p c c p in this
+    call; then each mode under torch.profiler (device ms, busy share,
+    host operators and launches per epoch, the cells forward's device
+    ms): the per-epoch mode over 5 epochs, its epochs being alike; the
+    hoisted mode as its chunk's inputs (the draws, the sorts and the
+    target sweep, once a chunk: their numbers over HOIST_CHUNK) plus 5 of
+    its epochs on them. Returns (the four wall runs, {mode: profile})."""
     from gaussian_fluids_torch.epoch_profile import _epochs_3d, profile_epoch
+    from gaussian_fluids_torch.solver import optim, project
     from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
 
     mix, spec, _ = ring_collide_state(device)
-    prof = profile_epoch(_epochs_3d(mix, spec, device)["project"], epochs)
-    fwd = sum(ms for name, ms in prof["top_kernels_ms_per_epoch"]
-              if "cells_fwd_kernel" in name)
-    emit({"phase": "epoch_3d", "config": "ring_collide", "epoch": "project",
-          "epochs": epochs, "cells_fwd_device_ms_per_epoch": fwd,
-          **{k: prof[k] for k in (
-              "wall_ms_per_epoch", "ms_per_epoch", "device_ms_per_epoch",
-              "device_busy_share",
-              "host_ops_per_epoch", "device_launches_per_epoch",
-              "top_kernels_ms_per_epoch")}})
+    walls = []
+    for mode in ("per_epoch", "hoisted", "hoisted", "per_epoch"):
+        with env_set("GF_HOIST_TARGETS",
+                     "1" if mode == "hoisted" else "0"):
+            step, _ = _epochs_3d(mix, spec, device,
+                                 chunk=HOIST_CHUNK)["project"]
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append({"mode": mode, "epochs": HOIST_CHUNK,
+                      "wall_ms_per_epoch":
+                          1e3 * (time.perf_counter() - t0) / HOIST_CHUNK})
+    runner = project._runner_3d(
+        spec, "ring_collide", project.ProjectWeights(delta_pos=0.0), 10.0,
+        8192, (0.0,) * 3, (1.0,) * 3)
+    gen = torch.Generator(device=device).manual_seed(0)
+    p = mix.params()
+    carry = [(p, optim.init(p, project.DEFAULT_LRS_3D), mix.alive, mix,
+              0.02)]
+
+    def per_epoch():
+        carry[0] = runner.run_chunk(carry[0], gen, 1, False)
+
+    inputs, used = [], [0]
+
+    def prepare():
+        inputs[:] = runner.chunk_inputs(carry[0], gen, HOIST_CHUNK, True)
+
+    def hoisted_epoch():
+        used[0] = (used[0] + 1) % HOIST_CHUNK
+        carry[0] = runner.epoch(carry[0], inputs[used[0]], True)[0]
+
+    keys = ("ms_per_epoch", "device_ms_per_epoch",
+            "host_ops_per_epoch", "device_launches_per_epoch")
+    prof = profile_epoch(per_epoch, 5)
+    prep = profile_epoch(prepare, 1)
+    ep = profile_epoch(hoisted_epoch, 5)
+    hoisted = {k: prep[k] / HOIST_CHUNK + ep[k] for k in keys}
+    hoisted["device_busy_share"] = hoisted["device_ms_per_epoch"] \
+        / hoisted["ms_per_epoch"]
+    profiles = {}
+    for mode, pr in (("per_epoch", prof), ("hoisted", hoisted)):
+        profiles[mode] = {k: pr[k] for k in keys + ("device_busy_share",)}
+    for mode, pr in (("per_epoch", prof), ("hoisted", ep)):
+        profiles[mode]["cells_fwd_device_ms_per_epoch"] = sum(
+            ms for name, ms in pr["top_kernels_ms_per_epoch"]
+            if "cells_fwd_kernel" in name)
+        profiles[mode]["top_kernels_ms_per_epoch"] = \
+            pr["top_kernels_ms_per_epoch"]
+    profiles["hoisted"]["chunk_inputs_per_chunk"] = {
+        k: prep[k] for k in keys + ("top_kernels_ms_per_epoch",)}
+    profiles["hoisted"]["cells_fwd_device_ms_per_epoch"] += sum(
+        ms for name, ms in prep["top_kernels_ms_per_epoch"]
+        if "cells_fwd_kernel" in name) / HOIST_CHUNK
+    return walls, profiles
+
+
+def target_grid_rc(device, rmix, rspec):
+    """A Ring-Collide projection chunk under --target_grid GRID_RES on the
+    fitted Ring-Collide field (the 3D path's frame 1, old and new): the
+    grid's build seconds and launches (row 5 at B = 32,768); the grid at
+    8192 seeded nodes, where interpolation returns the node's value,
+    against the exact targets computed there (TOL of the largest entry:
+    the build on the card); the interpolated targets against the exact
+    ones at 8192 seeded points off the nodes, reported (the largest, the
+    99th percentile and the mean difference over the largest entry, and
+    whether the largest is within GRID_TOL); the same off-node reading on
+    the committed Ring-Collide fit (the JAX package's TPU run, frame 0:
+    the field its --target_grid 128 run starts from), over the whole box
+    and over the box of the grid's nodes 48..63 on each axis at the
+    points where tests/test_torch_target_grid.py holds the port's reading
+    to the JAX package's on the CPU (a 16^3 grid there); and HOIST_CHUNK
+    epochs on the interpolated targets (wall ms per epoch; finite
+    parameters). Returns row 5's launches by shape in the grid's
+    build."""
+    from gaussian_fluids_torch.io import checkpoint
+    from gaussian_fluids_torch.ops import gsr_cells, gsr_centered, interp
+    from gaussian_fluids_torch.solver import covector, optim, project
+    from gaussian_fluids_torch.utils.grids import grid_nodes
+
+    dt, dom = 0.02, (0, 1, 0, 1, 0, 1)
+
+    def grid_runner(spec):
+        return project._runner_3d(
+            spec, "ring_collide", project.ProjectWeights(delta_pos=0.0),
+            10.0, 8192, (0.0,) * 3, (1.0,) * 3, (GRID_RES,) * 3)
+    runner = grid_runner(rspec)
+    gsr_cells.reset_launches()
+    gsr_centered.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tgt = runner.target_grid_fn(rmix, dt)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    launches = {**gsr_cells.launches, **gsr_centered.launches}
+    shapes = _cells_shapes()
+    rng = np.random.RandomState(18)
+
+    def exact_and_grid(x, mix=rmix, spec=rspec, grid=tgt):
+        x = x[torch.argsort(x[:, 0])]
+        ev, eh = covector.advected_vorticity_3d(mix, spec, x, dt,
+                                                presorted=True)
+        return torch.cat([ev, eh[:, None]], -1), \
+            interp.multi_channel_interp(grid, x, dom)
+
+    def off_nodes(lo, hi, *field, draws=rng):
+        want, got = exact_and_grid(torch.as_tensor(
+            draws.uniform(lo, hi, (8192, 3)).astype(np.float32),
+            device=device), *field)
+        off = {}
+        for k, sl in (("vorticity", slice(0, 3)), ("helicity", slice(3, 4))):
+            diff = (got[:, sl] - want[:, sl]).abs().amax(-1).double()
+            scale = float(want[:, sl].abs().max())
+            off[k] = {"max_rel": float(diff.max()) / scale,
+                      "p99_rel": float(torch.quantile(diff, 0.99)) / scale,
+                      "mean_rel": float(diff.mean()) / scale,
+                      "max_within_grid_tol": float(diff.max()) <= GRID_TOL
+                      * scale}
+        return off
+
+    nodes = grid_nodes(dom, (GRID_RES,) * 3, device)
+    want, got = exact_and_grid(nodes[torch.as_tensor(
+        rng.randint(0, GRID_RES ** 3, 8192), device=device)])
+    at_nodes = {k: compare(f"target grid at its nodes, {k}", [got[:, sl]],
+                           [want[:, sl]], TOL)
+                for k, sl in (("vorticity", slice(0, 3)),
+                              ("helicity", slice(3, 4)))}
+    off = off_nodes(0.0, 1.0)
+    cmix, cspec = checkpoint.load_checkpoint(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "runs_r2_evidence",
+        "ckpts", "output_3d_ring_collide", "gaussian_velocity_0.pt"),
+        device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cgrid = grid_runner(cspec).target_grid_fn(cmix, dt)
+    torch.cuda.synchronize()
+    committed = {
+        "checkpoint": "runs_r2_evidence/ckpts/output_3d_ring_collide/"
+                      "gaussian_velocity_0.pt",
+        "build_seconds": time.perf_counter() - t0,
+        "off_nodes": off_nodes(0.0, 1.0, cmix, cspec, cgrid),
+        # the CPU test's points: its seed, its box
+        "off_nodes_box_nodes_48_63": off_nodes(
+            48 / 127, 63 / 127, cmix, cspec, cgrid,
+            draws=np.random.RandomState(18))}
+    del cgrid, cmix
+    p = rmix.params()
+    carry = (p, optim.init(p, project.DEFAULT_LRS_3D), rmix.alive, rmix, dt)
+    gen = torch.Generator(device=device).manual_seed(19)
+    carry = runner.run_chunk(carry, gen, 2, False, tgt)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = runner.run_chunk(carry, gen, HOIST_CHUNK, False, tgt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(torch.isfinite(v).all() for v in carry[0].values()):
+        raise AssertionError("target_grid_rc: non-finite parameters")
+    emit({"phase": "target_grid_rc", "grid": [GRID_RES] * 3,
+          "grid_nodes": GRID_RES ** 3, "build_seconds": build,
+          "build_launches": launches, "build_cells_fwd_by_shape": shapes,
+          "at_nodes": {k: {"max_abs_err": e, "max_rel_err": r}
+                       for k, (e, r) in at_nodes.items()},
+          "at_nodes_tolerance": TOL, "off_nodes": off,
+          "committed_fit": committed,
+          "grid_tol": GRID_TOL, "epochs": HOIST_CHUNK,
+          "wall_ms_per_epoch": 1e3 * wall / HOIST_CHUNK})
+    return shapes
 
 
 def main():
@@ -2239,14 +2807,34 @@ def main():
     tmp = tempfile.mkdtemp(prefix="gf_torch_smoke_")
     try:
         launches_2d, shapes_2d = run_2d(os.path.join(tmp, "2d"))
-        kmix, kspec, launches_karman, shapes_karman = run_karman(
-            os.path.join(tmp, "karman"))
+        kmix, kspec, launches_karman, shapes_karman, rk4_shapes = \
+            run_karman(os.path.join(tmp, "karman"))
         t0 = time.perf_counter()
         covector_fused(kmix, kspec)
         launches_heads = epoch_heads(kmix, kspec)
         emit({"phase": "karman_ab", "seconds": time.perf_counter() - t0})
-        launches_3d, shapes_3d = run_3d(os.path.join(tmp, "3d"))
-        epoch_3d(device)
+        vp_mix, vp_spec, launches_vp, shapes_vp = run_vortices_pass(
+            os.path.join(tmp, "vortices_pass"), device)
+        launches_3d, shapes_3d, cells_3d = run_3d(os.path.join(tmp, "3d"))
+        t0 = time.perf_counter()
+        targets = hoist_targets(device, vp_mix, vp_spec)
+        hoisted = kernels_hoisted(device, vp_mix, vp_spec)
+        gsr_cells.reset_launches()
+        walls, profiles = hoist_ab(device)
+        overflows = gsr_cells.overflows()
+        if any(overflows.values()) or not all(
+                hoisted[k]["list_ok"] for k in hoisted
+                if k.startswith("cells_fwd")):
+            raise AssertionError(f"hoist: work lists overflowed "
+                                 f"{overflows}")
+        emit({"phase": "epoch_3d", "config": "ring_collide",
+              "epoch": "project", "hoist": False,
+              **profiles["per_epoch"]})
+        emit({"phase": "hoist", "seconds": time.perf_counter() - t0,
+              "card": card, "targets": targets, "kernels": hoisted,
+              "projection_epoch_wall_pccp": walls,
+              "projection_epoch_profiles": profiles,
+              "cells_overflows": overflows})
         lmix, lspec = checkpoint.load_checkpoint(
             os.path.join(tmp, "3d", "leapfrog", "gaussian_velocity_1.pt"),
             device=device)
@@ -2271,6 +2859,7 @@ def main():
               time.perf_counter() - t0, "card": card,
               "checkpoint": "3d/ring_collide/gaussian_velocity_1.pt",
               "kernels": fitted_rc})
+        grid_shapes = target_grid_rc(device, rmix, rspec)
         ring = os.path.join(tmp, "3d", "ring_collide")
         launches_density = run_density(ring)
         check_density(ring, device)
@@ -2284,6 +2873,13 @@ def main():
     for name, s in stats.items():
         s["launches"] = launches_2d[name]
     stats["gsr_fwd"]["launches_by_shape"] = shapes_2d
+    stats["gsr_fwd"]["vortices_pass_2d"] = {
+        "launches": launches_vp["gsr_fwd"], "launches_by_shape": shapes_vp}
+    for tag in ("B51200", "B1536"):
+        e = hoisted["gsr_fwd_" + tag]
+        stats["gsr_fwd"][f"hoisted_{tag}"] = {
+            **e, "launches_vortices_pass": shapes_vp.get(
+                f"d=2,B={e['B']},N={e['N']}", 0)}
     kfwd = shapes_r.pop("gsr_fwd_karman_2d")
     stats["gsr_fwd"]["karman_2d"] = {
         **kfwd, "launches": shapes_karman.get(
@@ -2295,6 +2891,12 @@ def main():
     for name in ("cells_bwd_dn", "cells_bwd_dn2"):
         stats3[name]["fitted_ring_collide"] = fitted_rc[name]
     stats3["gsr_fwd[d=3]"]["launches_by_shape_obstacle"] = shapes_obstacle
+    stats3["cells_fwd"]["launches_by_shape"] = cells_3d
+    for tag, path in (("B204800", cells_3d), ("B204800_N1024", cells_3d),
+                      ("B32768", grid_shapes)):
+        e = hoisted["cells_fwd_" + tag]
+        stats3["cells_fwd"][f"hoisted_{tag}"] = {
+            **e, "launches": path.get(f"B={e['B']},N={e['N']}", 0)}
     for name, s in stats3.items():
         base = name.split("[")[0]
         s.update(launches=launches_3d[base] + launches_obstacle[base],
@@ -2316,6 +2918,10 @@ def main():
     stats_r["gsr_bwd_dx[d=3]"]["launches"] = launches_dx[3]["gsr_bwd_dx"]
     stats_r["gsr_bwd_dn3"]["launches"] = launches_heads["gsr_bwd_dn3"]
     stats_r["rk4_fused"]["launches"] = launches_karman["rk4_fused"]
+    stats_r["rk4_fused"]["launches_by_shape"] = rk4_shapes
+    e = hoisted["rk4_fused_B51200"]
+    stats_r["rk4_fused"]["hoisted_B51200"] = {
+        **e, "launches": rk4_shapes.get(f"B={e['B']},N={e['N']}", 0)}
     missing = [n for n, s in {**stats, **stats3, **stats_d,
                               **stats_r}.items() if s["launches"] == 0]
     if missing:

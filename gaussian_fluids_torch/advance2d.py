@@ -13,7 +13,7 @@ def main(argv=None):
     return advance_2d(args.init_cond, args.dir, args.dt, args.last_time,
                       start_frame=args.start_frame,
                       max_epoch=args.max_epoch, seed=args.seed,
-                      device=args.device)
+                      target_grid_res=args.target_grid, device=args.device)
 
 
 if __name__ == "__main__":

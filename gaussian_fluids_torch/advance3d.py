@@ -14,7 +14,8 @@ def main(argv=None):
                       start_frame=args.start_frame,
                       max_epoch=args.max_epoch,
                       boundary_lambda=args.boundary, seed=args.seed,
-                      viz=not args.no_viz, device=args.device)
+                      viz=not args.no_viz,
+                      target_grid_res=args.target_grid, device=args.device)
 
 
 if __name__ == "__main__":

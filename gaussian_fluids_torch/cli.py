@@ -4,7 +4,9 @@ defaults. In 3D, ``--no_viz`` switches off the ``.vti`` volumes, which are
 written by default as the JAX CLI writes them (every one of its files but
 the loss-curve figure ``loss_{n}.png``, not ported yet). The 2D figures
 are not ported yet: 2D always runs as the JAX CLI does under
-``--no_viz``.
+``--no_viz``. ``--target_grid`` reaches the advance entry points' clone
+and projection; the initialize entry points accept it and, as the JAX
+CLI's, do not use it. ``--mesh`` and ``--profile`` are refused.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ def _parser(dim: int) -> argparse.ArgumentParser:
     p.add_argument("--start_frame", type=int, default=0)
     p.add_argument("--init_cond", type=str,
                    default="taylor_vortex" if dim == 2 else "leapfrog",
-                   help="scene: taylor_vortex, leapfrog, taylor_green or "
-                        "karman"
+                   help="scene: taylor_vortex, leapfrog, taylor_green, "
+                        "karman, vortices_pass, vortices_pass_narrow, "
+                        "vortices_pass_noslip or vortices_pass_particles"
                         if dim == 2 else
                         "scene: leapfrog, single_vortex_ring, "
                         "ring_collide or ring_with_obstacle")
@@ -41,8 +44,10 @@ def _parser(dim: int) -> argparse.ArgumentParser:
                        help="density replay grid = visualize_res * this "
                             "(4 gives ring_collide's 512^3)")
     p.add_argument("--target_grid", type=int, default=0,
-                   help="cached covector-target grid; only 0 (exact "
-                        "per-epoch targets) is ported")
+                   help="cached covector-target grid resolution "
+                        "(0 = exact per-epoch RK4 targets, the "
+                        "reference behavior; >0 trades target "
+                        "accuracy for a much cheaper epoch)")
     p.add_argument("--max_epoch", type=int, default=None,
                    help="override the per-phase epoch budget")
     p.add_argument("--mesh", type=str, default=None,
@@ -71,8 +76,6 @@ def _parse(dim, argv, default_max_epoch):
     args = p.parse_args(argv)
     if args.max_epoch is None:
         args.max_epoch = default_max_epoch
-    if args.target_grid:
-        p.error("--target_grid is not ported yet")
     if args.mesh:
         p.error("--mesh is not ported yet")
     if args.profile:

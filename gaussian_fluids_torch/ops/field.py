@@ -72,12 +72,25 @@ def _use_cells(x: torch.Tensor, n: int, d: int) -> bool:
     return d == 3 and x.is_cuda and b >= _MIN_B and b * n >= _CELLS_MIN_BN
 
 
+CELLS_FULL_LIST = 1 << 20   # tile pairs: up to here a list holds them all
+
+
 def _cells_cap(nbt: int, nnt: int) -> int:
-    """Work-list capacity: a density fraction of the full tile grid
-    (``GF_CELLS_CAP``, default 0.3) plus the keep-alive floor. Too small is
-    safe: the kernels sweep the whole mask on overflow."""
-    frac = float(os.environ.get("GF_CELLS_CAP", "0.3"))
-    return int(frac * nbt * nnt) + max(nbt, nnt)
+    """Work-list capacity of an (nbt, nnt) tile grid. ``GF_CELLS_CAP``
+    unset: the whole grid where it has at most ``CELLS_FULL_LIST`` tile
+    pairs (12 MB of lists, which cannot overflow), else 0.3 of it plus
+    the keep-alive floor. ``GF_CELLS_CAP`` set: that fraction plus the
+    floor at every size; 0.3 is the JAX package's rule. Of the default
+    configurations' cells calls, the whole-grid list reaches the hoisted
+    Leapfrog-3D sweeps of projection and clone (B = 204,800 against
+    N = 1024: 25,600 x 16 tiles, a mask density near 0.5, over the 0.3
+    budget); at Ring-Collide (N = 75,776, 1184 Gaussian tiles) only calls
+    of 886 to 7080 queries reach it, and the defaults make none. Too
+    small is safe: the kernels sweep the whole mask on overflow."""
+    frac = os.environ.get("GF_CELLS_CAP")
+    if frac is None and nbt * nnt <= CELLS_FULL_LIST:
+        return nbt * nnt
+    return int(float(frac or 0.3) * nbt * nnt) + max(nbt, nnt)
 
 
 def _check_queries(mix: GaussianMixture, x: torch.Tensor):

@@ -55,12 +55,15 @@ SOURCE = cuda_build.CSRC / "gsr_cells.cu"
 NAMES = ("cells_fwd", "cells_bwd_dn", "cells_bwd_dn2")
 
 launches: Dict[str, int] = {k: 0 for k in NAMES}
+# the forward's launches by (B, N): its paths run it at several shapes
+fwd_shapes: Dict[Tuple[int, int], int] = {}
 _overflow_counts: Dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    fwd_shapes.clear()
     for c in _overflow_counts.values():
         c.zero_()
 
@@ -233,6 +236,7 @@ def cells_fwd(rows, cols, ok, tmask, x, muT, ppT, values, clamp: float,
                            vdim, njac, float(clamp), _stream(x))
     _raise_on(rc, "cells_fwd")
     launches["cells_fwd"] += 1
+    fwd_shapes[(B, N)] = fwd_shapes.get((B, N), 0) + 1
     return out
 
 

@@ -49,10 +49,13 @@ SOURCE = cuda_build.CSRC / "rk4_fused.cu"
 TB, TN = gsr_centered.TB, gsr_centered.TN
 
 launches: Dict[str, int] = {"rk4_fused": 0}
+# launches by (B, N), B the padded query count
+shapes: Dict[Tuple[int, int], int] = {}
 
 
 def reset_launches() -> None:
     launches["rk4_fused"] = 0
+    shapes.clear()
 
 
 def build() -> Tuple[Path, str]:
@@ -184,4 +187,5 @@ def fused_rk4(x, muT, ppT, values, dt: float, clamp: float, njac: int,
                            float(clamp), s, _stream(x))
     _raise_on(rc, "rk4_fused")
     launches["rk4_fused"] += 1
+    shapes[(bp, N)] = shapes.get((bp, N), 0) + 1
     return (phi, vj) if bp == B else (phi[:B], vj[:B])

@@ -1,5 +1,6 @@
-"""2D boundary samplers: the free-slip domain walls, and Karman's cylinder
-and inflow/outflow edges.
+"""2D boundary samplers: the free-slip domain walls, the obstacle circles
+of the ``vortices_pass`` scenes (free-slip, or no-slip Dirichlet), and
+Karman's cylinder and inflow/outflow edges.
 
 Two sampler types, in scaled (target) space:
   type-1 Dirichlet:   ``sample(gen, n, adv) -> (points, target velocity)``
@@ -85,6 +86,39 @@ def karman_edges(u1, u2, adv, info, scaling_factor):
     return data * scaling_factor, normal, nval * scaling_factor
 
 
+def obstacle_circles(u1, u2, info):
+    """(points, outward normals) on the two obstacle circles, unscaled: n
+    points on each at angle fractions ``u1`` and ``u2``, circle 1 first."""
+    r = info["obstacle_radius"]
+    d1, n1 = sample_on_sphere(u1, *info["obstacle_pos1"], r)
+    d2, n2 = sample_on_sphere(u2, *info["obstacle_pos2"], r)
+    return torch.cat([d1, d2]), torch.cat([n1, n2])
+
+
+def vortices_pass_flux(u1, u2, u3, adv, info, scaling_factor):
+    """Free-slip circles and walls (reference 2D/init_cond.py:349-356):
+    3n points, the two circles' then the walls' at perimeter fractions
+    ``u3``, with zero flux."""
+    dc, nc = obstacle_circles(u1, u2, info)
+    dw, nw, _ = sample_on_domain_boundary_2(u3, adv, scaling_factor)
+    data = torch.cat([dc * scaling_factor, dw])
+    return data, torch.cat([nc, nw]), torch.zeros_like(data[:, 0])
+
+
+def circles_noslip(u1, u2, info, scaling_factor):
+    """No-slip circles, target velocity 0 (reference
+    2D/init_cond.py:341-347): 2n points."""
+    dc, _ = obstacle_circles(u1, u2, info)
+    return dc * scaling_factor, torch.zeros_like(dc)
+
+
+def circles_flux(u1, u2, info, scaling_factor):
+    """Free-slip circles without walls (reference 2D/init_cond.py:358-364):
+    2n points, zero flux."""
+    dc, nc = obstacle_circles(u1, u2, info)
+    return dc * scaling_factor, nc, torch.zeros_like(dc[:, 0])
+
+
 def make_samplers(name, info, scaling_factor):
     """(sampler_1 | None, sampler_2 | None) for a scene."""
     def uniform(gen, n, adv):
@@ -96,6 +130,24 @@ def make_samplers(name, info, scaling_factor):
 
     if name in ("taylor_green", "taylor_vortex", "leapfrog"):
         return None, domain_only_2
+    if name in ("vortices_pass", "vortices_pass_narrow"):
+        def s2(gen, n, adv):
+            u1, u2 = uniform(gen, n, adv), uniform(gen, n, adv)
+            return vortices_pass_flux(u1, u2, uniform(gen, n, adv), adv,
+                                      info, scaling_factor)
+        return None, s2
+    if name == "vortices_pass_noslip":
+        def s1(gen, n, adv):
+            u1 = uniform(gen, n, adv)
+            return circles_noslip(u1, uniform(gen, n, adv), info,
+                                  scaling_factor)
+        return s1, domain_only_2
+    if name == "vortices_pass_particles":
+        def s2(gen, n, adv):
+            u1 = uniform(gen, n, adv)
+            return circles_flux(u1, uniform(gen, n, adv), info,
+                                scaling_factor)
+        return None, s2
     if name == "karman":
         def s1(gen, n, adv):
             return karman_cylinder(uniform(gen, n, adv), info,
@@ -106,4 +158,4 @@ def make_samplers(name, info, scaling_factor):
             return karman_edges(u1, uniform(gen, n, adv), adv, info,
                                 scaling_factor)
         return s1, s2
-    raise KeyError(f"2D scene {name!r} is not ported yet")
+    raise KeyError(f"unknown 2D scene: {name!r}")

@@ -7,8 +7,10 @@ as the JAX package takes them from ``jax.vmap`` / ``jax.jacfwd``.
 
 from __future__ import annotations
 
+import os
 from functools import partial
 
+import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
@@ -64,6 +66,58 @@ def leapfrog_single(x, info):
     return out
 
 
+def vortices_pass_single(x, info):
+    """A counter-rotating vortex pair (reference 2D/init_cond.py:204-209)."""
+    U, a = info["U"], info["a"]
+    return (vortex_particle_single(x, info["vortex_pos1"], a, U)
+            + vortex_particle_single(x, info["vortex_pos2"], a, -U))
+
+
+PARTICLES_OBJ = os.path.join(os.path.dirname(__file__), "..", "..",
+                             "assets", "vortices_pass_particles.obj")
+
+
+def load_vortex_particles(path=PARTICLES_OBJ):
+    """((48, 2) positions, (48,) strengths) as f32 numpy arrays from the
+    OBJ-style asset: each ``v x z y w`` line gives a vortex at (x, y) of
+    strength w (reference 2D/init_cond.py:213-223)."""
+    rows = []
+    with open(path) as fd:
+        for line in fd:
+            if line.startswith("v "):
+                p = line.split()
+                rows.append((float(p[1]), float(p[3]), float(p[4])))
+    a = np.asarray(rows, np.float32)
+    return a[:, :2].copy(), a[:, 2].copy()
+
+
+def vortices_pass_particles_single(x, pos, strength):
+    """48 point vortices with a softened 1/r^2 kernel (reference
+    2D/init_cond.py:225-236)."""
+    eps = 0.1
+    delta = pos - x[None, :]
+    rescaled = (strength[:, None] * delta
+                / ((delta ** 2).sum(-1)[:, None] + eps)).sum(0)
+    return torch.stack([-rescaled[1], rescaled[0]])
+
+
+def _particles_field():
+    """(value_fn, jac_fn) of the 48-vortex field, its vortices copied to
+    each device once, at the first call there."""
+    pos, strength = load_vortex_particles()
+    on = {}
+
+    def fns(x):
+        if x.device not in on:
+            on[x.device] = batched(partial(
+                vortices_pass_particles_single,
+                pos=torch.as_tensor(pos, device=x.device),
+                strength=torch.as_tensor(strength, device=x.device)))
+        return on[x.device]
+
+    return (lambda x: fns(x)[0](x)), (lambda x: fns(x)[1](x))
+
+
 def karman_single(x, info):
     """Uniform inflow (reference 2D/init_cond.py:252-255)."""
     zero = 0.0 * x[0]
@@ -78,6 +132,11 @@ def make_field(name, info):
         return batched(partial(taylor_vortex_single, info=info))
     if name == "leapfrog":
         return batched(partial(leapfrog_single, info=info))
+    if name in ("vortices_pass", "vortices_pass_narrow",
+                "vortices_pass_noslip"):
+        return batched(partial(vortices_pass_single, info=info))
+    if name == "vortices_pass_particles":
+        return _particles_field()
     if name == "karman":
         return batched(partial(karman_single, info=info))
-    raise KeyError(f"2D field {name!r} is not ported yet")
+    raise KeyError(f"unknown 2D field: {name!r}")

@@ -1,8 +1,9 @@
 """2D scene registry: domains, particle counts, physics constants, fields
-and boundary samplers. The data are the JAX package's (reference
-2D/init_cond.py); the port has ``taylor_vortex``, ``leapfrog``,
-``taylor_green`` and ``karman``, whose advance domain grows with the
-inflow every frame (``Scene2D.extra_advect``, ``advance_domain_at``).
+and boundary samplers. The data are the JAX package's, all eight scenes
+(reference 2D/init_cond.py): ``taylor_green``, ``taylor_vortex``,
+``leapfrog``, the four ``vortices_pass`` obstacle scenes, and ``karman``,
+whose advance domain grows with the inflow every frame
+(``Scene2D.extra_advect``, ``advance_domain_at``).
 """
 
 from __future__ import annotations
@@ -19,14 +20,22 @@ _INITIALIZE_DOMAIN = {
     "taylor_green": (0.0, 2.0 * PI, 0.0, 2.0 * PI),
     "taylor_vortex": (-5.0, 5.0, -5.0, 5.0),
     "leapfrog": (-5.0, 5.0, -5.0, 5.0),
+    "vortices_pass": (0.0, 1.0, 0.0, 1.0),
+    "vortices_pass_narrow": (0.0, 1.0, 0.0, 1.0),
+    "vortices_pass_noslip": (0.0, 1.0, 0.0, 1.0),
+    "vortices_pass_particles": (-5.0, 5.0, -5.0, 5.0),
     "karman": (-6.10321, 1.906778, -0.598466, 0.60349),
 }
 _VISUALIZE_DOMAIN = dict(_INITIALIZE_DOMAIN)
+_VISUALIZE_DOMAIN["vortices_pass_particles"] = (-2.5, 2.5, -2.5, 2.5)
 _VISUALIZE_DOMAIN["karman"] = (-1.10321, 1.906778, -0.598466, 0.60349)
-_PARTICLE_COUNT = {"taylor_green": (24, 24), "taylor_vortex": (71, 71),
-                   "leapfrog": (71, 71), "karman": (400, 60)}
-_VISUALIZE_RES = {"taylor_green": (200, 200), "taylor_vortex": (200, 200),
-                  "leapfrog": (200, 200), "karman": (501, 200)}
+_PARTICLE_COUNT = {name: (71, 71) for name in _INITIALIZE_DOMAIN}
+_PARTICLE_COUNT.update(taylor_green=(24, 24), karman=(400, 60))
+_VISUALIZE_RES = {name: (200, 200) for name in _INITIALIZE_DOMAIN}
+_VISUALIZE_RES["karman"] = (501, 200)
+_VORTEX_PAIR = {"U": 5e-3, "a": 3e-2,
+                "vortex_pos1": (0.1, 0.525), "vortex_pos2": (0.1, 0.475),
+                "obstacle_radius": 60.0 / 511.0}
 _OTHER_INFO = {
     "taylor_green": {},
     "taylor_vortex": {
@@ -37,6 +46,16 @@ _OTHER_INFO = {
         "U": 0.5, "a": 0.3,
         "vortex_pos1": (-3.0, -3.0), "vortex_pos2": (-1.0, -3.0),
         "vortex_pos3": (1.0, -3.0), "vortex_pos4": (3.0, -3.0),
+    },
+    "vortices_pass": {**_VORTEX_PAIR, "obstacle_pos1": (0.5, 0.27),
+                      "obstacle_pos2": (0.5, 0.73)},
+    "vortices_pass_narrow": {**_VORTEX_PAIR, "obstacle_pos1": (0.5, 0.285),
+                             "obstacle_pos2": (0.5, 0.715)},
+    "vortices_pass_noslip": {**_VORTEX_PAIR, "obstacle_pos1": (0.5, 0.27),
+                             "obstacle_pos2": (0.5, 0.73)},
+    "vortices_pass_particles": {
+        "obstacle_pos1": (0.0, 1.0), "obstacle_pos2": (0.0, -1.0),
+        "obstacle_radius": 0.25,
     },
     "karman": {
         "v_magnitude": 0.5,
@@ -101,7 +120,7 @@ class Scene2D:
 
 def get_scene_2d(name: str) -> Scene2D:
     if name not in _INITIALIZE_DOMAIN:
-        raise KeyError(f"unknown or not yet ported 2D scene {name!r}; "
+        raise KeyError(f"unknown 2D scene {name!r}; "
                        f"valid: {sorted(_INITIALIZE_DOMAIN)}")
     info = dict(_OTHER_INFO[name])
     if name == "karman":

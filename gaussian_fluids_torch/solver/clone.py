@@ -18,11 +18,14 @@ import torch
 
 from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.models.mixture import GaussianMixture, mixture_of
-from gaussian_fluids_torch.ops import field, spatial
+from gaussian_fluids_torch.ops import field, interp, spatial
 from gaussian_fluids_torch.ops.rotations import precision_matrix
 from gaussian_fluids_torch.solver import losses, optim
 from gaussian_fluids_torch.solver.fit import grads_of, uniform_batch
-from gaussian_fluids_torch.solver.loop import Patience, run_chunked
+from gaussian_fluids_torch.solver.loop import (Patience, Runner,
+                                               hoist_default, run_chunked,
+                                               sorted_batches, swept)
+from gaussian_fluids_torch.utils.grids import default_chunk
 
 PATIENCE_REL_CLONE = (1e-3, 1e-3)          # (val, grad)
 DEFAULT_LRS_CLONE_2D = {"positions": 1e-2, "scalings": 5e-2,
@@ -156,12 +159,24 @@ def _unfreeze_neighbors(mix: GaussianMixture, spec: FieldSpec,
     return stop_t & ~near
 
 
-def _clone_runner(spec: FieldSpec):
-    """(epoch, test_ref_fn, test_fn) for the clone re-fit.
+def _clone_runner(spec: FieldSpec, batch_size: int = 512, lo=None, hi=None,
+                  target_grid: Optional[tuple] = None):
+    """The ``loop.Runner`` of the clone re-fit over the box (lo, hi).
 
-    ``epoch(carry, x)`` runs one epoch on the sample batch ``x`` (the seam
-    the tests feed), against the old field's (val, jac) at x. carry =
-    (params, opt_state, alive, stop, old_mix)."""
+    ``epoch(carry, xs, presorted=False)`` runs one epoch on xs = the
+    sample batch x (the seam the tests feed), against the old field's
+    (val, jac) at x; or xs = (x, ref_val, ref_jac) with the targets
+    given, ``presorted`` when they come sorted, as the hoist hands them
+    in. carry = (params, opt_state, alive, stop, old_mix).
+    ``chunk_inputs(carry, gen, n, hoist, tgt)`` draws a chunk's inputs in
+    the projection's three target modes (``loop.run_chunk``);
+    ``target_grid_fn(old_mix)`` gives the old field's [val, jac] channels
+    (vdim + vdim * d) on the ``target_grid`` over the box."""
+    d, vdim = spec.d, spec.vdim
+
+    def bounds(dev):
+        return (torch.tensor(lo, dtype=torch.float32, device=dev),
+                torch.tensor(hi, dtype=torch.float32, device=dev))
 
     def loss_fn(params, alive, stop, x, ref_val, ref_jac):
         frozen = losses.freeze_params(params, stop)
@@ -175,18 +190,55 @@ def _clone_runner(spec: FieldSpec):
         total = l_val + l_grad + l_aniso + l_vol
         return total, torch.stack([l_val, l_grad, l_aniso, l_vol])
 
-    def epoch(carry, x):
+    def epoch(carry, xs, presorted=False):
         params, opt_state, alive, stop, old_mix = carry
-        if field._use_kernel(x):
-            x = x[torch.argsort(x[:, 0])]
-        with torch.no_grad():
-            # the old field's targets, as the JAX package's production
-            # regime computes them (its hoisted batch sweep, need_dx=False)
-            ref = field.value_and_jac(old_mix, spec, x, presorted=True,
-                                      need_dx=False)
+        x, *ref = xs if isinstance(xs, tuple) else (xs,)
+        if field._use_kernel(x) and not presorted:
+            o = torch.argsort(spatial.sort_key(x), stable=True)
+            x, ref = x[o], [r[o] for r in ref]
+        if not ref:
+            with torch.no_grad():
+                # the old field's targets, as the JAX package's hoisted
+                # sweep computes them (need_dx=False)
+                ref = field.value_and_jac(old_mix, spec, x, presorted=True,
+                                          need_dx=False)
         total, aux, grads = grads_of(loss_fn, params, alive, stop, x, *ref)
         params, opt_state = optim.step(opt_state, params, grads, total)
         return (params, opt_state, alive, stop, old_mix), aux
+
+    def chunk_inputs(carry, gen, n, hoist=False, tgt=None):
+        lo_t, hi_t = bounds(gen.device)
+        xs = [uniform_batch(gen, batch_size, lo_t, hi_t) for _ in range(n)]
+        if tgt is not None:
+            box = tuple(v for k in range(d) for v in (lo_t[k], hi_t[k]))
+            outs = [interp.multi_channel_interp(tgt, x, box) for x in xs]
+            return [(x, o[:, :vdim], o[:, vdim:].reshape(-1, vdim, d))
+                    for x, o in zip(xs, outs)]
+        if not hoist:
+            return xs
+        x = sorted_batches(torch.stack(xs))
+        with torch.no_grad():
+            rv, rj = swept(lambda c: field.value_and_jac(
+                carry[4], spec, c, presorted=True, need_dx=False), x)
+        return [(x[i], rv[i], rj[i]) for i in range(n)]
+
+    @torch.no_grad()
+    def target_grid_fn(old_mix):
+        """The old field's [val, jac] channels on the grid over the box,
+        axis-0-major (coordinate 0 ascends: presorted), in chunks."""
+        dev = old_mix.device
+        lo_t, hi_t = bounds(dev)
+        u = [torch.linspace(0.0, 1.0, r, dtype=torch.float32, device=dev)
+             for r in target_grid]
+        pts = lo_t + torch.stack(torch.meshgrid(*u, indexing="ij"),
+                                 -1).reshape(-1, d) * (hi_t - lo_t)
+        c = default_chunk(pts)
+        out = []
+        for i in range(0, pts.shape[0], c):
+            v, j = field.value_and_jac(old_mix, spec, pts[i:i + c],
+                                       presorted=True)
+            out.append(torch.cat([v, j.reshape(v.shape[0], -1)], -1))
+        return torch.cat(out).reshape(tuple(target_grid) + (vdim + vdim * d,))
 
     def test_ref_fn(old_mix, test_x):
         """Old-field (val, jac) on the test grid, constant over the fit."""
@@ -206,7 +258,7 @@ def _clone_runner(spec: FieldSpec):
         lvl = losses.volume_loss(params["scalings"], alive)
         return torch.stack([lv, lg, la, lvl])
 
-    return epoch, test_ref_fn, test_fn
+    return Runner(epoch, chunk_inputs, target_grid_fn, test_ref_fn, test_fn)
 
 
 def clone_velocity_field(old_mix: GaussianMixture, spec: FieldSpec, *,
@@ -214,10 +266,14 @@ def clone_velocity_field(old_mix: GaussianMixture, spec: FieldSpec, *,
                          d: int = 2, lrs: Optional[Dict[str, float]] = None,
                          batch_size: int = 512, max_epoch: int = 3000,
                          patience: int = 500, check_iter: int = 100,
-                         verbose: int = 1):
+                         verbose: int = 1, target_grid_res: int = 0):
     """Split + freeze + re-fit to the old field. Returns (new mixture,
     the last test metrics {loss, loss_grad, loss_aniso, loss_vol} — empty
-    when nothing was split)."""
+    when nothing was split). ``target_grid_res`` > 0 interpolates the
+    frozen old field's [val, jac] from a res^d grid over (lo, hi),
+    computed once (opt-in; the test metrics stay exact); otherwise the
+    exact targets are hoisted where the JAX package's gate
+    (``loop.hoist_default``) holds."""
     rng = np.random.RandomState(seed)
     dev = old_mix.device
     test_x = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
@@ -236,19 +292,20 @@ def clone_velocity_field(old_mix: GaussianMixture, spec: FieldSpec, *,
     if verbose:
         print(f"[clone] Add {n_split} particles.")
 
-    epoch, test_ref_fn, test_fn = _clone_runner(spec)
+    tg = (int(target_grid_res),) * d if target_grid_res else None
+    runner = _clone_runner(spec, batch_size, tuple(lo), tuple(hi), tg)
     old_padded = _repad_like(old_mix, new_mix.capacity, spec)
     params = new_mix.params()
     carry = (params, optim.init(params, lrs, patience=50), new_mix.alive,
              stop, old_padded)
-    lo_t = torch.tensor(lo, dtype=torch.float32, device=dev)
-    hi_t = torch.tensor(hi, dtype=torch.float32, device=dev)
-    test_ref = test_ref_fn(old_padded, test_x)
+    tgt = runner.target_grid_fn(old_padded) if tg else None
+    hoist = hoist_default(test_x) and tgt is None
+    test_ref = runner.test_ref_fn(old_padded, test_x)
     names = ("loss", "loss_grad", "loss_aniso", "loss_vol")
     last = {}
 
     def metrics(c):
-        return test_fn(c[0], c[2], c[3], test_x, test_ref).tolist()
+        return runner.test_fn(c[0], c[2], c[3], test_x, test_ref).tolist()
 
     if verbose:
         lv, lg, la, lvl = metrics(carry)
@@ -259,8 +316,7 @@ def clone_velocity_field(old_mix: GaussianMixture, spec: FieldSpec, *,
     st = time.time()
 
     def dispatch(c, n):
-        for _ in range(n):
-            c, _ = epoch(c, uniform_batch(gen, batch_size, lo_t, hi_t))
+        c = runner.run_chunk(c, gen, n, hoist, tgt)
         return c, metrics(c)
 
     def on_chunk(mh, n):

@@ -6,11 +6,24 @@ synchronises with the device. Unlike the JAX package, which dispatches the
 next chunk before it fetches the last one's metrics, chunks run in order
 here: on one CUDA stream a metrics copy waits behind every kernel queued
 before it, so speculating would only waste a chunk on early stop.
+
+The per-chunk target structure lives here too: ``Runner``, the pieces
+of one projection or clone config, and its ``run_chunk``; the exact-target
+hoist's gate and sweeps (``hoist_default``, ``sorted_batches``,
+``swept``): projection and clone both hoist a chunk's targets out of its
+epochs.
 """
 
 from __future__ import annotations
 
 import math
+import os
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from gaussian_fluids_torch.ops import field, spatial
+from gaussian_fluids_torch.utils.grids import sweep_group
 
 
 class Patience:
@@ -51,3 +64,70 @@ def run_chunked(carry, dispatch, max_epoch: int, check_iter: int,
         print(f"[{tag}] Total epoch:", max_epoch,
               "(Reached maximum iteration number)")
     return carry, done
+
+
+def run_chunk(epoch, chunk_inputs, carry, gen, n: int, hoist: bool = False,
+              tgt: Optional[torch.Tensor] = None):
+    """n epochs on the inputs ``chunk_inputs`` draws for them, all first
+    (the epochs draw nothing), in the JAX package's three target modes:
+    per epoch (no targets: each epoch computes its own), hoisted (the
+    batches sorted, their exact targets in ``sweep_group`` sweeps), or
+    interpolated from ``tgt``, the grid of exact targets computed once a
+    projection or clone. Returns the carry."""
+    for xs in chunk_inputs(carry, gen, n, hoist, tgt):
+        carry, _ = epoch(carry, xs, presorted=hoist and tgt is None)
+    return carry
+
+
+class Runner(NamedTuple):
+    """One projection or clone config's pieces. ``epoch(carry, xs,
+    presorted=False)`` runs one epoch on its inputs xs;
+    ``chunk_inputs(carry, gen, n, hoist, tgt)`` draws a chunk's n inputs
+    in one of the three target modes (``run_chunk``);
+    ``target_grid_fn`` computes the grid of exact targets; ``test_ref_fn``
+    and ``test_fn`` give the test targets and metrics; ``sample`` draws
+    one epoch's inputs (the projections; the tests feed the JAX package's
+    draws in its place)."""
+    epoch: Callable
+    chunk_inputs: Callable
+    target_grid_fn: Callable
+    test_ref_fn: Callable
+    test_fn: Callable
+    sample: Optional[Callable] = None
+
+    def run_chunk(self, carry, gen, n: int, hoist: bool = False,
+                  tgt: Optional[torch.Tensor] = None):
+        """:func:`run_chunk` on this config's epoch."""
+        return run_chunk(self.epoch, self.chunk_inputs, carry, gen, n, hoist,
+                         tgt)
+
+
+def hoist_default(x: torch.Tensor) -> bool:
+    """The JAX package's gate of the exact-target hoist, with the card in
+    place of its accelerator: on where the field runs on a kernel (``x``
+    on the card), unless ``GF_HOIST_TARGETS=0``."""
+    return field._use_kernel(x) and \
+        os.environ.get("GF_HOIST_TARGETS", "1") != "0"
+
+
+def sorted_batches(data: torch.Tensor) -> torch.Tensor:
+    """(n, B, d) batches, each sorted by ``spatial.sort_key`` stably: the
+    order the epoch's own stable sort gives each batch alone. As the
+    epochs, this sorts only where the field runs on a kernel."""
+    if not field._use_kernel(data):
+        return data
+    o = torch.argsort(spatial.sort_key(data), dim=1, stable=True)
+    return torch.gather(data, 1, o[..., None].expand_as(data))
+
+
+def swept(fn, data: torch.Tensor):
+    """``fn`` on the chunk's (n, B, d) batches concatenated in groups of
+    ``sweep_group(n, B)`` batches, the outputs split back per batch: the
+    hoist's few large target sweeps. ``fn(points) -> tensor or tuple``."""
+    n, b, d = data.shape
+    g = sweep_group(n, b)
+    outs = [fn(c) for c in data.reshape(n // g, g * b, d)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs).reshape((n, b) + outs[0].shape[1:])
+    return tuple(torch.cat(o).reshape((n, b) + o[0].shape[1:])
+                 for o in zip(*outs))

@@ -10,6 +10,14 @@ PCGrad conflict projection -> regularizer and boundary gradients ->
 epochs, for the patience-based early stop. In 3D the covector target also
 carries the helicity, which joins the vorticity head, and the boundary
 term is free-slip on the domain box.
+
+Each chunk of epochs takes its covector targets in one of the JAX
+package's three modes (``loop.run_chunk``): exact, in every epoch; exact and
+hoisted, the default on the card (the chunk's sample batches drawn
+first, in the same generator order, sorted, and their targets computed in
+a few large sweeps of ``sweep_group`` batches before the epochs run); or
+interpolated from a grid of exact targets computed once a projection
+(``target_grid_res``, opt-in).
 """
 
 from __future__ import annotations
@@ -21,13 +29,15 @@ import torch
 
 from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.models.mixture import GaussianMixture, mixture_of
-from gaussian_fluids_torch.ops import field
+from gaussian_fluids_torch.ops import field, interp
 from gaussian_fluids_torch.ops import spatial
 from gaussian_fluids_torch.scenes import get_scene_2d, get_scene_3d
 from gaussian_fluids_torch.solver import covector, losses, optim
 from gaussian_fluids_torch.solver.fit import grads_of, uniform_batch
-from gaussian_fluids_torch.solver.loop import Patience, run_chunked
-from gaussian_fluids_torch.utils.grids import default_chunk
+from gaussian_fluids_torch.solver.loop import (Patience, Runner,
+                                               hoist_default, run_chunked,
+                                               sorted_batches, swept)
+from gaussian_fluids_torch.utils.grids import default_chunk, grid_nodes
 
 TEST_CHUNK = 4096
 
@@ -59,20 +69,36 @@ def _scaled_box(adv, sf):
 
 
 def _sorted_by_x(pts, *rest):
-    o = torch.argsort(pts[:, 0])
+    o = torch.argsort(pts[:, 0], stable=True)
     return (pts[o],) + tuple(r[o] for r in rest)
 
 
-def _runner_2d(spec: FieldSpec, scene_name: str, w: ProjectWeights,
-               boundary_lambda: float, batch_size: int):
-    """(epoch, sample, test_ref_fn, test_fn) for one projection config.
+def _chunked(fn, x):
+    """``fn`` over ``x`` in ``default_chunk`` chunks, outputs concatenated
+    (a tensor or a tuple of tensors)."""
+    c = default_chunk(x)
+    parts = [fn(x[i:i + c]) for i in range(0, x.shape[0], c)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return tuple(torch.cat(p) for p in zip(*parts))
 
-    ``epoch(carry, xs)`` takes the epoch's inputs as one tuple
-    xs = (data, ref_vor | None, bnd1 | None, bnd2 | None): the sample
-    batch, its covector target (computed here when None) and the boundary
-    batches of the scene's samplers. ``sample(gen, adv)`` draws them; the
-    tests feed the JAX package's draws instead. carry = (params,
-    opt_state, alive, positions_org, old_mix, adv, dt)."""
+
+def _runner_2d(spec: FieldSpec, scene_name: str, w: ProjectWeights,
+               boundary_lambda: float, batch_size: int,
+               target_grid: Optional[tuple] = None):
+    """The ``loop.Runner`` of one projection config.
+
+    ``epoch(carry, xs, presorted=False)`` takes the epoch's inputs as one
+    tuple xs = (data, ref_vor | None, bnd1 | None, bnd2 | None): the
+    sample batch, its covector target (computed here when None) and the
+    boundary batches of the scene's samplers; ``presorted`` says data and
+    target come sorted, as the hoist hands them in. ``sample(gen, adv)``
+    draws them; the tests feed the JAX package's draws instead. carry =
+    (params, opt_state, alive, positions_org, old_mix, adv, dt).
+    ``chunk_inputs(carry, gen, n, hoist, tgt)`` draws a chunk's inputs
+    in one of the three target modes (``loop.run_chunk``), ``tgt`` the
+    grid ``target_grid_fn(old_mix, adv, dt)`` computes once a
+    projection."""
     scene = get_scene_2d(scene_name)
     bs1, bs2 = scene.boundary_sampler_1, scene.boundary_sampler_2
     sf = scene.scaling_factor
@@ -100,14 +126,14 @@ def _runner_2d(spec: FieldSpec, scene_name: str, w: ProjectWeights,
                 bnr)
         return bc
 
-    def epoch(carry, xs):
+    def epoch(carry, xs, presorted=False):
         params, opt_state, alive, positions_org, old_mix, adv, dt = carry
         data, ref_vor, b1, b2 = xs
         lo, hi = _scaled_box(adv, sf)
         # sort once per epoch (losses are batch means); on the dense path
         # the order is irrelevant and the sort pure overhead
         sorting = field._use_kernel(data)
-        if sorting:
+        if sorting and not presorted:
             data, *r = _sorted_by_x(data, *(() if ref_vor is None
                                              else (ref_vor,)))
             ref_vor = r[0] if r else None
@@ -141,6 +167,36 @@ def _runner_2d(spec: FieldSpec, scene_name: str, w: ProjectWeights,
         carry = (params, opt_state, alive, positions_org, old_mix, adv, dt)
         return carry, torch.stack([l_vor, l_div, bc])
 
+    def chunk_inputs(carry, gen, n, hoist=False, tgt=None):
+        old_mix, adv, dt = carry[4:7]
+        lo, hi = _scaled_box(adv, sf)
+        draws = [sample(gen, adv) for _ in range(n)]
+        if tgt is not None:
+            return [(d, interp.bilinear_interp(
+                tgt, d, (lo[0], hi[0], lo[1], hi[1])), b1, b2)
+                for d, _, b1, b2 in draws]
+        if not hoist:
+            return draws
+        data = sorted_batches(torch.stack([x[0] for x in draws]))
+        with torch.no_grad():
+            vor = swept(lambda c: covector.advected_vorticity_2d(
+                old_mix, spec, c, dt, lo, hi, presorted=True), data)
+        return [(data[i], vor[i], b1, b2)
+                for i, (_, _, b1, b2) in enumerate(draws)]
+
+    @torch.no_grad()
+    def target_grid_fn(old_mix, adv, dt):
+        """Exact covector targets on an (nx, ny) grid over the scaled
+        advance box, x-major (coordinate 0 ascends: presorted)."""
+        lo, hi = _scaled_box(adv, sf)
+        u = [torch.linspace(0.0, 1.0, r, dtype=torch.float32,
+                            device=adv.device) for r in target_grid]
+        pts = lo + torch.stack(torch.meshgrid(*u, indexing="ij"),
+                               -1).reshape(-1, 2) * (hi - lo)
+        return _chunked(lambda c: covector.advected_vorticity_2d(
+            old_mix, spec, c, dt, lo, hi, presorted=True),
+            pts).reshape(target_grid)
+
     @torch.no_grad()
     def test_ref_fn(old_mix, test_x, adv, dt):
         """Backtraced target vorticity on the test grid, constant over the
@@ -169,7 +225,8 @@ def _runner_2d(spec: FieldSpec, scene_name: str, w: ProjectWeights,
         return torch.stack([lv.sum() / b, ld.sum() / b, ld.max(), la, lvl,
                             ldp, bc])
 
-    return epoch, sample, test_ref_fn, test_fn
+    return Runner(epoch, chunk_inputs, target_grid_fn, test_ref_fn, test_fn,
+                  sample)
 
 
 METRIC_NAMES = ("loss_vor", "loss_div", "loss_div_max", "loss_aniso",
@@ -184,13 +241,20 @@ def project_2d(mix: GaussianMixture, spec: FieldSpec,
                lrs: Optional[Dict[str, float]] = None,
                batch_size: int = 512, max_epoch: int = 3000,
                patience: int = 500, check_iter: int = 100,
-               verbose: int = 1):
+               verbose: int = 1, target_grid_res: int = 0):
     """2D projection. Returns (new mixture, the last test metrics keyed by
-    ``METRIC_NAMES``)."""
+    ``METRIC_NAMES``).
+
+    ``target_grid_res`` > 0 takes the covector targets from a res^2 grid
+    over the advance box, computed once and bilinearly interpolated each
+    epoch (opt-in; the test metrics stay exact). Otherwise the targets are
+    exact, hoisted out of the epochs where the JAX package's gate
+    (``loop.hoist_default``) holds."""
     if lrs is None:
         lrs = dict(DEFAULT_LRS_2D)
-    epoch, sample, test_ref_fn, test_fn = _runner_2d(
-        spec, scene.name, weights, float(boundary_lambda), batch_size)
+    tg = (int(target_grid_res),) * 2 if target_grid_res else None
+    runner = _runner_2d(spec, scene.name, weights, float(boundary_lambda),
+                        batch_size, tg)
     dev = mix.device
     test_x = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
     test_x = test_x[torch.argsort(test_x[:, 0])]
@@ -198,12 +262,14 @@ def project_2d(mix: GaussianMixture, spec: FieldSpec,
     adv = torch.tensor(adv_domain, dtype=torch.float32, device=dev)
     carry = (params, optim.init(params, lrs, patience=50), mix.alive,
              mix.positions.detach(), old_mix, adv, float(dt))
-    test_ref = test_ref_fn(old_mix, test_x, adv, float(dt))
+    tgt = runner.target_grid_fn(old_mix, adv, float(dt)) if tg else None
+    hoist = hoist_default(test_x) and tgt is None
+    test_ref = runner.test_ref_fn(old_mix, test_x, adv, float(dt))
     last = {}
 
     def metrics(c):
-        return test_fn(c[0], c[2], c[3], c[5], test_x, test_ref,
-                       gen).tolist()
+        return runner.test_fn(c[0], c[2], c[3], c[5], test_x, test_ref,
+                              gen).tolist()
 
     def line(mh):
         return ", ".join(f"{k}: {v}" for k, v in zip(METRIC_NAMES, mh))
@@ -215,8 +281,7 @@ def project_2d(mix: GaussianMixture, spec: FieldSpec,
     st = time.time()
 
     def dispatch(c, n):
-        for _ in range(n):
-            c, _ = epoch(c, sample(gen, adv))
+        c = runner.run_chunk(c, gen, n, hoist, tgt)
         return c, metrics(c)
 
     def on_chunk(mh, n):
@@ -239,24 +304,27 @@ def project_2d(mix: GaussianMixture, spec: FieldSpec,
 # --------------------------------------------------------------------------
 
 def _sorted_by_key(pts, *rest):
-    o = torch.argsort(spatial.sort_key(pts))
+    o = torch.argsort(spatial.sort_key(pts), stable=True)
     return (pts[o],) + tuple(r[o] for r in rest)
 
 
 def _runner_3d(spec: FieldSpec, scene_name: Optional[str],
                w: ProjectWeights, boundary_lambda: float, batch_size: int,
-               lo: tuple, hi: tuple):
-    """(epoch, sample, test_ref_fn, test_fn) for one 3D projection config.
+               lo: tuple, hi: tuple, target_grid: Optional[tuple] = None):
+    """The ``loop.Runner`` of one 3D projection config.
 
-    ``epoch(carry, xs)`` takes xs = (data, ref_vor | None, ref_hel | None,
-    bnd | None): the sample batch, its covector targets (computed here
-    when None) and the free-slip boundary batch (points, normals).
-    ``sample(gen)`` draws them. carry = (params, opt_state, alive,
-    old_mix, dt)."""
+    ``epoch(carry, xs, presorted=False)`` takes xs = (data, ref_vor |
+    None, ref_hel | None, bnd | None): the sample batch, its covector
+    targets (computed here when None) and the free-slip boundary batch
+    (points, normals). ``sample(gen)`` draws them. carry = (params,
+    opt_state, alive, old_mix, dt). ``chunk_inputs`` and
+    ``target_grid_fn`` are the 2D runner's, the grid a (nx, ny, nz, 4)
+    array [vor, hel] over the box (lo, hi)."""
     sampler = None
     if scene_name is not None:
         sampler = get_scene_3d(scene_name).boundary_sampler
     use_bnd = boundary_lambda > 0.0 and sampler is not None
+    domain6 = (lo[0], hi[0], lo[1], hi[1], lo[2], hi[2])
 
     def box(dev):
         return (torch.tensor(lo, dtype=torch.float32, device=dev),
@@ -275,13 +343,13 @@ def _runner_3d(spec: FieldSpec, scene_name: Optional[str],
         return losses.boundary_freeslip_loss(
             field.value(m, spec, bd, presorted=True, need_dx=False), bn)
 
-    def epoch(carry, xs):
+    def epoch(carry, xs, presorted=False):
         params, opt_state, alive, old_mix, dt = carry
         data, ref_vor, ref_hel, bnd = xs
         # sort once per epoch (losses are batch means); on the dense path
         # the order is irrelevant and the sort pure overhead
         sorting = field._use_kernel(data)
-        if sorting:
+        if sorting and not presorted:
             data, *r = _sorted_by_key(data, *(() if ref_vor is None
                                                else (ref_vor, ref_hel)))
             if r:
@@ -316,17 +384,40 @@ def _runner_3d(spec: FieldSpec, scene_name: Optional[str],
         carry = (params, opt_state, alive, old_mix, dt)
         return carry, torch.stack([l_vorhel, l_div, bc])
 
+    def chunk_inputs(carry, gen, n, hoist=False, tgt=None):
+        old_mix, dt = carry[3], carry[4]
+        draws = [sample(gen) for _ in range(n)]
+        if tgt is not None:
+            refs = [interp.multi_channel_interp(tgt, x[0], domain6)
+                    for x in draws]
+            return [(x[0], r[:, :3], r[:, 3], x[3])
+                    for x, r in zip(draws, refs)]
+        if not hoist:
+            return draws
+        data = sorted_batches(torch.stack([x[0] for x in draws]))
+        with torch.no_grad():
+            vor, hel = swept(lambda c: covector.advected_vorticity_3d(
+                old_mix, spec, c, dt, presorted=True), data)
+        return [(data[i], vor[i], hel[i], x[3])
+                for i, x in enumerate(draws)]
+
+    @torch.no_grad()
+    def target_grid_fn(old_mix, dt):
+        """Exact covector targets on the (nx, ny, nz) grid over the box,
+        as one (nx, ny, nz, 4) array [vor_x, vor_y, vor_z, hel]; the nodes
+        x-major (presorted)."""
+        pts = grid_nodes(domain6, target_grid, old_mix.device)
+        vor, hel = _chunked(lambda c: covector.advected_vorticity_3d(
+            old_mix, spec, c, dt, presorted=True), pts)
+        return torch.cat([vor, hel[:, None]], -1) \
+            .reshape(tuple(target_grid) + (4,))
+
     @torch.no_grad()
     def test_ref_fn(old_mix, test_x, dt):
         """Backtraced (vorticity, helicity) targets on the test grid,
         constant over the whole projection."""
-        c = default_chunk(test_x)
-        parts = [covector.advected_vorticity_3d(old_mix, spec,
-                                                test_x[i:i + c], dt,
-                                                presorted=True)
-                 for i in range(0, test_x.shape[0], c)]
-        return (torch.cat([p[0] for p in parts]),
-                torch.cat([p[1] for p in parts]))
+        return _chunked(lambda c: covector.advected_vorticity_3d(
+            old_mix, spec, c, dt, presorted=True), test_x)
 
     @torch.no_grad()
     def test_fn(params, alive, test_x, test_ref, gen):
@@ -348,7 +439,8 @@ def _runner_3d(spec: FieldSpec, scene_name: Optional[str],
         return torch.stack([lv.sum() / b, lh.sum() / b, ld.sum() / b,
                             ld.max(), la, lvl, lvr, bc])
 
-    return epoch, sample, test_ref_fn, test_fn
+    return Runner(epoch, chunk_inputs, target_grid_fn, test_ref_fn, test_fn,
+                  sample)
 
 
 METRIC_NAMES_3D = ("loss_vor", "loss_hel", "loss_div", "loss_div_max",
@@ -364,26 +456,30 @@ def project_3d(mix: GaussianMixture, spec: FieldSpec,
                lrs: Optional[Dict[str, float]] = None,
                batch_size: int = 8192, max_epoch: int = 3000,
                patience: int = 500, check_iter: int = 100,
-               verbose: int = 1):
+               verbose: int = 1, target_grid_res: int = 0):
     """3D projection. Returns (new mixture, the last test metrics keyed by
-    ``METRIC_NAMES_3D``)."""
+    ``METRIC_NAMES_3D``). ``target_grid_res`` and the hoist as in
+    :func:`project_2d`, the grid res^3 and trilinear."""
     if lrs is None:
         lrs = dict(DEFAULT_LRS_3D)
     x_min, x_max, y_min, y_max, z_min, z_max = domain
-    epoch, sample, test_ref_fn, test_fn = _runner_3d(
-        spec, scene_name, weights, float(boundary_lambda), batch_size,
-        (x_min, y_min, z_min), (x_max, y_max, z_max))
+    tg = (int(target_grid_res),) * 3 if target_grid_res else None
+    runner = _runner_3d(spec, scene_name, weights, float(boundary_lambda),
+                        batch_size, (x_min, y_min, z_min),
+                        (x_max, y_max, z_max), tg)
     dev = mix.device
     test_x = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
     test_x = test_x[torch.argsort(test_x[:, 0])]   # presorted test chunks
     params = mix.params()
     carry = (params, optim.init(params, lrs, patience=50), mix.alive,
              old_mix, float(dt))
-    test_ref = test_ref_fn(old_mix, test_x, float(dt))
+    tgt = runner.target_grid_fn(old_mix, float(dt)) if tg else None
+    hoist = hoist_default(test_x) and tgt is None
+    test_ref = runner.test_ref_fn(old_mix, test_x, float(dt))
     last = {}
 
     def metrics(c):
-        return test_fn(c[0], c[2], test_x, test_ref, gen).tolist()
+        return runner.test_fn(c[0], c[2], test_x, test_ref, gen).tolist()
 
     def line(mh):
         return ", ".join(f"{k}: {v}" for k, v in zip(METRIC_NAMES_3D, mh))
@@ -395,8 +491,7 @@ def project_3d(mix: GaussianMixture, spec: FieldSpec,
     st = time.time()
 
     def dispatch(c, n):
-        for _ in range(n):
-            c, _ = epoch(c, sample(gen))
+        c = runner.run_chunk(c, gen, n, hoist, tgt)
         return c, metrics(c)
 
     def on_chunk(mh, n):

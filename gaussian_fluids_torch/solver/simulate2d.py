@@ -93,13 +93,16 @@ def _init_karman(mix, spec, scene, gen, max_epoch, batch_size, verbose):
 def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
                start_frame: int = 0, max_epoch: int = 20000,
                batch_size: int = 512, seed: int = 42, verbose: int = 1,
-               test_res: Optional[tuple] = None, device="cuda"):
+               test_res: Optional[tuple] = None, target_grid_res: int = 0,
+               device="cuda"):
     """Frame loop from gaussian_velocity_{start_frame}.pt; writes one
-    checkpoint per frame. Returns (mix, spec, frames), ``frames`` holding
-    per frame its number, alive count, seconds (in all and per phase), the
-    advance domain after it and the last test metrics of the clone and
-    projection phases. The advance domain starts as the scene's at
-    ``start_frame`` and moves after each advect (Karman's inflow)."""
+    checkpoint per frame. ``target_grid_res`` > 0 gives the clone and the
+    projection their cached-target grids (``--target_grid``). Returns
+    (mix, spec, frames), ``frames`` holding per frame its number, alive
+    count, seconds (in all and per phase), the advance domain after it
+    and the last test metrics of the clone and projection phases. The
+    advance domain starts as the scene's at ``start_frame`` and moves
+    after each advect (Karman's inflow)."""
     device = torch.device(device)
     scene = get_scene_2d(init_cond)
     sf = scene.scaling_factor
@@ -123,7 +126,7 @@ def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
         new_mix, clone_m = clone_velocity_field(
             mix, spec, lo=adv_lo, hi=adv_hi, test_x=test_grid(adv_domain),
             gen=gen, seed=cnt, max_epoch=max_epoch, batch_size=batch_size,
-            verbose=verbose)
+            verbose=verbose, target_grid_res=target_grid_res)
         ftc = time.perf_counter()
         new_mix = advect_covector_field_2d(new_mix, spec, dt)
         adv_domain = scene.extra_advect(adv_domain, dt)
@@ -134,7 +137,7 @@ def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
             new_mix, spec, mix, dt, scene=scene, adv_domain=adv_domain,
             test_x=test_grid(adv_domain), gen=gen, weights=w,
             boundary_lambda=1.0, batch_size=batch_size, max_epoch=max_epoch,
-            verbose=verbose)
+            verbose=verbose, target_grid_res=target_grid_res)
         mix = new_mix
         ft1 = time.perf_counter()
         checkpoint.save_checkpoint(

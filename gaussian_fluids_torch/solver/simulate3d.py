@@ -127,13 +127,15 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
                batch_size: int = 8192, boundary_lambda: float = 10.0,
                seed: int = 42, viz: bool = True, viz_res=None,
                test_res: Optional[tuple] = None, verbose: int = 1,
-               device="cuda"):
+               target_grid_res: int = 0, device="cuda"):
     """Frame loop from gaussian_velocity_{start_frame}.pt; writes one
-    checkpoint per frame and, with ``viz``, the start frame's and every
-    frame's vorticity and divergence volumes. Returns (mix, spec, frames),
-    ``frames`` holding per frame its number, alive count, seconds per
-    phase (clone, advect, project, the volumes, the save) and the last
-    test metrics of the clone and projection phases."""
+    checkpoint per frame (``target_grid_res`` > 0: the clone's and the
+    projection's cached-target grids, ``--target_grid``) and, with
+    ``viz``, the start frame's and every frame's vorticity and divergence
+    volumes. Returns (mix, spec, frames), ``frames`` holding per frame its
+    number, alive count, seconds per phase (clone, advect, project, the
+    volumes, the save) and the last test metrics of the clone and
+    projection phases."""
     device = torch.device(device)
     scene = get_scene_3d(init_cond)
     domain = scene.domain
@@ -154,7 +156,8 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
         ft0 = time.perf_counter()
         new_mix, clone_m = clone_velocity_field(
             mix, spec, lo=lo, hi=hi, test_x=test_x, gen=gen, seed=cnt, d=3,
-            batch_size=batch_size, max_epoch=max_epoch, verbose=verbose)
+            batch_size=batch_size, max_epoch=max_epoch, verbose=verbose,
+            target_grid_res=target_grid_res)
         ftc = time.perf_counter()
         new_mix = advect_covector_field_3d(new_mix, mix, spec, dt)
         fta = time.perf_counter()
@@ -164,7 +167,8 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
             new_mix, spec, mix, dt, domain=domain, test_x=test_x, gen=gen,
             scene_name=init_cond, weights=w,
             boundary_lambda=boundary_lambda, batch_size=batch_size,
-            max_epoch=max_epoch, verbose=verbose)
+            max_epoch=max_epoch, verbose=verbose,
+            target_grid_res=target_grid_res)
         mix = new_mix
         print(f"Wrote frame {cnt}")
         ft1 = time.perf_counter()

@@ -317,7 +317,7 @@ def test_clone_epoch_3d_matches():
     key = jax.random.PRNGKey(85)
     x = jax.random.uniform(jax.random.split(key, 1)[0], (B, 3), jnp.float32)
     jc, jaux = run_chunk(jc, key, 1)
-    tc, taux = tclone._clone_runner(tspec)[0](tc, t(x))
+    tc, taux = tclone._clone_runner(tspec).epoch(tc, t(x))
     close(taux, jaux[0], 2e-5)
     params_close(tc[0], jc[0], "clone epoch")
 
@@ -332,7 +332,7 @@ def test_project_epoch_3d_matches():
     run_chunk = jproj._runner_3d(spec, "ring_collide", w, 10.0, B, LO3, HI3,
                                  None)[0]
     epoch = tproj._runner_3d(tspec, "ring_collide", tw, 10.0, B, LO3,
-                             HI3)[0]
+                             HI3).epoch
     lrs = dict(jproj.DEFAULT_LRS_3D)
     dt = 0.02
     jc = (jm.params(), jopt_warm(jm.params(), lrs), jm.alive,

@@ -245,3 +245,21 @@ def test_cells_dispatch_rules():
     x = torch.zeros((8192, 3))
     assert not tf._use_cells(x, 75776, 3)            # a CPU tensor
     assert tf._cells_cap(1024, 1184) == int(0.3 * 1024 * 1184) + 1184
+
+
+def test_cells_cap_lists_a_small_grid_whole_unless_set(monkeypatch):
+    """Unset, GF_CELLS_CAP lists every tile pair of a grid of at most
+    CELLS_FULL_LIST pairs (the hoisted Leapfrog-3D sweep's 25,600 x 16),
+    and 0.3 of a larger one plus the floor; set, its fraction holds at
+    every size (0.3: the JAX package's rule)."""
+    monkeypatch.delenv("GF_CELLS_CAP", raising=False)
+    assert tf._cells_cap(25600, 16) == 409600
+    assert tf._cells_cap(1024, 1024) == tf.CELLS_FULL_LIST
+    assert tf._cells_cap(1025, 1024) == int(0.3 * 1025 * 1024) + 1025
+    assert tf._cells_cap(885, 1184) == 885 * 1184      # Ring-Collide, B 7080
+    assert tf._cells_cap(886, 1184) == int(0.3 * 886 * 1184) + 1184
+    monkeypatch.setenv("GF_CELLS_CAP", "0.3")
+    assert tf._cells_cap(25600, 16) == int(0.3 * 409600) + 25600
+    monkeypatch.setenv("GF_CELLS_CAP", "0.5")
+    assert tf._cells_cap(25600, 16) == int(0.5 * 409600) + 25600
+    assert tf._cells_cap(1024, 1184) == int(0.5 * 1024 * 1184) + 1184

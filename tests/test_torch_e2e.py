@@ -117,14 +117,26 @@ def test_same_checkpoint_same_field_in_both_packages(runs, package):
                                atol=1e-5 * scale)
 
 
-def test_entry_point_flags(capsys):
+def test_entry_point_flags(capsys, monkeypatch):
+    """--mesh and --profile are refused; --target_grid reaches
+    advance_2d, and initialize2d accepts it without using it, as the JAX
+    CLI does."""
     with pytest.raises(SystemExit):
         initialize2d.main(["--help"])
     assert "--no_viz" in capsys.readouterr().out
-    for flag in (["--mesh", "2"], ["--target_grid", "64"],
-                 ["--profile", "/tmp/p"]):
+    for flag in (["--mesh", "2"], ["--profile", "/tmp/p"]):
         with pytest.raises(SystemExit):
             advance2d.main(["--device", "cpu"] + flag)
+    seen = {}
+    monkeypatch.setattr(advance2d, "advance_2d",
+                        lambda *a, **k: seen.update(advance=k))
+    monkeypatch.setattr(initialize2d, "initialize_2d",
+                        lambda *a, **k: seen.update(initialize=k))
+    flags = ["--device", "cpu", "--target_grid", "64"]
+    advance2d.main(flags)
+    initialize2d.main(flags)
+    assert seen["advance"]["target_grid_res"] == 64
+    assert "target_grid_res" not in seen["initialize"]
 
 
 @pytest.mark.parametrize("dim", [2, 3])

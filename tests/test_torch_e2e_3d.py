@@ -105,12 +105,24 @@ def test_same_3d_checkpoint_same_field_in_both_packages(runs, package):
                                atol=1e-5 * scale)
 
 
-def test_3d_entry_point_flags(capsys):
+def test_3d_entry_point_flags(capsys, monkeypatch):
+    """--mesh and --profile are refused; --target_grid reaches
+    advance_3d, and initialize3d accepts it without using it, as the JAX
+    CLI does."""
     with pytest.raises(SystemExit):
         initialize3d.main(["--help"])
     out = capsys.readouterr().out
     assert "--boundary" in out and "--no_viz" in out
-    for flag in (["--mesh", "2"], ["--target_grid", "64"],
-                 ["--profile", "/tmp/p"]):
+    for flag in (["--mesh", "2"], ["--profile", "/tmp/p"]):
         with pytest.raises(SystemExit):
             advance3d.main(["--device", "cpu"] + flag)
+    seen = {}
+    monkeypatch.setattr(advance3d, "advance_3d",
+                        lambda *a, **k: seen.update(advance=k))
+    monkeypatch.setattr(initialize3d, "initialize_3d",
+                        lambda *a, **k: seen.update(initialize=k))
+    flags = ["--device", "cpu", "--target_grid", "64"]
+    advance3d.main(flags)
+    initialize3d.main(flags)
+    assert seen["advance"]["target_grid_res"] == 64
+    assert "target_grid_res" not in seen["initialize"]

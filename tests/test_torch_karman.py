@@ -109,7 +109,7 @@ def test_init_karman_projection_epoch_matches():
                              delta_pos=0.0)
     run_chunk = jproj._runner_2d(spec, "karman", w, 10.0, 512, None)[0]
     epoch = tproj._runner_2d(ts, "karman", tproj.ProjectWeights(*w[:5]),
-                             10.0, 512)[0]
+                             10.0, 512).epoch
     lrs = {"positions": 1e-4, "scalings": 1e-5,
            "rotations": 1e-5 * jsim.LR_RATIO, "values": 1e-4}
     assert tsim.LR_RATIO == jsim.LR_RATIO

@@ -163,14 +163,15 @@ def one_epoch_runs(kind, device, monkeypatch, runs):
         xs = fit.uniform_batch(gen, 512, lo, hi)
         presorted = _sort_rows(xs)[0]
     elif kind == "clone":
-        epoch = clone._clone_runner(spec)[0]
+        epoch = clone._clone_runner(spec).epoch
         stop = torch.rand(mix.capacity, generator=gen, device=device) > 0.5
         carry = (p, optim.init(p, clone.DEFAULT_LRS_CLONE_2D), mix.alive, stop, old)
         xs = fit.uniform_batch(gen, 512, lo, hi)
         presorted = _sort_rows(xs)[0]
     else:
-        epoch, sample = project._runner_2d(
-            spec, "leapfrog", project.ProjectWeights(), 1.0, 512)[:2]
+        runner = project._runner_2d(
+            spec, "leapfrog", project.ProjectWeights(), 1.0, 512)
+        epoch, sample = runner.epoch, runner.sample
         dt = 0.025
         carry = (p, optim.init(p, project.DEFAULT_LRS_2D), mix.alive,
                  mix.positions + 0.01, old, adv, dt)
@@ -236,16 +237,17 @@ def one_epoch_runs_3d(kind, device, monkeypatch, runs):
         xs = fit.uniform_batch(gen, 512, lo, hi)
         presorted = _sort_rows(xs)[0]
     elif kind == "clone":
-        epoch = clone._clone_runner(spec)[0]
+        epoch = clone._clone_runner(spec).epoch
         stop = torch.rand(mix.capacity, generator=gen, device=device) > 0.5
         carry = (p, optim.init(p, clone.DEFAULT_LRS_CLONE_3D), mix.alive,
                  stop, old)
         xs = fit.uniform_batch(gen, 512, lo, hi)
         presorted = _sort_rows(xs)[0]
     else:
-        epoch, sample = project._runner_3d(
+        runner = project._runner_3d(
             spec, "ring_collide", project.ProjectWeights(delta_pos=0.0),
-            10.0, 512, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))[:2]
+            10.0, 512, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+        epoch, sample = runner.epoch, runner.sample
         dt = 0.02
         carry = (p, optim.init(p, project.DEFAULT_LRS_3D), mix.alive, old,
                  dt)
