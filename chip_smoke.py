@@ -178,6 +178,38 @@ Phases, each printing one JSON line with its wall seconds:
                 difference and mass, within REPLAY_TOL; the replay's own
                 .vti writes (seconds, bytes, and the encoding read back
                 from the files)
+  (the mesh phases run ``gaussian_fluids_torch.mesh_check``'s checks,
+  which that module runs on several GPUs over NCCL)
+  mesh_epoch    two ranks sharing the card over gloo with CUDA tensors
+                (``parallel.mesh.launch(shared_device=True)``; the CLI
+                never asks for it) at 1x2 and 2x1 (one launch laid out
+                both ways, ``parallel.mesh.reshape``): one sharded projection
+                and one sharded clone epoch at Leapfrog-2D (5041
+                Gaussians, capacity 6144, B=512) and Ring-Collide (64,000,
+                capacity 75,776, B=8192; at 1x2 each rank holds 37,888
+                and takes the cells path) from the same seeded inputs,
+                against the single-device epochs on the card: losses,
+                gradients (Adam's first moments) and parameters within
+                ``mesh_check``'s MESH_* tolerances, every rank's
+                parameters equal; each
+                rank's launches by kernel; the epoch's wall ms on each rank
+                beside the single-device epoch's; gloo's all-reduce and
+                broadcast, the port's two collectives, on CUDA tensors
+  mesh_density  in the same launches, the sharded 128^3 density step
+                (each rank's stages on the banded kernel, row 8, over its
+                shard of the slab-major mixture) on the fitted
+                Ring-Collide checkpoint 1, against the single-device
+                step (within ``mesh_check.DENSITY_TOL``), seconds on each
+                rank
+  mesh_cli      ``advance2d --mesh 1x1`` (NCCL) for one Leapfrog-2D frame
+                from the smoke's fit against the smoke's single-device
+                frame (finite test metrics, one checkpoint a frame, the
+                same Gaussian count, the field within MESH_FIELD_TOL),
+                and, run alongside it from a second thread,
+                ``advance_density3d --mesh 1x1`` for one 128^3 step of
+                Ring-Collide's checkpoint 0 against density3d's step
+                (``DENSITY_TOL``);
+                both again at --mesh 2x1 where two GPUs are visible
 Launches are counted per path: each path's counts are set to 0 just
 before it and read just after; the 2D lines of the kernel summary carry
 the Leapfrog-2D path's launches, the d=3 and cells lines the 3D path's;
@@ -194,7 +226,11 @@ fused RK4 kernel's the Karman frame (row 9 by shape: the hoisted sweep
 at B=51,200), the triple backward's epoch_heads,
 the dL/dx kernel's query_grad; obstacle3d is a second path of rows 1 and
 5-7 (the 3D lines add its launches to the 3D path's), replay_vs_jax a
-third of row 8. Then the per-kernel summary (each bound
+third of row 8; the mesh phases' ranks count their own (set to 0 just
+before each sharded epoch or density step and read after it), and the
+summary adds their sums by path (``launches_mesh``: the Leapfrog-2D
+epochs' to the 2D lines, Ring-Collide's to the d=3 and cells lines, the
+density step's to row 8's). Then the per-kernel summary (each bound
 counted on the pairs the inputs need, those with g >= c, with the bound
 of the pairs the kernel walks beside it), the card's name and power
 limit, and as the last line
@@ -218,10 +254,10 @@ import time
 import numpy as np
 import torch
 
-INIT_EPOCHS = 200      # 2D; the entry point's default is 10000
-ADVANCE_EPOCHS = 200   # 2D, per phase and frame; the default is 20000
-INIT3D_EPOCHS = 200    # the 3D entry point's default is 500
-ADVANCE3D_EPOCHS = 200  # 3D, per phase; the default is 20000
+INIT_EPOCHS = 100      # 2D; the entry point's default is 10000
+ADVANCE_EPOCHS = 100   # 2D, per phase and frame; the default is 20000
+INIT3D_EPOCHS = 100    # the 3D entry point's default is 500
+ADVANCE3D_EPOCHS = 100  # 3D, per phase; the default is 20000
 TIMED_LAUNCHES = 30
 PLAIN_LAUNCHES_3D = 3  # the plain versions take ~0.1-1 s at Ring-Collide
 TOL = 1e-4   # relative to the largest reference entry: f32 sums in another
@@ -259,8 +295,8 @@ OPS_BANDED_WINDOW, OPS_BANDED_SUPPORT = 22, 10
 OPS_SUPPORT.update({(2, "bwd_dx"): 36, (3, "bwd_dx"): 65,
                     (2, "bwd_dn_val"): 28, (3, "bwd_dn_val"): 46,
                     (2, "rk4_stage"): 5, (3, "rk4_stage"): 7})
-KARMAN_INIT_EPOCHS = 200     # fit and the zero-dt projection; default 10000
-KARMAN_ADVANCE_EPOCHS = 200  # per phase; the default is 20000
+KARMAN_INIT_EPOCHS = 100     # fit and the zero-dt projection; default 10000
+KARMAN_ADVANCE_EPOCHS = 100  # per phase; the default is 20000
 KARMAN_DT = 0.01             # the 2D CLI's default
 COVECTOR_RTOL, COVECTOR_ATOL = 1e-3, 1e-5  # fused vs staged target, as the
 #                                            JAX package's test holds them
@@ -2561,8 +2597,8 @@ def kernels_hoisted(device, vp_mix, vp_spec):
 def hoist_ab(device):
     """The Ring-Collide projection epoch (seeded state, B = 8192) hoisted
     and under GF_HOIST_TARGETS=0: wall ms per epoch over a chunk of
-    HOIST_CHUNK epochs after a warm-up chunk, alternated p c c p in this
-    call; then each mode under torch.profiler (device ms, busy share,
+    HOIST_CHUNK epochs, alternated p c c p in this call, each mode's first
+    run after a warm-up chunk; then each mode under torch.profiler (device ms, busy share,
     host operators and launches per epoch, the cells forward's device
     ms): the per-epoch mode over 5 epochs, its epochs being alike; the
     hoisted mode as its chunk's inputs (the draws, the sorts and the
@@ -2574,12 +2610,14 @@ def hoist_ab(device):
 
     mix, spec, _ = ring_collide_state(device)
     walls = []
-    for mode in ("per_epoch", "hoisted", "hoisted", "per_epoch"):
+    for i, mode in enumerate(("per_epoch", "hoisted", "hoisted",
+                              "per_epoch")):
         with env_set("GF_HOIST_TARGETS",
                      "1" if mode == "hoisted" else "0"):
             step, _ = _epochs_3d(mix, spec, device,
                                  chunk=HOIST_CHUNK)["project"]
-        step()
+        if i < 2:   # a mode's first run warms its caches for both
+            step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
@@ -2744,6 +2782,44 @@ def target_grid_rc(device, rmix, rspec):
     return shapes
 
 
+MESH_SHAPES = ((1, 2), (2, 1))   # two ranks sharing the card over gloo,
+#                                  one launch laid out both ways
+
+
+def mesh_phases(tmp, ring_dir, device, card):
+    """mesh_epoch and mesh_density (``mesh_check.check_epochs``): two ranks
+    sharing the card over gloo (``launch(shared_device=True)``), laid out
+    as each of MESH_SHAPES in turn; the density step on the smoke's
+    Ring-Collide frame 1. Then mesh_cli (``mesh_check.cli_frame`` and,
+    from a second thread meanwhile, ``cli_replay``): the entry points at
+    --mesh 1x1 over NCCL, and at 2x1 where two GPUs are visible. Returns
+    the ranks' launches by kernel, summed per path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gaussian_fluids_torch import mesh_check
+
+    totals = mesh_check.check_epochs(
+        MESH_SHAPES, device, card,
+        ckpt=os.path.join(ring_dir, "gaussian_velocity_1.pt"), shared=True)
+    meshes = ["1x1"] + (["2x1"] if torch.cuda.device_count() >= 2 else [])
+    for mesh in meshes:
+        with ThreadPoolExecutor(1) as pool:
+            replay = pool.submit(
+                mesh_check.cli_replay,
+                os.path.join(ring_dir, "gaussian_velocity_0.pt"), ring_dir,
+                os.path.join(tmp, f"mesh_cli_rc_{mesh}"), mesh, card)
+            mesh_check.cli_frame(
+                os.path.join(tmp, "2d", "gaussian_velocity_0.pt"),
+                os.path.join(tmp, "2d", "gaussian_velocity_1.pt"),
+                os.path.join(tmp, f"mesh_cli_2d_{mesh}"), mesh, card,
+                ADVANCE_EPOCHS)
+            replay.result()
+    if len(meshes) == 1:
+        emit({"phase": "mesh_cli", "mesh": "2x1",
+              "skipped": f"{torch.cuda.device_count()} visible GPU"})
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2867,6 +2943,9 @@ def main():
         launches_obstacle, shapes_obstacle = run_obstacle(
             os.path.join(tmp, "obstacle"), device)
         launches_replay = replay_vs_jax(device)
+        t0 = time.perf_counter()
+        launches_mesh = mesh_phases(tmp, ring, device, card)
+        emit({"phase": "mesh", "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2922,6 +3001,14 @@ def main():
     e = hoisted["rk4_fused_B51200"]
     stats_r["rk4_fused"]["hoisted_B51200"] = {
         **e, "launches": rk4_shapes.get(f"B={e['B']},N={e['N']}", 0)}
+    # the mesh phases' launches, summed over their ranks, on each path
+    for path, table in (("leapfrog_2d", stats), ("ring_collide", stats3),
+                        ("density", stats_d), (None, stats_r)):
+        for name, s in table.items():
+            n = launches_mesh[path].get(name.split("[")[0], 0) \
+                if path else 0
+            s["launches_mesh"] = {path: n} if path else {}
+            s["launches"] += n
     missing = [n for n, s in {**stats, **stats3, **stats_d,
                               **stats_r}.items() if s["launches"] == 0]
     if missing:

@@ -6,18 +6,29 @@ densities through the saved velocity checkpoints of a 3D run and writes
         --init_cond ring_collide --dt .02 --dir D [--density_res_multiplier 4]
 
 The grid is the scene's ``visualize_res`` times the multiplier (512^3 for
-ring_collide by default). Runs on the card unless ``--device cpu``.
+ring_collide by default). Runs on the card unless ``--device cpu``;
+``--mesh BxG`` shards each step over B x G ranks (``parallel/density.py``).
 """
 
 from gaussian_fluids_torch.cli import parse_args_3d
+from gaussian_fluids_torch.parallel.mesh import launch, mesh_from_shape
 from gaussian_fluids_torch.solver.simulate3d import advance_density
+
+
+def _rank_main(mesh, args, kwargs):
+    return advance_density(*args, **kwargs, mesh=mesh)
 
 
 def main(argv=None):
     args = parse_args_3d(argv)
-    return advance_density(args.init_cond, args.dir, args.dt,
-                           res_multiplier=args.density_res_multiplier,
-                           start_frame=args.start_frame, device=args.device)
+    run = (args.init_cond, args.dir, args.dt)
+    kwargs = dict(res_multiplier=args.density_res_multiplier,
+                  start_frame=args.start_frame)
+    if args.mesh:
+        shape = mesh_from_shape(args.mesh, device=args.device)
+        return launch(_rank_main, shape, (run, kwargs),
+                      device=args.device)[0]
+    return advance_density(*run, **kwargs, device=args.device)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,10 @@ the loss-curve figure ``loss_{n}.png``, not ported yet). The 2D figures
 are not ported yet: 2D always runs as the JAX CLI does under
 ``--no_viz``. ``--target_grid`` reaches the advance entry points' clone
 and projection; the initialize entry points accept it and, as the JAX
-CLI's, do not use it. ``--mesh`` and ``--profile`` are refused.
+CLI's, do not use it. ``--mesh BxG`` runs the advance entry points on a
+B x G mesh of ranks (``parallel/``): one GPU each over NCCL, or with
+``--device cpu`` B*G gloo processes; the initialize entry points accept
+it and, as the JAX CLI's, do not use it. ``--profile`` is refused.
 """
 
 from __future__ import annotations
@@ -51,7 +54,11 @@ def _parser(dim: int) -> argparse.ArgumentParser:
     p.add_argument("--max_epoch", type=int, default=None,
                    help="override the per-phase epoch budget")
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-device runs are not ported; must be unset")
+                   help="'BxG' (or 'B'): run the frame loop or the replay "
+                        "on a B x G mesh of ranks, B splitting each batch "
+                        "and G the Gaussians; one GPU per rank from "
+                        "--device on (NCCL), or B*G processes with "
+                        "--device cpu (gloo). Not with --target_grid")
     p.add_argument("--no_viz", action="store_true",
                    help="accepted for compatibility: 2D figures are never "
                         "drawn by this port"
@@ -71,13 +78,26 @@ def device_of(flag: str) -> str:
     return f"cuda:{int(flag)}" if flag.isdigit() else "cuda"
 
 
+def parse_mesh(s):
+    """'BxG' or 'B' -> (n_batch, n_gauss); None/'' -> None (the JAX
+    package's ``cli.parse_mesh``)."""
+    if not s:
+        return None
+    parts = s.lower().split("x")
+    if len(parts) > 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise SystemExit(f"--mesh expects 'BxG' or 'B' with positive "
+                         f"integers, got {s!r}")
+    b = int(parts[0])
+    g = int(parts[1]) if len(parts) == 2 else 1
+    return (b, g)
+
+
 def _parse(dim, argv, default_max_epoch):
     p = _parser(dim)
     args = p.parse_args(argv)
     if args.max_epoch is None:
         args.max_epoch = default_max_epoch
-    if args.mesh:
-        p.error("--mesh is not ported yet")
+    args.mesh = parse_mesh(args.mesh)
     if args.profile:
         p.error("--profile is not ported yet")
     args.device = device_of(args.device)

@@ -1,7 +1,8 @@
 """2D end-to-end flows: initialization (with Karman's zero-dt projection)
 and the frame loop clone -> advect -> project -> save, as in the JAX
 package's ``solver/simulate2d.py`` run with ``--no_viz`` (figures are not
-ported).
+ported). Under a mesh (``--mesh``) the frame loop runs on every rank of
+it, clone and projection sharded (``parallel/driver.py``).
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
                start_frame: int = 0, max_epoch: int = 20000,
                batch_size: int = 512, seed: int = 42, verbose: int = 1,
                test_res: Optional[tuple] = None, target_grid_res: int = 0,
-               device="cuda"):
+               device="cuda", mesh=None):
     """Frame loop from gaussian_velocity_{start_frame}.pt; writes one
     checkpoint per frame. ``target_grid_res`` > 0 gives the clone and the
     projection their cached-target grids (``--target_grid``). Returns
@@ -102,7 +103,19 @@ def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
     count, seconds (in all and per phase), the advance domain after it
     and the last test metrics of the clone and projection phases. The
     advance domain starts as the scene's at ``start_frame`` and moves
-    after each advect (Karman's inflow)."""
+    after each advect (Karman's inflow).
+
+    ``mesh`` (this rank's ``parallel.Mesh``, which sets the device): every
+    clone re-fit and projection epoch runs sharded over it with exact
+    per-epoch targets (so ``target_grid_res`` is refused), each batch row
+    drawing from its own generator (``Mesh.generator``); the advect runs
+    on every rank and rank 0's result is kept; rank 0 writes the
+    checkpoints. Every rank returns the same mixture."""
+    if mesh is not None:
+        from gaussian_fluids_torch.parallel import driver
+        from gaussian_fluids_torch.parallel.mesh import refuse_target_grid
+        refuse_target_grid(target_grid_res)
+        device = mesh.device
     device = torch.device(device)
     scene = get_scene_2d(init_cond)
     sf = scene.scaling_factor
@@ -111,6 +124,9 @@ def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
         os.path.join(out_dir, f"gaussian_velocity_{start_frame}.pt"),
         device=device)
     gen = _generator(seed + start_frame, device)
+    if mesh is not None:
+        # rank 0's test metrics draw from the single-device generator
+        gen, test_gen = mesh.generator(seed + start_frame), gen
     xnv, ynv = test_res or scene.visualize_res
 
     def test_grid(adv):
@@ -123,25 +139,44 @@ def advance_2d(init_cond: str, out_dir: str, dt: float, last_time: float,
         ft0 = time.perf_counter()
         adv_lo = (adv_domain[0] * sf, adv_domain[2] * sf)
         adv_hi = (adv_domain[1] * sf, adv_domain[3] * sf)
-        new_mix, clone_m = clone_velocity_field(
-            mix, spec, lo=adv_lo, hi=adv_hi, test_x=test_grid(adv_domain),
-            gen=gen, seed=cnt, max_epoch=max_epoch, batch_size=batch_size,
-            verbose=verbose, target_grid_res=target_grid_res)
+        if mesh is None:
+            new_mix, clone_m = clone_velocity_field(
+                mix, spec, lo=adv_lo, hi=adv_hi,
+                test_x=test_grid(adv_domain), gen=gen, seed=cnt,
+                max_epoch=max_epoch, batch_size=batch_size, verbose=verbose,
+                target_grid_res=target_grid_res)
+        else:
+            new_mix, clone_m = driver.clone_velocity_field_sharded(
+                mix, spec, mesh=mesh, lo=adv_lo, hi=adv_hi,
+                test_x=test_grid(adv_domain), gen=gen, seed=cnt, d=2,
+                max_epoch=max_epoch, batch_size=batch_size, verbose=verbose)
         ftc = time.perf_counter()
         new_mix = advect_covector_field_2d(new_mix, spec, dt)
+        if mesh is not None:
+            new_mix = driver.broadcast_mixture(new_mix, mesh)
         adv_domain = scene.extra_advect(adv_domain, dt)
         fta = time.perf_counter()
         w = ProjectWeights(vor=1.0, div=1.0, aniso=10.0, vol=10.0,
                            delta_pos=0.5)
-        new_mix, proj_m = project_2d(
-            new_mix, spec, mix, dt, scene=scene, adv_domain=adv_domain,
-            test_x=test_grid(adv_domain), gen=gen, weights=w,
-            boundary_lambda=1.0, batch_size=batch_size, max_epoch=max_epoch,
-            verbose=verbose, target_grid_res=target_grid_res)
+        if mesh is None:
+            new_mix, proj_m = project_2d(
+                new_mix, spec, mix, dt, scene=scene, adv_domain=adv_domain,
+                test_x=test_grid(adv_domain), gen=gen, weights=w,
+                boundary_lambda=1.0, batch_size=batch_size,
+                max_epoch=max_epoch, verbose=verbose,
+                target_grid_res=target_grid_res)
+        else:
+            new_mix, proj_m = driver.project_2d_sharded(
+                new_mix, spec, mix, dt, mesh=mesh, scene=scene,
+                adv_domain=adv_domain, test_x=test_grid(adv_domain), gen=gen,
+                test_gen=test_gen, weights=w, boundary_lambda=1.0,
+                batch_size=batch_size, max_epoch=max_epoch, verbose=verbose)
         mix = new_mix
         ft1 = time.perf_counter()
-        checkpoint.save_checkpoint(
-            os.path.join(out_dir, f"gaussian_velocity_{cnt}.pt"), mix, spec)
+        if mesh is None or mesh.writer:
+            checkpoint.save_checkpoint(
+                os.path.join(out_dir, f"gaussian_velocity_{cnt}.pt"), mix,
+                spec)
         ft2 = time.perf_counter()
         n_alive = mix.n_alive()
         if verbose:

@@ -5,7 +5,10 @@ default, as there) they write that package's ``.vti`` volumes: the
 obstacle's ``obstacle.obj``, the analytic field's ``velocity_ref``,
 ``vorticity_ref``, ``divergence_ref`` and ``helicity_ref``, and each
 frame's ``vorticity_{n}`` and ``divergence_{n}``. The per-frame loss-curve
-figure (``loss_{n}.png``) is not ported yet.
+figure (``loss_{n}.png``) is not ported yet. Under a mesh (``--mesh``)
+the frame loop and the replay run on every rank of it, their epochs and
+steps sharded (``parallel/driver.py``, ``parallel/density.py``); rank 0
+writes the files.
 """
 
 from __future__ import annotations
@@ -127,7 +130,7 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
                batch_size: int = 8192, boundary_lambda: float = 10.0,
                seed: int = 42, viz: bool = True, viz_res=None,
                test_res: Optional[tuple] = None, verbose: int = 1,
-               target_grid_res: int = 0, device="cuda"):
+               target_grid_res: int = 0, device="cuda", mesh=None):
     """Frame loop from gaussian_velocity_{start_frame}.pt; writes one
     checkpoint per frame (``target_grid_res`` > 0: the clone's and the
     projection's cached-target grids, ``--target_grid``) and, with
@@ -135,8 +138,15 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
     volumes. Returns (mix, spec, frames), ``frames`` holding per frame its
     number, alive count, seconds per phase (clone, advect, project, the
     volumes, the save) and the last test metrics of the clone and
-    projection phases."""
+    projection phases. ``mesh``: as ``simulate2d.advance_2d``'s; rank 0
+    writes the volumes and checkpoints."""
+    if mesh is not None:
+        from gaussian_fluids_torch.parallel import driver
+        from gaussian_fluids_torch.parallel.mesh import refuse_target_grid
+        refuse_target_grid(target_grid_res)
+        device = mesh.device
     device = torch.device(device)
+    writer = mesh is None or mesh.writer
     scene = get_scene_3d(init_cond)
     domain = scene.domain
     lo, hi = _box(domain)
@@ -144,9 +154,12 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
         os.path.join(out_dir, f"gaussian_velocity_{start_frame}.pt"),
         device=device)
     gen = _generator(seed + start_frame, device)
+    if mesh is not None:
+        # rank 0's test metrics draw from the single-device generator
+        gen, test_gen = mesh.generator(seed + start_frame), gen
     xnv, ynv, znv = test_res or scene.visualize_res
     test_x = grid_points_3d(*domain, xnv, ynv, znv)
-    if viz:
+    if viz and writer:
         _write_frame_vti(out_dir, str(start_frame), mix, spec, scene,
                          viz_res)
 
@@ -154,29 +167,47 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
     t, cnt = 0.0, start_frame + 1
     while t < last_time:
         ft0 = time.perf_counter()
-        new_mix, clone_m = clone_velocity_field(
-            mix, spec, lo=lo, hi=hi, test_x=test_x, gen=gen, seed=cnt, d=3,
-            batch_size=batch_size, max_epoch=max_epoch, verbose=verbose,
-            target_grid_res=target_grid_res)
+        if mesh is None:
+            new_mix, clone_m = clone_velocity_field(
+                mix, spec, lo=lo, hi=hi, test_x=test_x, gen=gen, seed=cnt,
+                d=3, batch_size=batch_size, max_epoch=max_epoch,
+                verbose=verbose, target_grid_res=target_grid_res)
+        else:
+            new_mix, clone_m = driver.clone_velocity_field_sharded(
+                mix, spec, mesh=mesh, lo=lo, hi=hi, test_x=test_x, gen=gen,
+                seed=cnt, d=3, batch_size=batch_size, max_epoch=max_epoch,
+                verbose=verbose)
         ftc = time.perf_counter()
         new_mix = advect_covector_field_3d(new_mix, mix, spec, dt)
+        if mesh is not None:
+            new_mix = driver.broadcast_mixture(new_mix, mesh)
         fta = time.perf_counter()
         w = ProjectWeights(vor=1.0, div=1.0, aniso=10.0, vol=10.0,
                            delta_pos=0.0, hel=1.0, val_reg=0.0)
-        new_mix, proj_m = project_3d(
-            new_mix, spec, mix, dt, domain=domain, test_x=test_x, gen=gen,
-            scene_name=init_cond, weights=w,
-            boundary_lambda=boundary_lambda, batch_size=batch_size,
-            max_epoch=max_epoch, verbose=verbose,
-            target_grid_res=target_grid_res)
+        if mesh is None:
+            new_mix, proj_m = project_3d(
+                new_mix, spec, mix, dt, domain=domain, test_x=test_x,
+                gen=gen, scene_name=init_cond, weights=w,
+                boundary_lambda=boundary_lambda, batch_size=batch_size,
+                max_epoch=max_epoch, verbose=verbose,
+                target_grid_res=target_grid_res)
+        else:
+            new_mix, proj_m = driver.project_3d_sharded(
+                new_mix, spec, mix, dt, mesh=mesh, domain=domain,
+                test_x=test_x, gen=gen, test_gen=test_gen,
+                scene_name=init_cond, weights=w,
+                boundary_lambda=boundary_lambda, batch_size=batch_size,
+                max_epoch=max_epoch, verbose=verbose)
         mix = new_mix
         print(f"Wrote frame {cnt}")
         ft1 = time.perf_counter()
-        if viz:
+        if viz and writer:
             _write_frame_vti(out_dir, str(cnt), mix, spec, scene, viz_res)
         ft2 = time.perf_counter()
-        checkpoint.save_checkpoint(
-            os.path.join(out_dir, f"gaussian_velocity_{cnt}.pt"), mix, spec)
+        if writer:
+            checkpoint.save_checkpoint(
+                os.path.join(out_dir, f"gaussian_velocity_{cnt}.pt"), mix,
+                spec)
         ft3 = time.perf_counter()
         n_alive = mix.n_alive()
         if verbose:
@@ -463,7 +494,7 @@ class _Clock:
 def advance_density(init_cond: str, out_dir: str, dt: float,
                     res_multiplier: int = 4, grid_res=None,
                     verbose: int = 1, start_frame: int = 0,
-                    device="cuda"):
+                    device="cuda", mesh=None):
     """Replay loop: seed ring densities, then for every saved frame advect
     each density one step and write ``density_{tag}_{frame}.vti`` with its
     pooled ``density_small_{tag}_{frame}.npz`` (reference
@@ -474,9 +505,19 @@ def advance_density(init_cond: str, out_dir: str, dt: float,
     replay's own ``density_{tag}_{start_frame}.vti``. Returns one record per
     advected frame: its number, the band (None on the CPU), the seconds
     per density and, per density, its .vti write (``_AsyncVtiWriter``
-    ``writes``: seconds and bytes)."""
+    ``writes``: seconds and bytes).
+
+    ``mesh`` (this rank's ``parallel.Mesh``, which sets the device): each
+    step is sharded over it (``parallel/density.py``; the records' band is
+    None, each rank suggesting its shard's), every rank holds the whole
+    volumes, and rank 0 writes them."""
     from gaussian_fluids_torch.scenes.fields3d import Ring
+    if mesh is not None:
+        from gaussian_fluids_torch.parallel.density import \
+            advected_density_sharded
+        device = mesh.device
     device = torch.device(device)
+    writing = mesh is None or mesh.writer
     scene = get_scene_3d(init_cond)
     domain = scene.domain
     xn, yn, zn = grid_res or tuple(r * res_multiplier
@@ -496,6 +537,8 @@ def advance_density(init_cond: str, out_dir: str, dt: float,
         return os.path.join(out_dir, f"density_{tag}_{frame}.vti")
 
     def submit(tag, frame, volume):
+        if not writing:
+            return
         writer.submit(volume, origin, spacing, vti_path(tag, frame),
                       os.path.join(out_dir,
                                    f"density_small_{tag}_{frame}.npz"))
@@ -522,13 +565,17 @@ def advance_density(init_cond: str, out_dir: str, dt: float,
         # the banded kernel's window needs x-slabs; its culling, y-cells
         mix = mix.slab_sorted(spec.clamp_threshold)
         band = (_suggest_band(mix, spec, dt) if device.type == "cuda"
-                else None)
+                and mesh is None else None)
         frame += 1
         marks = {}
         for i, tag in enumerate(tags):
             marks[tag] = clock.mark()
-            dens[i] = advected_density(dens[i], mix, spec, domain, dt,
-                                       (xn, yn, zn), band=band)
+            if mesh is None:
+                dens[i] = advected_density(dens[i], mix, spec, domain, dt,
+                                           (xn, yn, zn), band=band)
+            else:
+                dens[i] = advected_density_sharded(
+                    dens[i], mix, spec, domain, dt, (xn, yn, zn), mesh)
             clock.mark()
             submit(tag, frame, dens[i])
         records.append({"frame": frame, "band": band, "marks": marks})
@@ -539,5 +586,5 @@ def advance_density(init_cond: str, out_dir: str, dt: float,
         rec["seconds"] = {tag: clock.seconds(m)
                           for tag, m in rec.pop("marks").items()}
         rec["vti_writes"] = {tag: writer.writes[vti_path(tag, rec["frame"])]
-                             for tag in tags}
+                             for tag in tags} if writing else {}
     return records

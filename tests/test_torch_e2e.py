@@ -118,15 +118,28 @@ def test_same_checkpoint_same_field_in_both_packages(runs, package):
 
 
 def test_entry_point_flags(capsys, monkeypatch):
-    """--mesh and --profile are refused; --target_grid reaches
-    advance_2d, and initialize2d accepts it without using it, as the JAX
-    CLI does."""
+    """--profile is refused; --mesh parses as the JAX CLI's and is refused
+    with --target_grid and beyond the visible cards; --target_grid
+    reaches advance_2d, and initialize2d accepts it without using it, as
+    the JAX CLI does."""
+    from gaussian_fluids_torch import cli as tcli
+    from gaussian_fluids_tpu import cli as jcli
     with pytest.raises(SystemExit):
         initialize2d.main(["--help"])
     assert "--no_viz" in capsys.readouterr().out
-    for flag in (["--mesh", "2"], ["--profile", "/tmp/p"]):
+    with pytest.raises(SystemExit):
+        advance2d.main(["--device", "cpu", "--profile", "/tmp/p"])
+    for text in ("4x2", "8", "1x1"):
+        assert tcli.parse_mesh(text) == jcli.parse_mesh(text)
+    for bad in ("4x2x1", "ax2", "0x2", "-1"):
         with pytest.raises(SystemExit):
-            advance2d.main(["--device", "cpu"] + flag)
+            tcli.parse_mesh(bad)
+    with pytest.raises(ValueError, match="target_grid"):
+        advance2d.main(["--device", "cpu", "--mesh", "2",
+                        "--target_grid", "64"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="GPUs"):
+        advance2d.main(["--mesh", "2"])
     seen = {}
     monkeypatch.setattr(advance2d, "advance_2d",
                         lambda *a, **k: seen.update(advance=k))
@@ -170,6 +183,8 @@ def test_density_entry_point_flags(monkeypatch):
     advance_density3d.main([])
     assert seen["kw"]["res_multiplier"] == 4
     assert seen["kw"]["device"] == "cuda:0"
-    for flag in (["--mesh", "2"], ["--profile", "/tmp/p"]):
-        with pytest.raises(SystemExit):
-            advance_density3d.main(["--device", "cpu"] + flag)
+    with pytest.raises(SystemExit):
+        advance_density3d.main(["--device", "cpu", "--profile", "/tmp/p"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="GPUs"):
+        advance_density3d.main(["--mesh", "1x2"])

@@ -106,16 +106,26 @@ def test_same_3d_checkpoint_same_field_in_both_packages(runs, package):
 
 
 def test_3d_entry_point_flags(capsys, monkeypatch):
-    """--mesh and --profile are refused; --target_grid reaches
-    advance_3d, and initialize3d accepts it without using it, as the JAX
-    CLI does."""
+    """--profile is refused; --mesh parses as the JAX CLI's and is refused
+    with --target_grid and beyond the visible cards; --target_grid
+    reaches advance_3d, and initialize3d accepts it without using it, as
+    the JAX CLI does."""
+    from gaussian_fluids_torch import cli as tcli
+    from gaussian_fluids_tpu import cli as jcli
     with pytest.raises(SystemExit):
         initialize3d.main(["--help"])
     out = capsys.readouterr().out
     assert "--boundary" in out and "--no_viz" in out
-    for flag in (["--mesh", "2"], ["--profile", "/tmp/p"]):
-        with pytest.raises(SystemExit):
-            advance3d.main(["--device", "cpu"] + flag)
+    with pytest.raises(SystemExit):
+        advance3d.main(["--device", "cpu", "--profile", "/tmp/p"])
+    assert tcli.parse_args_3d(["--mesh", "8"]).mesh == \
+        jcli.parse_mesh("8") == (8, 1)
+    with pytest.raises(ValueError, match="target_grid"):
+        advance3d.main(["--device", "cpu", "--mesh", "2x2",
+                        "--target_grid", "64"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="GPUs"):
+        advance3d.main(["--mesh", "2"])
     seen = {}
     monkeypatch.setattr(advance3d, "advance_3d",
                         lambda *a, **k: seen.update(advance=k))

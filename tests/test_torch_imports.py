@@ -56,7 +56,14 @@ def test_guard_sees_the_whole_package():
             "gaussian_fluids_torch/advance_density3d.py",
             "gaussian_fluids_torch/ops/rk4_fused.py",
             "gaussian_fluids_torch/solver/covector.py",
-            "gaussian_fluids_torch/scenes/boundaries2d.py"} <= rel
+            "gaussian_fluids_torch/scenes/boundaries2d.py",
+            "gaussian_fluids_torch/parallel/__init__.py",
+            "gaussian_fluids_torch/parallel/mesh.py",
+            "gaussian_fluids_torch/parallel/collectives.py",
+            "gaussian_fluids_torch/parallel/sharding.py",
+            "gaussian_fluids_torch/parallel/driver.py",
+            "gaussian_fluids_torch/parallel/density.py",
+            "gaussian_fluids_torch/mesh_check.py"} <= rel
     for src in ("gsr_centered.cu", "gsr_cells.cu", "gsr_banded.cu",
                 "rk4_fused.cu", "gsr_tile.cuh"):
         assert os.path.exists(os.path.join(PKG, "csrc", src))
@@ -74,7 +81,14 @@ def test_importing_the_port_loads_no_jax():
             "gaussian_fluids_torch.ops.interp, "
             "gaussian_fluids_torch.io.vti, "
             "gaussian_fluids_torch.ops.rk4_fused, "
-            "gaussian_fluids_torch.epoch_profile\n"
+            "gaussian_fluids_torch.epoch_profile, "
+            "gaussian_fluids_torch.parallel, "
+            "gaussian_fluids_torch.parallel.mesh, "
+            "gaussian_fluids_torch.parallel.collectives, "
+            "gaussian_fluids_torch.parallel.sharding, "
+            "gaussian_fluids_torch.parallel.driver, "
+            "gaussian_fluids_torch.parallel.density, "
+            "gaussian_fluids_torch.mesh_check\n"
             "bad = [m for m in ('jax', 'gaussian_fluids_tpu', 'matplotlib')"
             " if m in sys.modules]\n"
             "assert not bad, bad")
