@@ -58,12 +58,22 @@ Phases, each printing one JSON line with its wall seconds:
                 kernel's box test lets through at each stage and the pairs
                 they hold
   initialize    the leapfrog scene fitted at 71x71 = 5041 Gaussians through
-                the entry point ``gaussian_fluids_torch.initialize2d``
+                the entry point ``gaussian_fluids_torch.initialize2d``,
+                figures on (the default): the card's machine has no
+                matplotlib, so the run prints one line and draws nothing
   advance       one frame (clone -> advect -> project) at dt .025 through
                 ``gaussian_fluids_torch.advance2d``;
                 losses and the divergence residual
   check         the final 2D field through the kernels against the plain
                 dense field evaluation in float64
+  figures_2d    the 2D figures' field sweeps (``simulate2d.figure_arrays``)
+                on that frame: velocity on the two 30x30 grids, vorticity
+                and divergence on the 200x200 grid, against float64 dense
+                (FIGURE_TOL); row 1's launches by shape; the 2D runs'
+                matplotlib lines and PNGs (none without matplotlib)
+  profile       ``advance2d --profile DIR`` for a short frame from the fit
+                (GF_PROFILE_SECONDS bounded): the Chrome trace exists,
+                parses and names gsr_fwd_kernel
   karman_init   the karman scene (400x60 = 24,000 Gaussians, capacity
                 24,576, B=512) through ``initialize2d``: the inflow fit and
                 the zero-dt projection that carves the cylinder
@@ -96,6 +106,9 @@ Phases, each printing one JSON line with its wall seconds:
                 through ``gaussian_fluids_torch.advance3d`` on the scene's
                 128^3 test grid, --no_viz; losses and the divergence
                 residual
+  curves_3d     the Ring-Collide frame's projection with its loss curves
+                collected (``project_3d(collect_curves=True)``, no extra
+                epochs): one entry an epoch, one a chunk, all finite
   hoist         the exact-target hoist (the default on the card): the
                 hoisted targets against the per-epoch ones on the same
                 draws (Ring-Collide 25 x 8192, vortices_pass 100 x 512,
@@ -108,12 +121,8 @@ Phases, each printing one JSON line with its wall seconds:
                 where the dense planes would not fit), timed, with their
                 bounds; the Ring-Collide projection epoch in chunks of 25,
                 hoisted and under GF_HOIST_TARGETS=0: wall ms alternated
-                p c c p, then each mode under torch.profiler (device ms,
-                busy share, host operators, launches; the hoisted mode as
-                its chunk's inputs over 25 plus its epochs); no work list
-                overflowed
-  epoch_3d      the first (GF_HOIST_TARGETS=0) of those projection runs,
-                as the phase reported it before the hoist
+                p c c p (their profiles are ``epoch_profile``'s); no work
+                list overflowed
   target_grid_rc  a Ring-Collide projection chunk under --target_grid 128
                 on the fitted Ring-Collide field: the grid's build seconds
                 and launches; the grid at 8192 of its nodes against the
@@ -142,6 +151,16 @@ Phases, each printing one JSON line with its wall seconds:
                 each split timed; row 1 on that batch and on the middle
                 32,768-node chunk of the scene's 128^3 test grid at every
                 split
+  backends      GF_FIELD_BACKEND auto, pallas, cells (2D) and sparse on
+                8192 sorted queries of the Ring-Collide frame 1 (64,000
+                Gaussians) and the Leapfrog-2D frame 1: value_and_jac and
+                two_head_grads against auto (TOL), ms per call, the sparse
+                oracle's fallbacks and two sparse calls bitwise equal
+  cells_2d      GF_FIELD_BACKEND=cells at d=2: a Leapfrog-2D clone chunk
+                and a projection chunk against the default path on the
+                same draws (parameters within TOL); the d=2 instantiations
+                of rows 5-7 at Leapfrog-2D shapes against their plain
+                versions, timed, with their bounds
   density3d     the smoke replay through ``gaussian_fluids_torch.advance_density3d``
                 (--density_res_multiplier 1: 128^3 nodes) on ring_collide's
                 checkpoints 0 and 1: densities a and b, two steps each, .vti
@@ -178,16 +197,19 @@ Phases, each printing one JSON line with its wall seconds:
                 difference and mass, within REPLAY_TOL; the replay's own
                 .vti writes (seconds, bytes, and the encoding read back
                 from the files)
+  mesh_error    three launches side by side of two ranks sharing the card
+                over gloo, rank 1 raising while rank 0 waits in a
+                broadcast: each raises rank 1's own error (run from a
+                thread beside obstacle3d and replay_vs_jax)
   (the mesh phases run ``gaussian_fluids_torch.mesh_check``'s checks,
   which that module runs on several GPUs over NCCL)
   mesh_epoch    two ranks sharing the card over gloo with CUDA tensors
                 (``parallel.mesh.launch(shared_device=True)``; the CLI
-                never asks for it) at 1x2 and 2x1 (one launch laid out
-                both ways, ``parallel.mesh.reshape``): one sharded projection
+                never asks for it) at 1x2: one sharded projection
                 and one sharded clone epoch at Leapfrog-2D (5041
                 Gaussians, capacity 6144, B=512) and Ring-Collide (64,000,
-                capacity 75,776, B=8192; at 1x2 each rank holds 37,888
-                and takes the cells path) from the same seeded inputs,
+                capacity 75,776, B=8192; each rank holds 37,888 and takes
+                the cells path) from the same seeded inputs,
                 against the single-device epochs on the card: losses,
                 gradients (Adam's first moments) and parameters within
                 ``mesh_check``'s MESH_* tolerances, every rank's
@@ -212,7 +234,10 @@ Phases, each printing one JSON line with its wall seconds:
                 both again at --mesh 2x1 where two GPUs are visible
 Launches are counted per path: each path's counts are set to 0 just
 before it and read just after; the 2D lines of the kernel summary carry
-the Leapfrog-2D path's launches, the d=3 and cells lines the 3D path's;
+the Leapfrog-2D path's launches, the d=3 and cells lines the 3D path's,
+the d=2 cells lines (``cells_fwd[d=2]`` ...) cells_2d's chunks under
+GF_FIELD_BACKEND=cells; each kernel's plain version is timed once, at
+its main shape (one call, after the comparison has run it);
 the forward's are also counted per shape (d, B, N) on every path
 (``launches_by_shape``; the Karman path's under ``karman_2d``, the
 vortices_pass path's under ``vortices_pass_2d``), and so are the cells
@@ -250,6 +275,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -259,7 +285,6 @@ ADVANCE_EPOCHS = 100   # 2D, per phase and frame; the default is 20000
 INIT3D_EPOCHS = 100    # the 3D entry point's default is 500
 ADVANCE3D_EPOCHS = 100  # 3D, per phase; the default is 20000
 TIMED_LAUNCHES = 30
-PLAIN_LAUNCHES_3D = 3  # the plain versions take ~0.1-1 s at Ring-Collide
 TOL = 1e-4   # relative to the largest reference entry: f32 sums in another
 #              order and FMA contraction on the card
 
@@ -343,6 +368,13 @@ GRID_TOL = 0.02           # interpolated against exact targets, of the
 #                           smooth field; reported here, not gated (the
 #                           fitted Ring-Collide field misses it at its
 #                           worst points: PERF.md §6)
+FIGURE_TOL = 1e-3         # the figures' sweeps against float64 dense, of
+#                           the largest entry (as check's final field)
+PROFILE_EPOCHS = 10       # the --profile frame's epochs a phase
+PROFILE_SECONDS = 60      # its capture window (GF_PROFILE_SECONDS)
+BACKEND_B = 8192          # queries of the backends phase
+CELLS_2D_EPOCHS = 10      # epochs of each cells_2d chunk
+MESH_ERROR_LAUNCHES = 3
 NO_LIBRARY_BANDED = ("no single PyTorch call computes the clamp-masked "
                      "Gaussian sum over a per-query-tile window")
 
@@ -458,10 +490,24 @@ def _entry(name, route_src, errs, ms, plain_ms, ops, nbytes, walked_pairs,
     }
 
 
-def _run_cases(cases, d, live_pairs, support_pairs, in_bytes, plain_reps,
+def plain_once(fn):
+    """Device ms of one call of a plain twin, which the comparison has just
+    run: each twin is timed once a run, at its kernel's main shape (PERF.md
+    keeps the medians of earlier runs at the other shapes)."""
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
+
+
+def _run_cases(cases, d, live_pairs, support_pairs, in_bytes, time_plain,
                tag=""):
     """Compare every variant of every kernel with its plain version, time
-    the main path's variant (the first), and build the summary entries."""
+    the main path's variant (the first) and, where ``time_plain``, its
+    plain version once, and build the summary entries."""
     stats = {}
     for name, (src, key, variants, extra_bytes, walk_bytes) in cases.items():
         errs = [compare(f"{name}{tag}[{i}]", k(), p(), TOL)
@@ -469,7 +515,7 @@ def _run_cases(cases, d, live_pairs, support_pairs, in_bytes, plain_reps,
         torch.cuda.synchronize()
         kern, plain = variants[0]
         ms = time_ms(kern)
-        plain_ms = time_ms(plain, plain_reps)
+        plain_ms = plain_once(plain) if time_plain else None
         ops = pair_ops(OPS_GEOMETRY[d], OPS_SUPPORT[(d, key)], live_pairs,
                        support_pairs)
         stats[name + tag] = _entry(name + tag, src, errs, ms, plain_ms, ops,
@@ -579,15 +625,16 @@ def fwd_split_report(args, rad, clamp):
             "max_rel_err_splits": err, "bitwise_repeat": True}
 
 
-def fwd_shape_entry(args, rad, clamp, plain_reps=PLAIN_LAUNCHES_3D):
-    """Row 1's summary at one more shape: every split (fwd_split_report),
-    the plain twin's time, and the bound on need beside the walked bound,
-    with the pairs whose geometry the box test lets through."""
+def fwd_shape_entry(args, rad, clamp):
+    """Row 1's summary at one more shape: every split (fwd_split_report)
+    and the bound on need beside the walked bound, with the pairs whose
+    geometry the box test lets through (the plain twin is timed at row
+    1's main shapes only: ``plain_ms`` None)."""
     from gaussian_fluids_torch.ops import gsr_centered as gc
     tmask, x_p, muT, ppT, v = args
     d, B, N = x_p.shape[1], x_p.shape[0], muT.shape[1]
     rep = fwd_split_report(args, rad, clamp)
-    plain_ms = time_ms(lambda: gc.fwd_plain(*args, clamp, d), plain_reps)
+    plain_ms = None
     live = int(tmask.sum()) * gc.TB * gc.TN
     sup = _support_pairs(gc, tmask, x_p, muT, ppT, d, clamp)
     nbytes = 4 * (tmask.numel() + x_p.numel() + muT.numel() + ppT.numel()
@@ -714,8 +761,7 @@ def kernel_phase(device):
              for uv in (False, True)],
             4 * (2 * dout[0].numel() + 2 * (6 * N + 2 * N)), 0),
     }
-    stats = _run_cases(cases, 2, live_pairs, support_pairs, in_bytes,
-                       TIMED_LAUNCHES)
+    stats = _run_cases(cases, 2, live_pairs, support_pairs, in_bytes, True)
     for name, rep in split_reports(cases, tmask).items():
         stats[name]["split"] = rep
     args = (tmask, x_p, muT, ppT, v)
@@ -728,7 +774,7 @@ def kernel_phase(device):
     xq_p, _, _, _, _, _, tmq, radq = field._centered_prep(
         mix, spec, xq, gc.TB, gc.TN, presorted=True)
     stats["gsr_fwd"]["B4096"] = fwd_shape_entry(
-        (tmq, xq_p, muT, ppT, v), radq, clamp, TIMED_LAUNCHES)
+        (tmq, xq_p, muT, ppT, v), radq, clamp)
     return stats, {"B": B, "N": N, "live_pairs": live_pairs,
                    "support_pairs": support_pairs,
                    "live_tile_fraction": float(tmask.float().mean())}
@@ -831,7 +877,7 @@ def kernels_fitted_rc(mix, spec, device, n_queries=8192):
             mix, spec, q, gc.TB, gc.TN, presorted=True)
         out["gsr_fwd_" + tag] = fwd_shape_entry(
             (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
-             v_p.contiguous()), rad, clamp, 1)
+             v_p.contiguous()), rad, clamp)
     x_p, _, tmask, (_, _, gt, qt, ok), rad = field._cells_prep(mix, spec, x)
     if not int(ok):
         raise AssertionError("the fitted Ring-Collide work list overflowed")
@@ -966,7 +1012,7 @@ def kernel_phase_3d(device):
     stats = _run_cases(
         l_cases, 3, l_live, l_sup,
         4 * (lx_p.numel() + lmuT.numel() + lppT.numel() + lvv.numel()),
-        PLAIN_LAUNCHES_3D, tag="[d=3]")
+        True, tag="[d=3]")
     for name, rep in split_reports(l_cases, ltm).items():
         stats[name + "[d=3]"]["split"] = rep
     stats["gsr_fwd[d=3]"]["split"] = fwd_split_report(
@@ -979,11 +1025,11 @@ def kernel_phase_3d(device):
         qmix, qspec, qx, gc.TB, gc.TN, presorted=True)
     stats["gsr_fwd[d=3]"]["B32768"] = fwd_shape_entry(
         (qtm, qx_p, qmu.T.contiguous(), qpp.T.contiguous(), qv.contiguous()),
-        qrad, clamp, PLAIN_LAUNCHES_3D)
+        qrad, clamp)
     rc_cases = _centered_cases_3d(tmask, x_p, muT, ppT, v, clamp, dout,
                                   dout_val, rad)
     at_rc = _run_cases(rc_cases, 3, live_pairs, support_pairs, par_bytes,
-                       PLAIN_LAUNCHES_3D, tag="[d=3]")
+                       False, tag="[d=3]")
     for name, rep in split_reports(rc_cases, tmask).items():
         at_rc[name + "[d=3]"]["split"] = rep
     at_rc["gsr_fwd[d=3]"]["split"] = fwd_split_report(
@@ -996,7 +1042,7 @@ def kernel_phase_3d(device):
             qmix, qspec, qx, gc.TB, gc.TN, presorted=True)
         at_rc["gsr_fwd[d=3]"][f"B{nq}"] = fwd_shape_entry(
             (qtm, qx_p, qmu.T.contiguous(), qpp.T.contiguous(),
-             qv.contiguous()), qrad, clamp, 1)
+             qv.contiguous()), qrad, clamp)
     for name, s_ in stats.items():
         s_.update(shape="Leapfrog-3D", B=lx_p.shape[0], N=lmuT.shape[1],
                   live_tile_fraction=float(ltm.float().mean()),
@@ -1006,7 +1052,7 @@ def kernel_phase_3d(device):
                       "split", "B4096", "B32768") if k in at_rc[name]})
     stats["gsr_fwd[d=3]"]["ring_collide"]["box_pairs"] = box_pairs
     cstats = _run_cases(cells, 3, live_pairs, support_pairs, par_bytes,
-                        PLAIN_LAUNCHES_3D)
+                        True)
     cstats["cells_fwd"].update(box_pairs=box_pairs)
     for name, rep in cells_split_report(lt, (tmask, x_p, muT, ppT, v), rad,
                                         clamp, dout).items():
@@ -1080,7 +1126,7 @@ def kernel_phase_rest(device):
         torch.cuda.synchronize()
         kern, plain = variants[0]
         stats[name + tag] = _entry(name + tag, src, errs, time_ms(kern),
-                                   time_ms(plain), ops, nbytes, walked,
+                                   plain_once(plain), ops, nbytes, walked,
                                    support)
 
     # kernel 4 at d = 2 (Karman, B = 512) and at d = 3 where the path runs
@@ -1139,7 +1185,7 @@ def kernel_phase_rest(device):
         mix, spec, x, gc.TB, gc.TN, presorted=True)
     shapes["gsr_fwd_karman_2d"] = fwd_shape_entry(
         (tmask, x_p, mp.T.contiguous(), pp.T.contiguous(), vp.contiguous()),
-        rad, clamp, TIMED_LAUNCHES)
+        rad, clamp)
 
     # kernel 10 over [512 data rows; the scene's 3072 boundary rows], at
     # every split (W, S)
@@ -1330,7 +1376,7 @@ def run_2d(tmp):
           "gsr_fwd_launches_by_shape": by_shape})
 
     t0 = time.perf_counter()
-    written = sorted(os.listdir(tmp))
+    written = sorted(f for f in os.listdir(tmp) if f.endswith(".pt"))
     want = [f"gaussian_velocity_{i}.pt" for i in range(2)]
     if written != want:
         raise AssertionError(f"checkpoints {written} != {want}")
@@ -1614,9 +1660,21 @@ def query_grad(mixes):
 
 def run_3d(tmp):
     """leapfrog (centered kernels at d=3) and ring_collide (cells) through
-    the 3D entry points; returns the 3D path's launches per wrapper."""
+    the 3D entry points; the Ring-Collide frame's projection collects its
+    loss curves (curves_3d: one entry an epoch of the per-epoch curves,
+    one a chunk of the per-chunk ones, all finite); returns the 3D path's
+    launches per wrapper."""
     from gaussian_fluids_torch import advance3d, initialize3d
     from gaussian_fluids_torch.ops import gsr_cells, gsr_centered
+    from gaussian_fluids_torch.solver import simulate3d
+
+    curves = []
+    project_3d = simulate3d.project_3d
+
+    def collecting(*a, **k):
+        new, last, c = project_3d(*a, **{**k, "collect_curves": True})
+        curves.append(c)
+        return new, last
 
     def counts():
         torch.cuda.synchronize()
@@ -1639,10 +1697,15 @@ def run_3d(tmp):
               "batch": 8192,
               "launches": {k: mid[k] - before[k] for k in mid}})
         t0 = time.perf_counter()
-        mix, spec, frames = advance3d.main(
-            ["--init_cond", scene, "--dir", d, "--dt", ".02",
-             "--last_time", ".02", "--max_epoch", str(ADVANCE3D_EPOCHS),
-             "--no_viz"])
+        if scene == "ring_collide":
+            simulate3d.project_3d = collecting
+        try:
+            mix, spec, frames = advance3d.main(
+                ["--init_cond", scene, "--dir", d, "--dt", ".02",
+                 "--last_time", ".02", "--max_epoch",
+                 str(ADVANCE3D_EPOCHS), "--no_viz"])
+        finally:
+            simulate3d.project_3d = project_3d
         after = counts()
         check_frames(frames, 1, scene)
         f = frames[0]
@@ -1658,6 +1721,21 @@ def run_3d(tmp):
                                      "gaussian_velocity_1.pt"]:
             raise AssertionError(f"{scene}: checkpoints {os.listdir(d)}")
         total = after
+    # one chunk of ADVANCE3D_EPOCHS (= check_iter) epochs: as many entries
+    # in each per-epoch curve, one in each per-chunk curve
+    lens = {k: len(v) for k, v in curves[0].items()} if curves else {}
+    want = {"train_vor": ADVANCE3D_EPOCHS, "train_div": ADVANCE3D_EPOCHS,
+            "log_lr": ADVANCE3D_EPOCHS, "test_vor": 1, "test_div": 1}
+    if len(curves) != 1 or lens != want or not all(
+            np.isfinite(v).all() for v in curves[0].values()):
+        raise AssertionError(f"curves_3d: {len(curves)} projections, "
+                             f"lengths {lens} (want {want})")
+    emit({"phase": "curves_3d", "scene": "ring_collide", "lengths": lens,
+          "train_vor_first_last": [curves[0]["train_vor"][0],
+                                   curves[0]["train_vor"][-1]],
+          "test_vor": curves[0]["test_vor"],
+          "test_div": curves[0]["test_div"],
+          "log_lr_last": curves[0]["log_lr"][-1]})
     by_shape = _shape_counts(gsr_centered.fwd_shapes)
     cells_shapes = _cells_shapes()
     overflows = gsr_cells.overflows()
@@ -2001,7 +2079,7 @@ def kernel_phase_density(device):
     torch.cuda.synchronize()
     ms = time_ms(kern)
     sweep_ms = time_ms(sweep, 5)
-    plain_ms = time_ms(plain, PLAIN_LAUNCHES_3D)
+    plain_ms = plain_once(plain)
     N = prep["muT"].shape[1]
     window_pairs = B * band * gb.TN
     support_pairs = sum(int((mgv > 0).sum()) for _, mgv in gb.window_weights(
@@ -2446,15 +2524,14 @@ def kernels_hoisted(device, vp_mix, vp_spec):
     x = _sorted_draws(gen, 100, 512, *box).reshape(-1, 2)
     args, rad = centered_args(vp_mix, vp_spec, x)
     out["gsr_fwd_B51200"] = fwd_shape_entry(args, rad,
-                                            vp_spec.clamp_threshold, 3)
+                                            vp_spec.clamp_threshold)
     scene = get_scene_2d("vortices_pass")
     bd = scene.boundary_sampler_2(gen, 512, torch.tensor(
         scene.advance_domain, device=device))[0]
     bd = bd[torch.argsort(bd[:, 0], stable=True)]
     args, rad = centered_args(vp_mix, vp_spec, bd)
     out["gsr_fwd_B1536"] = fwd_shape_entry(args, rad,
-                                           vp_spec.clamp_threshold,
-                                           TIMED_LAUNCHES)
+                                           vp_spec.clamp_threshold)
 
     def prep_seconds(mix, spec, x):
         """Median wall seconds of the lists' preparation, of 5."""
@@ -2491,7 +2568,7 @@ def kernels_hoisted(device, vp_mix, vp_spec):
                 for sl in slices for nj in (3, 0)]
         torch.cuda.synchronize()
         ms = time_ms(lambda: kern(3))
-        plain_ms = time_ms(lambda: twin(slices[0], 3), 1)
+        plain_ms = None
         live = int(tmask.sum())
         sup = _support_pairs(gc, tmask, x_p, muT, ppT, 3, clamp)
         nbytes = 4 * (x_p.numel() + muT.numel() + ppT.numel() + v.numel()
@@ -2568,8 +2645,7 @@ def kernels_hoisted(device, vp_mix, vp_spec):
     torch.cuda.synchronize()
     ms = time_ms(lambda: rk.fused_rk4(x, muT, ppT, v, dt, clamp, 2, rad, lo,
                                       hi))
-    plain_ms = time_ms(lambda: rk.rk4_plain(x[slices[0]], muT, ppT, v, dt,
-                                            clamp, 2), 3)
+    plain_ms = None
     pts = _rk4_stage_points(x, muT, ppT, v, dt, clamp)
     ones = torch.ones((x.shape[0], 1), dtype=torch.int32, device=device)
     sup = [_support_pairs(gc, ones, p_, muT, ppT, 2, clamp) for p_ in pts]
@@ -2598,16 +2674,12 @@ def hoist_ab(device):
     """The Ring-Collide projection epoch (seeded state, B = 8192) hoisted
     and under GF_HOIST_TARGETS=0: wall ms per epoch over a chunk of
     HOIST_CHUNK epochs, alternated p c c p in this call, each mode's first
-    run after a warm-up chunk; then each mode under torch.profiler (device ms, busy share,
-    host operators and launches per epoch, the cells forward's device
-    ms): the per-epoch mode over 5 epochs, its epochs being alike; the
-    hoisted mode as its chunk's inputs (the draws, the sorts and the
-    target sweep, once a chunk: their numbers over HOIST_CHUNK) plus 5 of
-    its epochs on them. Returns (the four wall runs, {mode: profile})."""
-    from gaussian_fluids_torch.epoch_profile import _epochs_3d, profile_epoch
-    from gaussian_fluids_torch.solver import optim, project
-    from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
+    run after a warm-up chunk. Returns the four wall runs. (Its profiles,
+    device ms and host operators a mode, are ``epoch_profile``'s, PERF.md
+    §5; the smoke no longer pays the profiler for them.)"""
+    from gaussian_fluids_torch.epoch_profile import _epochs_3d
 
+    from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
     mix, spec, _ = ring_collide_state(device)
     walls = []
     for i, mode in enumerate(("per_epoch", "hoisted", "hoisted",
@@ -2625,49 +2697,7 @@ def hoist_ab(device):
         walls.append({"mode": mode, "epochs": HOIST_CHUNK,
                       "wall_ms_per_epoch":
                           1e3 * (time.perf_counter() - t0) / HOIST_CHUNK})
-    runner = project._runner_3d(
-        spec, "ring_collide", project.ProjectWeights(delta_pos=0.0), 10.0,
-        8192, (0.0,) * 3, (1.0,) * 3)
-    gen = torch.Generator(device=device).manual_seed(0)
-    p = mix.params()
-    carry = [(p, optim.init(p, project.DEFAULT_LRS_3D), mix.alive, mix,
-              0.02)]
-
-    def per_epoch():
-        carry[0] = runner.run_chunk(carry[0], gen, 1, False)
-
-    inputs, used = [], [0]
-
-    def prepare():
-        inputs[:] = runner.chunk_inputs(carry[0], gen, HOIST_CHUNK, True)
-
-    def hoisted_epoch():
-        used[0] = (used[0] + 1) % HOIST_CHUNK
-        carry[0] = runner.epoch(carry[0], inputs[used[0]], True)[0]
-
-    keys = ("ms_per_epoch", "device_ms_per_epoch",
-            "host_ops_per_epoch", "device_launches_per_epoch")
-    prof = profile_epoch(per_epoch, 5)
-    prep = profile_epoch(prepare, 1)
-    ep = profile_epoch(hoisted_epoch, 5)
-    hoisted = {k: prep[k] / HOIST_CHUNK + ep[k] for k in keys}
-    hoisted["device_busy_share"] = hoisted["device_ms_per_epoch"] \
-        / hoisted["ms_per_epoch"]
-    profiles = {}
-    for mode, pr in (("per_epoch", prof), ("hoisted", hoisted)):
-        profiles[mode] = {k: pr[k] for k in keys + ("device_busy_share",)}
-    for mode, pr in (("per_epoch", prof), ("hoisted", ep)):
-        profiles[mode]["cells_fwd_device_ms_per_epoch"] = sum(
-            ms for name, ms in pr["top_kernels_ms_per_epoch"]
-            if "cells_fwd_kernel" in name)
-        profiles[mode]["top_kernels_ms_per_epoch"] = \
-            pr["top_kernels_ms_per_epoch"]
-    profiles["hoisted"]["chunk_inputs_per_chunk"] = {
-        k: prep[k] for k in keys + ("top_kernels_ms_per_epoch",)}
-    profiles["hoisted"]["cells_fwd_device_ms_per_epoch"] += sum(
-        ms for name, ms in prep["top_kernels_ms_per_epoch"]
-        if "cells_fwd_kernel" in name) / HOIST_CHUNK
-    return walls, profiles
+    return walls
 
 
 def target_grid_rc(device, rmix, rspec):
@@ -2782,20 +2812,18 @@ def target_grid_rc(device, rmix, rspec):
     return shapes
 
 
-MESH_SHAPES = ((1, 2), (2, 1))   # two ranks sharing the card over gloo,
-#                                  one launch laid out both ways
+MESH_SHAPES = ((1, 2),)   # two ranks sharing the card over gloo; 1x2
+#                           gives Ring-Collide's ranks the cells path
 
 
 def mesh_phases(tmp, ring_dir, device, card):
     """mesh_epoch and mesh_density (``mesh_check.check_epochs``): two ranks
     sharing the card over gloo (``launch(shared_device=True)``), laid out
-    as each of MESH_SHAPES in turn; the density step on the smoke's
+    as MESH_SHAPES (one layout); the density step on the smoke's
     Ring-Collide frame 1. Then mesh_cli (``mesh_check.cli_frame`` and,
     from a second thread meanwhile, ``cli_replay``): the entry points at
     --mesh 1x1 over NCCL, and at 2x1 where two GPUs are visible. Returns
     the ranks' launches by kernel, summed per path."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from gaussian_fluids_torch import mesh_check
 
     totals = mesh_check.check_epochs(
@@ -2818,6 +2846,365 @@ def mesh_phases(tmp, ring_dir, device, card):
         emit({"phase": "mesh_cli", "mesh": "2x1",
               "skipped": f"{torch.cuda.device_count()} visible GPU"})
     return totals
+
+
+class _Tee:
+    """stdout that also keeps its lines: the runs' own report lines (the
+    matplotlib line) are read back from them."""
+
+    def __init__(self, out):
+        self.out, self.lines, self.part = out, [], ""
+
+    def write(self, text):
+        self.out.write(text)
+        self.part += text
+        *done, self.part = self.part.split("\n")
+        self.lines += done
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def figures_2d(tmp, device, lines):
+    """The 2D figures' field sweeps (``simulate2d.figure_arrays``) on the
+    Leapfrog-2D frame 1: the velocity on the 30 x 30 grids of the
+    initialize and visualize domains, vorticity and divergence on the
+    200 x 200 grid, each against a float64 plain dense evaluation of the
+    same points within FIGURE_TOL of the largest entry; row 1's launches
+    by shape; and the 2D run's matplotlib line with its PNGs: without
+    matplotlib one line and no PNG, with it no line and the PNGs."""
+    from gaussian_fluids_torch.io import checkpoint, viz2d
+    from gaussian_fluids_torch.models.mixture import mixture_of
+    from gaussian_fluids_torch.ops import field, gsr_centered
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    from gaussian_fluids_torch.solver import simulate2d
+    from gaussian_fluids_torch.utils import analysis
+    from gaussian_fluids_torch.utils.grids import grid_points_2d
+
+    t0 = time.perf_counter()
+    d2 = os.path.join(tmp, "2d")
+    said = [ln for ln in lines if "matplotlib is not installed" in ln]
+    pngs = sorted(f for f in os.listdir(d2) if f.endswith(".png"))
+    have = viz2d.available()
+    if (have and (said or len(pngs) != 11)) or (not have and (
+            len(said) != 2 or pngs)):
+        raise AssertionError(f"figures_2d: matplotlib {have}, lines "
+                             f"{said}, PNGs {pngs}")
+    mix, spec = checkpoint.load_checkpoint(
+        os.path.join(d2, "gaussian_velocity_1.pt"), device=device)
+    scene = get_scene_2d("leapfrog")
+    gsr_centered.reset_launches()
+    arr = simulate2d.figure_arrays(mix, spec, scene)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    shapes = _shape_counts(gsr_centered.fwd_shapes)
+    launches = gsr_centered.launches["gsr_fwd"]
+    sf = scene.scaling_factor
+    x0i, x1i, y0i, y1i = scene.initialize_domain
+    x0v, x1v, y0v, y1v = scene.visualize_domain
+    xnv, ynv = scene.visualize_res
+    m64 = mixture_of({k: p.double() for k, p in mix.params().items()},
+                     mix.alive)
+
+    def dense64(pts):
+        x = torch.as_tensor(pts, dtype=torch.float64, device=device)
+        vs, js = [], []
+        with torch.no_grad():
+            for c in range(0, x.shape[0], 4096):
+                v, j = field.value_and_jac_dense(m64, spec, x[c:c + 4096])
+                vs.append(v)
+                js.append(j)
+        return torch.cat(vs).cpu().numpy(), torch.cat(js).cpu().numpy()
+
+    jac = dense64(grid_points_2d(x0v, x1v, y0v, y1v, xnv, ynv) * sf)[1]
+    want = {"vel_i": dense64(grid_points_2d(x0i * sf, x1i * sf, y0i * sf,
+                                            y1i * sf, 30, 30))[0],
+            "vel_v": dense64(grid_points_2d(x0v, x1v, y0v, y1v, 30,
+                                            30) * sf)[0] / sf,
+            "vor": analysis.curl2d_np(jac), "div": analysis.divergence_np(jac)}
+    errs = {k: compare(f"figures_2d {k}", [torch.as_tensor(arr[k])],
+                       [torch.as_tensor(w)], FIGURE_TOL)
+            for k, w in want.items()}
+    emit({"phase": "figures_2d", "seconds": time.perf_counter() - t0,
+          "sweep_seconds": sweep_s, "n_gaussians": mix.n_alive(),
+          "capacity": mix.capacity,
+          "arrays": {k: list(np.shape(arr[k])) for k in want},
+          "max_abs_err": {k: e for k, (e, _) in errs.items()},
+          "max_rel_err": {k: r for k, (_, r) in errs.items()},
+          "tolerance": FIGURE_TOL, "gsr_fwd_launches": launches,
+          "gsr_fwd_launches_by_shape": shapes,
+          "matplotlib": have, "matplotlib_lines": said, "pngs": pngs})
+
+
+def profile_phase(tmp):
+    """``advance2d --profile DIR`` for one short Leapfrog-2D frame from
+    the smoke's fit (PROFILE_EPOCHS a phase, the capture's window
+    PROFILE_SECONDS): the trace exists, parses as JSON and names the
+    forward kernel."""
+    from gaussian_fluids_torch import advance2d
+
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "profile")
+    os.makedirs(d)
+    shutil.copy(os.path.join(tmp, "2d", "gaussian_velocity_0.pt"), d)
+    trace_dir = os.path.join(tmp, "trace")
+    with env_set("GF_PROFILE_SECONDS", str(PROFILE_SECONDS)):
+        advance2d.main(["--init_cond", "leapfrog", "--dir", d, "--dt",
+                        ".025", "--last_time", ".025", "--max_epoch",
+                        str(PROFILE_EPOCHS), "--no_viz", "--profile",
+                        trace_dir])
+    run_s = time.perf_counter() - t0
+    path = os.path.join(trace_dir, "trace.json")
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    # the port's kernels by name (templated: "void gsr_fwd_kernel<2, 2>...")
+    kernels = {}
+    for n in names:
+        if re.search(r"(gsr|cells|rk4)_\w*kernel", n):
+            kernels[n] = kernels.get(n, 0) + 1
+    if not any("gsr_fwd_kernel" in n for n in kernels):
+        raise AssertionError(f"profile: no gsr_fwd_kernel in the trace "
+                             f"({len(events)} events)")
+    emit({"phase": "profile", "seconds": time.perf_counter() - t0,
+          "run_seconds": run_s, "epochs": PROFILE_EPOCHS,
+          "window_seconds": PROFILE_SECONDS,
+          "trace_bytes": os.path.getsize(path), "events": len(events),
+          "kernel_events": kernels})
+
+
+def _heads(d):
+    """The projection's two heads on (val, jac): vorticity (and the
+    value) and divergence, squared means."""
+    from gaussian_fluids_torch.solver import losses
+
+    def curl(j):
+        return losses.curl2d(j) if d == 2 else losses.curl3d(j)
+
+    return (lambda v, j: (curl(j) ** 2).mean() + (v ** 2).mean(),
+            lambda v, j: (losses.divergence(j) ** 2).mean())
+
+
+def backends(device, states):
+    """``value_and_jac`` and ``two_head_grads`` under GF_FIELD_BACKEND
+    auto, pallas, cells (2D: at d = 3 auto is the cells path already) and
+    sparse, on BACKEND_B sorted queries of each state: every mode against
+    auto within TOL of the largest entry (values, Jacobians, losses and
+    each gradient group), ms per call, the sparse oracle's fallbacks,
+    two sparse calls bitwise equal, each mode's launches by kernel."""
+    from gaussian_fluids_torch.ops import field, gsr_cells, gsr_centered
+    from gaussian_fluids_torch.ops import sparse
+
+    t0 = time.perf_counter()
+    out = {}
+    for tag, (mix, spec) in states.items():
+        d = spec.d
+        lo, hi = np.float32(spec.lo), np.float32(spec.hi)
+        x = np.random.RandomState(21).uniform(lo, hi, (BACKEND_B, d))
+        x = torch.as_tensor(x[np.argsort(x[:, 0])].astype(np.float32),
+                            device=device)
+        h1, h2 = _heads(d)
+        params = {k: p.detach() for k, p in mix.params().items()}
+
+        def vj():
+            return _flat(field.value_and_jac(mix, spec, x, presorted=True,
+                                             need_dx=False))
+
+        def th():
+            (l1, l2), (g1, g2) = field.two_head_grads(params, mix.alive,
+                                                      spec, x, h1, h2)
+            return [l1, l2] + [g[k] for g in (g1, g2) for k in sorted(g)]
+
+        modes = ("auto", "pallas") + (("cells",) if d == 2 else ()) \
+            + ("sparse",)
+        res, ref = {}, None
+        for mode in modes:
+            with env_set("GF_FIELD_BACKEND", mode):
+                sparse.reset_fallbacks()
+                gsr_centered.reset_launches()
+                gsr_cells.reset_launches()
+                got = (vj(), th())
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in {**gsr_centered.launches,
+                                              **gsr_cells.launches}.items()
+                            if v}
+                fallbacks = sparse.fallbacks()
+                rec = {"launches": launched, "sparse_fallbacks": fallbacks,
+                       "value_and_jac_ms": time_ms(vj, 5),
+                       "two_head_grads_ms": time_ms(th, 5)}
+                if mode == "sparse":
+                    again = (vj(), th())
+                    rec["bitwise_repeat"] = all(
+                        torch.equal(a, b) for a, b in zip(
+                            got[0] + got[1], again[0] + again[1]))
+                    if not rec["bitwise_repeat"]:
+                        raise AssertionError(f"backends {tag}: two sparse "
+                                             f"calls differ")
+            if ref is None:
+                ref = got
+            else:
+                rec["value_and_jac_err"] = compare(
+                    f"backends {tag} {mode} value_and_jac", got[0], ref[0],
+                    TOL)[1]
+                rec["two_head_grads_err"] = max(
+                    compare(f"backends {tag} {mode} two_head_grads[{i}]",
+                            [a], [b], TOL)[1]
+                    for i, (a, b) in enumerate(zip(got[1], ref[1])))
+            res[mode] = rec
+        out[tag] = {"B": BACKEND_B, "N": mix.capacity, "d": d,
+                    "modes": res}
+    emit({"phase": "backends", "seconds": time.perf_counter() - t0,
+          "tolerance": TOL, "states": out})
+
+
+def cells_2d(device, card):
+    """GF_FIELD_BACKEND=cells at d = 2: one Leapfrog-2D clone chunk and
+    one projection chunk of CELLS_2D_EPOCHS epochs on the seeded state
+    (warm Adam states, so a step is linear in its gradient), against the
+    same chunks on the default path from the same generators' draws:
+    parameters within TOL of each group's largest entry. Then each d = 2
+    instantiation of rows 5-7 at the Leapfrog-2D shape (B = 512,
+    N = 6144) against its plain twin, timed (median of 30), with its
+    bounds. Returns those kernels' entries, their launches being the
+    chunks' under the mode."""
+    from gaussian_fluids_torch.mesh_check import _warm_opt
+    from gaussian_fluids_torch.ops import field
+    from gaussian_fluids_torch.ops import gsr_cells as gk
+    from gaussian_fluids_torch.ops import gsr_centered as gc
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    from gaussian_fluids_torch.solver import clone, project
+    from gaussian_fluids_torch.solver.loop import hoist_default
+    from gaussian_fluids_torch.utils.seeded_state import leapfrog_state
+
+    t0 = time.perf_counter()
+    mix, spec, x = leapfrog_state(device, seed=91)
+    old, _, _ = leapfrog_state(device, seed=92)
+    adv = get_scene_2d("leapfrog").advance_domain
+    lo, hi = (-5.0, -5.0), (5.0, 5.0)
+
+    def chunks():
+        p = {k: v.clone() for k, v in mix.params().items()}
+        stop = torch.rand(mix.capacity, generator=torch.Generator(
+            device=device).manual_seed(3), device=device) > 0.5
+        cr = clone._clone_runner(spec, 512, lo, hi)
+        c = cr.run_chunk((p, _warm_opt(p, clone.DEFAULT_LRS_CLONE_2D),
+                          mix.alive, stop, old),
+                         torch.Generator(device=device).manual_seed(4),
+                         CELLS_2D_EPOCHS, hoist_default(x))
+        pr = project._runner_2d(spec, "leapfrog", project.ProjectWeights(),
+                                1.0, 512)
+        p = {k: v.clone() for k, v in mix.params().items()}
+        q = pr.run_chunk((p, _warm_opt(p, project.DEFAULT_LRS_2D),
+                          mix.alive, mix.positions + 0.01, old,
+                          torch.tensor(adv, device=device), 0.025),
+                         torch.Generator(device=device).manual_seed(5),
+                         CELLS_2D_EPOCHS, hoist_default(x))
+        torch.cuda.synchronize()
+        return c[0], q[0]
+
+    gk.reset_launches()
+    gc.reset_launches()
+    with env_set("GF_FIELD_BACKEND", "cells"):
+        got = chunks()
+    launches = dict(gk.launches)
+    centered_under_cells = dict(gc.launches)
+    cells_shapes = _cells_shapes()
+    want = chunks()
+    errs = {f"{phase} {k}": compare(f"cells_2d {phase} {k}", [g[k]], [w[k]],
+                                    TOL)[1]
+            for phase, g, w in (("clone", got[0], want[0]),
+                                ("project", got[1], want[1]))
+            for k in w}
+    chunk_s = time.perf_counter() - t0
+
+    # the d = 2 instantiations at the Leapfrog-2D shape
+    mix, spec, x = leapfrog_state(device)
+    clamp = spec.clamp_threshold
+    x_p, _, tmask, (rows, cols, gt, qt, ok), rad = field._cells_prep(
+        mix, spec, x)
+    if not int(ok):
+        raise AssertionError("the Leapfrog-2D work list overflowed")
+    mu_p, pp_p, v_p = field._padded_param_rows(mix, spec, gk.TN)
+    muT, ppT, v = (mu_p.T.contiguous(), pp_p.T.contiguous(),
+                   v_p.contiguous())
+    B, N = x_p.shape[0], muT.shape[1]
+    rng = np.random.RandomState(1)
+    dout = [torch.as_tensor(rng.randn(B, 6).astype(np.float32) / B,
+                            device=device) for _ in range(2)]
+    dout_val = torch.as_tensor(rng.randn(B, 2).astype(np.float32) / B,
+                               device=device)
+    live_tiles = int(tmask.sum())
+    live_pairs = live_tiles * gk.TB * gk.TN
+    support_pairs = _support_pairs(gc, tmask, x_p, muT, ppT, 2, clamp)
+    par_bytes = 4 * (x_p.numel() + muT.numel() + ppT.numel() + v.numel())
+    list_bytes = 2 * 4 * live_tiles
+    out_fwd, out_bwd = 4 * B * 6, 4 * N * (2 + 6 + 2)
+    lv, lt = (rows, cols, ok), (gt, qt, ok)
+    args = (tmask, x_p, muT, ppT, v)
+
+    def pair(kern, plain):
+        return (lambda: _flat(kern()), lambda: _flat(plain()))
+
+    cases = {
+        "cells_fwd": ("cells", "fwd",
+            [pair(lambda nj=nj: gk.cells_fwd(*lv, *args, clamp, nj, rad),
+                  lambda nj=nj: gk.cells_fwd_plain(*lv, *args, clamp, nj))
+             for nj in (2, 0)], out_fwd, list_bytes),
+        "cells_bwd_dn": ("cells", "bwd_dn",
+            [pair(lambda o=o, nj=nj: gk.cells_bwd_dn(*lt, *args, o, clamp,
+                                                     nj, rad),
+                  lambda o=o, nj=nj: gk.cells_bwd_dn_plain(*lt, *args, o,
+                                                           clamp, nj))
+             for nj, o in ((2, dout[0]), (0, dout_val))],
+            4 * dout[0].numel() + out_bwd, list_bytes),
+        "cells_bwd_dn2": ("cells", "bwd_dn2",
+            [pair(lambda uv=uv: gk.cells_bwd_dn2(*lt, *args, *dout, clamp,
+                                                 2, rad, use_val=uv),
+                  lambda uv=uv: gk.cells_bwd_dn2_plain(
+                      *lt, *args, *dout, clamp, 2, use_val=uv))
+             for uv in (False, True)],
+            4 * 2 * dout[0].numel() + 2 * out_bwd, list_bytes),
+    }
+    stats = _run_cases(cases, 2, live_pairs, support_pairs, par_bytes, True,
+                       tag="[d=2]")
+    for name, s_ in stats.items():
+        s_.update(shape="Leapfrog-2D", B=B, N=N,
+                  live_tile_fraction=live_tiles / tmask.numel(),
+                  launches=launches[name.split("[")[0]],
+                  launches_cells_2d={"cells_fwd": cells_shapes}
+                  if name.startswith("cells_fwd") else {})
+    stats["cells_fwd[d=2]"]["box_pairs"] = _box_pairs(tmask, x_p, muT, rad,
+                                                      gk.TB, gk.TN)
+    emit({"phase": "cells_2d", "seconds": time.perf_counter() - t0,
+          "chunk_seconds": chunk_s, "card": card, "epochs": CELLS_2D_EPOCHS,
+          "launches_under_cells": launches,
+          "centered_launches_under_cells": centered_under_cells,
+          "cells_fwd_launches_by_shape": cells_shapes,
+          "params_max_rel_err": errs, "tolerance": TOL,
+          "kernels": [{k: s_[k] for k in ("name", "max_abs_err",
+                                          "max_rel_err", "ms", "plain_ms",
+                                          "bound_ms", "walked_bound_ms",
+                                          "bound_by", "launches")}
+                      for s_ in stats.values()]})
+    return stats
+
+
+def mesh_error(card):
+    """MESH_ERROR_LAUNCHES launches of two ranks sharing the card over
+    gloo, rank 1 raising while rank 0 waits in a broadcast from it, side
+    by side: each must raise rank 1's own error. Returns the phase's line
+    (it runs beside other phases, from a thread, which must not print)."""
+    from gaussian_fluids_torch import mesh_check
+
+    t0 = time.perf_counter()
+    own = mesh_check.mesh_error("cuda:0", MESH_ERROR_LAUNCHES)
+    if own != MESH_ERROR_LAUNCHES:
+        raise AssertionError(f"mesh_error: {own} of {MESH_ERROR_LAUNCHES} "
+                             f"launches raised the failing rank's error")
+    return {"phase": "mesh_error", "seconds": time.perf_counter() - t0,
+            "beside": ["obstacle3d", "replay_vs_jax"], "card": card,
+            "launches": MESH_ERROR_LAUNCHES, "own_error": own}
 
 
 def main():
@@ -2882,7 +3269,11 @@ def main():
 
     tmp = tempfile.mkdtemp(prefix="gf_torch_smoke_")
     try:
-        launches_2d, shapes_2d = run_2d(os.path.join(tmp, "2d"))
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            launches_2d, shapes_2d = run_2d(os.path.join(tmp, "2d"))
+        figures_2d(tmp, device, tee.lines)
+        profile_phase(tmp)
         kmix, kspec, launches_karman, shapes_karman, rk4_shapes = \
             run_karman(os.path.join(tmp, "karman"))
         t0 = time.perf_counter()
@@ -2896,20 +3287,16 @@ def main():
         targets = hoist_targets(device, vp_mix, vp_spec)
         hoisted = kernels_hoisted(device, vp_mix, vp_spec)
         gsr_cells.reset_launches()
-        walls, profiles = hoist_ab(device)
+        walls = hoist_ab(device)
         overflows = gsr_cells.overflows()
         if any(overflows.values()) or not all(
                 hoisted[k]["list_ok"] for k in hoisted
                 if k.startswith("cells_fwd")):
             raise AssertionError(f"hoist: work lists overflowed "
                                  f"{overflows}")
-        emit({"phase": "epoch_3d", "config": "ring_collide",
-              "epoch": "project", "hoist": False,
-              **profiles["per_epoch"]})
         emit({"phase": "hoist", "seconds": time.perf_counter() - t0,
               "card": card, "targets": targets, "kernels": hoisted,
               "projection_epoch_wall_pccp": walls,
-              "projection_epoch_profiles": profiles,
               "cells_overflows": overflows})
         lmix, lspec = checkpoint.load_checkpoint(
             os.path.join(tmp, "3d", "leapfrog", "gaussian_velocity_1.pt"),
@@ -2935,14 +3322,25 @@ def main():
               time.perf_counter() - t0, "card": card,
               "checkpoint": "3d/ring_collide/gaussian_velocity_1.pt",
               "kernels": fitted_rc})
+        backends(device, {"ring_collide": (rmix, rspec),
+                          "leapfrog_2d": checkpoint.load_checkpoint(
+                              os.path.join(tmp, "2d",
+                                           "gaussian_velocity_1.pt"),
+                              device=device)})
+        stats_c2 = cells_2d(device, card)
         grid_shapes = target_grid_rc(device, rmix, rspec)
         ring = os.path.join(tmp, "3d", "ring_collide")
         launches_density = run_density(ring)
         check_density(ring, device)
         launches_512 = density_512(ring, device)
-        launches_obstacle, shapes_obstacle = run_obstacle(
-            os.path.join(tmp, "obstacle"), device)
-        launches_replay = replay_vs_jax(device)
+        # the failing ranks' launches spend their time starting processes:
+        # they run beside two single-process phases
+        with ThreadPoolExecutor(1) as pool:
+            failing = pool.submit(mesh_error, card)
+            launches_obstacle, shapes_obstacle = run_obstacle(
+                os.path.join(tmp, "obstacle"), device)
+            launches_replay = replay_vs_jax(device)
+            emit(failing.result())
         t0 = time.perf_counter()
         launches_mesh = mesh_phases(tmp, ring, device, card)
         emit({"phase": "mesh", "seconds": time.perf_counter() - t0})
@@ -3009,13 +3407,16 @@ def main():
                 if path else 0
             s["launches_mesh"] = {path: n} if path else {}
             s["launches"] += n
-    missing = [n for n, s in {**stats, **stats3, **stats_d,
-                              **stats_r}.items() if s["launches"] == 0]
+    for s in stats_c2.values():
+        s["launches_mesh"] = {}
+    missing = [n for n, s in {**stats, **stats3, **stats_d, **stats_r,
+                              **stats_c2}.items() if s["launches"] == 0]
     if missing:
         raise AssertionError(f"not launched on their main path: {missing}")
     print(f"total seconds: {time.perf_counter() - t_all:.1f}")
     emit({"kernels": list(stats.values()) + list(stats3.values())
-           + list(stats_d.values()) + list(stats_r.values())})
+           + list(stats_c2.values()) + list(stats_d.values())
+           + list(stats_r.values())})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,28 +3,35 @@
     python -m gaussian_fluids_torch.advance2d --init_cond leapfrog \
         --dir D --dt .025 --last_time 40 [--mesh BxG]
 
-``--mesh`` runs the frame loop on B x G ranks (``parallel/mesh.py``).
+``--mesh`` runs the frame loop on B x G ranks (``parallel/mesh.py``);
+``--profile DIR`` traces the run (under ``--mesh`` each rank into
+``DIR/rank{r}/``).
 """
 
 from gaussian_fluids_torch.cli import parse_args_2d
 from gaussian_fluids_torch.parallel.mesh import launch, mesh_from_shape
 from gaussian_fluids_torch.solver.simulate2d import advance_2d
+from gaussian_fluids_torch.utils.profiling import maybe_trace, rank_dir
 
 
-def _rank_main(mesh, args, kwargs):
-    return advance_2d(*args, **kwargs, mesh=mesh)
+def _rank_main(mesh, args, kwargs, profile=None):
+    with maybe_trace(rank_dir(profile, mesh.rank), mesh.device):
+        return advance_2d(*args, **kwargs, mesh=mesh)
 
 
 def main(argv=None):
     args = parse_args_2d(argv, default_max_epoch=20000)
     run = (args.init_cond, args.dir, args.dt, args.last_time)
     kwargs = dict(start_frame=args.start_frame, max_epoch=args.max_epoch,
-                  seed=args.seed, target_grid_res=args.target_grid)
+                  seed=args.seed, viz=not args.no_viz,
+                  target_grid_res=args.target_grid)
     if args.mesh:
         shape = mesh_from_shape(args.mesh, args.target_grid, args.device)
-        return launch(_rank_main, shape, (run, kwargs),
-                      device=args.device)[0]
-    return advance_2d(*run, **kwargs, device=args.device)
+        # each rank traces itself, the launching process nothing
+        rank_args = (run, kwargs) + ((args.profile,) if args.profile else ())
+        return launch(_rank_main, shape, rank_args, device=args.device)[0]
+    with maybe_trace(args.profile, args.device):
+        return advance_2d(*run, **kwargs, device=args.device)
 
 
 if __name__ == "__main__":

@@ -3,16 +3,20 @@
     python -m gaussian_fluids_torch.advance3d --init_cond ring_collide \
         --dir D --dt .02 --last_time 1 [--mesh BxG]
 
-``--mesh`` runs the frame loop on B x G ranks (``parallel/mesh.py``).
+``--mesh`` runs the frame loop on B x G ranks (``parallel/mesh.py``);
+``--profile DIR`` traces the run (under ``--mesh`` each rank into
+``DIR/rank{r}/``).
 """
 
 from gaussian_fluids_torch.cli import parse_args_3d
 from gaussian_fluids_torch.parallel.mesh import launch, mesh_from_shape
 from gaussian_fluids_torch.solver.simulate3d import advance_3d
+from gaussian_fluids_torch.utils.profiling import maybe_trace, rank_dir
 
 
-def _rank_main(mesh, args, kwargs):
-    return advance_3d(*args, **kwargs, mesh=mesh)
+def _rank_main(mesh, args, kwargs, profile=None):
+    with maybe_trace(rank_dir(profile, mesh.rank), mesh.device):
+        return advance_3d(*args, **kwargs, mesh=mesh)
 
 
 def main(argv=None):
@@ -23,9 +27,11 @@ def main(argv=None):
                   viz=not args.no_viz, target_grid_res=args.target_grid)
     if args.mesh:
         shape = mesh_from_shape(args.mesh, args.target_grid, args.device)
-        return launch(_rank_main, shape, (run, kwargs),
-                      device=args.device)[0]
-    return advance_3d(*run, **kwargs, device=args.device)
+        # each rank traces itself, the launching process nothing
+        rank_args = (run, kwargs) + ((args.profile,) if args.profile else ())
+        return launch(_rank_main, shape, rank_args, device=args.device)[0]
+    with maybe_trace(args.profile, args.device):
+        return advance_3d(*run, **kwargs, device=args.device)
 
 
 if __name__ == "__main__":

@@ -7,16 +7,20 @@ densities through the saved velocity checkpoints of a 3D run and writes
 
 The grid is the scene's ``visualize_res`` times the multiplier (512^3 for
 ring_collide by default). Runs on the card unless ``--device cpu``;
-``--mesh BxG`` shards each step over B x G ranks (``parallel/density.py``).
+``--mesh BxG`` shards each step over B x G ranks (``parallel/density.py``);
+``--profile DIR`` traces the replay (under ``--mesh`` each rank into
+``DIR/rank{r}/``).
 """
 
 from gaussian_fluids_torch.cli import parse_args_3d
 from gaussian_fluids_torch.parallel.mesh import launch, mesh_from_shape
 from gaussian_fluids_torch.solver.simulate3d import advance_density
+from gaussian_fluids_torch.utils.profiling import maybe_trace, rank_dir
 
 
-def _rank_main(mesh, args, kwargs):
-    return advance_density(*args, **kwargs, mesh=mesh)
+def _rank_main(mesh, args, kwargs, profile=None):
+    with maybe_trace(rank_dir(profile, mesh.rank), mesh.device):
+        return advance_density(*args, **kwargs, mesh=mesh)
 
 
 def main(argv=None):
@@ -26,9 +30,11 @@ def main(argv=None):
                   start_frame=args.start_frame)
     if args.mesh:
         shape = mesh_from_shape(args.mesh, device=args.device)
-        return launch(_rank_main, shape, (run, kwargs),
-                      device=args.device)[0]
-    return advance_density(*run, **kwargs, device=args.device)
+        # each rank traces itself, the launching process nothing
+        rank_args = (run, kwargs) + ((args.profile,) if args.profile else ())
+        return launch(_rank_main, shape, rank_args, device=args.device)[0]
+    with maybe_trace(args.profile, args.device):
+        return advance_density(*run, **kwargs, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,17 @@
 """Command-line flags of the entry points — the JAX package's
 ``cli.parse_args_2d`` / ``parse_args_3d`` flag surface, with the same
-defaults. In 3D, ``--no_viz`` switches off the ``.vti`` volumes, which are
-written by default as the JAX CLI writes them (every one of its files but
-the loss-curve figure ``loss_{n}.png``, not ported yet). The 2D figures
-are not ported yet: 2D always runs as the JAX CLI does under
-``--no_viz``. ``--target_grid`` reaches the advance entry points' clone
-and projection; the initialize entry points accept it and, as the JAX
-CLI's, do not use it. ``--mesh BxG`` runs the advance entry points on a
-B x G mesh of ranks (``parallel/``): one GPU each over NCCL, or with
+defaults. ``--no_viz`` switches off what the JAX CLI draws by default: in
+2D the reference figures and every frame's PNGs, in 3D the ``.vti``
+volumes and the loss curves ``loss_{n}.png``. Where matplotlib is missing
+(the card's machine has none) a run prints one line saying so and draws
+no PNG; the volumes and the curves' collection go on
+(``io/viz2d.py``). ``--target_grid`` reaches the advance entry points'
+clone and projection; the initialize entry points accept it and, as the
+JAX CLI's, do not use it. ``--mesh BxG`` runs the advance entry points on
+a B x G mesh of ranks (``parallel/``): one GPU each over NCCL, or with
 ``--device cpu`` B*G gloo processes; the initialize entry points accept
-it and, as the JAX CLI's, do not use it. ``--profile`` is refused.
+it and, as the JAX CLI's, do not use it. ``--profile DIR`` records a
+``torch.profiler`` trace of the run (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ import argparse
 def _parser(dim: int) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=f"Gaussian Fluids {dim}D in PyTorch on one NVIDIA GPU. "
-                    + ("Runs without figures, as the JAX CLI does under "
-                       "--no_viz." if dim == 2 else
-                       "Writes the JAX CLI's .vti volumes unless --no_viz "
-                       "(not yet its loss_{n}.png figures)."))
+                    + ("Draws the JAX CLI's figures (PNG) unless --no_viz."
+                       if dim == 2 else
+                       "Writes the JAX CLI's .vti volumes and loss_{n}.png "
+                       "curves unless --no_viz.")
+                    + " Without matplotlib no PNG is drawn, and the run "
+                      "says so in one line.")
     p.add_argument("--device", type=str, default="0",
                    help="'cpu' runs on the CPU; an index K runs on "
                         "cuda:K (default: the first GPU)")
@@ -60,15 +64,21 @@ def _parser(dim: int) -> argparse.ArgumentParser:
                         "--device on (NCCL), or B*G processes with "
                         "--device cpu (gloo). Not with --target_grid")
     p.add_argument("--no_viz", action="store_true",
-                   help="accepted for compatibility: 2D figures are never "
-                        "drawn by this port"
+                   help="draw no figures (by default: the reference "
+                        "figures and every frame's vorticity, divergence "
+                        "and velocity PNGs)"
                         if dim == 2 else
-                        "write no .vti volumes (by default: the analytic "
-                        "field's four reference volumes and every frame's "
-                        "vorticity and divergence)")
+                        "write no .vti volumes and no loss curves (by "
+                        "default: the analytic field's four reference "
+                        "volumes, every frame's vorticity and divergence, "
+                        "and loss_{n}.png)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--profile", type=str, default=None,
-                   help="tracing is not ported; must be unset")
+                   help="write a torch.profiler trace of the run into "
+                        "DIR/trace.json (the first GF_PROFILE_SECONDS "
+                        "seconds, default 300, 0 = all of it); under "
+                        "--mesh each rank traces itself into DIR/rank{r}/ "
+                        "and the launching process traces nothing")
     return p
 
 
@@ -98,8 +108,6 @@ def _parse(dim, argv, default_max_epoch):
     if args.max_epoch is None:
         args.max_epoch = default_max_epoch
     args.mesh = parse_mesh(args.mesh)
-    if args.profile:
-        p.error("--profile is not ported yet")
     args.device = device_of(args.device)
     return args
 

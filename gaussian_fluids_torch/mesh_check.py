@@ -409,7 +409,7 @@ def cli_frame(start, single, out_dir, mesh, card, epochs):
     _, _, frames = advance2d.main(
         ["--init_cond", "leapfrog", "--dir", out_dir, "--dt", ".025",
          "--last_time", ".025", "--max_epoch", str(epochs), "--mesh",
-         mesh])
+         mesh, "--no_viz"])
     wall = time.perf_counter() - t0
     f = frames[0]
     vals = list(f["clone"].values()) + list(f["project"].values())
@@ -468,6 +468,37 @@ def cli_replay(start, single_dir, out_dir, mesh, card):
           "tolerance": DENSITY_TOL})
 
 
+def failing_rank(mesh):
+    """Rank 1 raises while rank 0 waits in a broadcast from it: the launch
+    must raise rank 1's own error (the smoke's ``mesh_error``)."""
+    from gaussian_fluids_torch.parallel import collectives
+    if mesh.rank == 1:
+        raise RuntimeError("rank 1 failed")
+    collectives.broadcast(torch.zeros(1, device=mesh.device), mesh, src=1)
+
+
+def mesh_error(device, launches=3):
+    """``launches`` launches of :func:`failing_rank` on two ranks sharing
+    ``device`` over gloo, side by side from as many threads: how many
+    raised rank 1's own error (all must)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.multiprocessing as tmp
+
+    from gaussian_fluids_torch.parallel.mesh import launch
+
+    def one(_):
+        try:
+            launch(failing_rank, (1, 2), device=device, shared_device=True,
+                   timeout=300)
+        except tmp.ProcessRaisedException as e:
+            return "rank 1 failed" in str(e) and "RuntimeError" in str(e)
+        return False
+
+    with ThreadPoolExecutor(launches) as pool:
+        return sum(pool.map(one, range(launches)))
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -499,12 +530,12 @@ def main(argv=None):
     try:
         fit2, fit3 = os.path.join(tmp, "lf"), os.path.join(tmp, "rc")
         initialize2d.main(["--init_cond", "leapfrog", "--dir", fit2,
-                           "--max_epoch", str(FIT_EPOCHS)])
+                           "--max_epoch", str(FIT_EPOCHS), "--no_viz"])
         start2 = os.path.join(tmp, "lf_start.pt")
         shutil.copy(os.path.join(fit2, "gaussian_velocity_0.pt"), start2)
         advance2d.main(["--init_cond", "leapfrog", "--dir", fit2, "--dt",
                         ".025", "--last_time", ".025", "--max_epoch",
-                        str(FRAME_EPOCHS)])
+                        str(FRAME_EPOCHS), "--no_viz"])
         initialize3d.main(["--init_cond", "ring_collide", "--dir", fit3,
                            "--max_epoch", str(FIT_EPOCHS), "--no_viz"])
         advance_density3d.main(["--init_cond", "ring_collide", "--dir",

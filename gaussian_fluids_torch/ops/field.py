@@ -19,6 +19,11 @@ points in place of its TPU test:
   * on the CPU, the dense path: the quadratic form as one (B, F) @ (F, N)
     matmul over polynomial features, as the JAX package's dense backend
     computes it, so CPU runs of both packages agree closely.
+That is the default, ``GF_FIELD_BACKEND=auto``. As in the JAX package the
+variable forces a path: ``dense`` the dense path, ``pallas`` the centered
+path, ``cells`` the work-list path at any d (for the calls the auto rule
+would give it: value-only and two-head evaluations), ``sparse`` the
+cell-list oracle of ``ops/sparse.py``, on the card as on the CPU.
 The centered and cells functions also run on the CPU (through the kernels'
 plain twins), which is how the tests hold them against the JAX Pallas
 kernels. ``need_dx`` is the JAX signature's: it is False where the caller
@@ -51,7 +56,7 @@ from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.models.mixture import (GaussianMixture,
                                                   mixture_of)
 from gaussian_fluids_torch.ops import (gsr_banded, gsr_cells, gsr_centered,
-                                       rk4_fused, spatial)
+                                       rk4_fused, sparse, spatial)
 from gaussian_fluids_torch.ops import rotations as rotations_ops
 from gaussian_fluids_torch.utils.grids import default_chunk
 
@@ -61,15 +66,54 @@ _MIN_B = 256              # below one TPU query tile the JAX package goes dense
 _CELLS_MIN_BN = 1 << 26   # below this B*N, list preparation outweighs
 
 
-def _use_kernel(x: torch.Tensor) -> bool:
+# Backend selection, as the JAX package's: "auto" (the default), or
+# "dense", "pallas" (the centered path), "cells" (the work-list path) or
+# "sparse" (the cell-list oracle, ops/sparse.py) through GF_FIELD_BACKEND.
+_BACKEND_ENV = "GF_FIELD_BACKEND"
+
+
+def _mode() -> str:
+    return os.environ.get(_BACKEND_ENV, "auto")
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lies on the card: there a kernel path launches its
+    CUDA kernels, on the CPU it runs their plain twins."""
     return x.is_cuda
+
+
+def _use_kernel(x: torch.Tensor) -> bool:
+    """Whether this call takes the centered kernel path: the JAX package's
+    ``_use_pallas``, with a tensor on the card in place of its TPU test.
+    ``pallas`` always, ``dense`` and ``sparse`` never; otherwise (``auto``,
+    ``cells``) on the card, at every size. This one decision also gates
+    the batches' sorting, the boundary batches' presort and the fused RK4
+    target, as the JAX package's call sites do."""
+    mode = _mode()
+    if mode in ("dense", "sparse"):
+        return False
+    if mode == "pallas":
+        return True
+    return _on_card(x)
+
+
+def _use_sparse(x: torch.Tensor) -> bool:
+    """The cell-list oracle: ``GF_FIELD_BACKEND=sparse`` only, never in
+    the auto ladder."""
+    return _mode() == "sparse"
 
 
 def _use_cells(x: torch.Tensor, n: int, d: int) -> bool:
     """The JAX package's cells dispatch, with the card in place of its
-    TPU test."""
+    TPU test: ``cells`` at any d, on or off the card; in ``auto`` 3D
+    on the card with B >= 256 and B*N >= 2^26; never in another mode."""
+    mode = _mode()
+    if mode == "cells":
+        return True
+    if mode != "auto":
+        return False
     b = x.shape[0]
-    return d == 3 and x.is_cuda and b >= _MIN_B and b * n >= _CELLS_MIN_BN
+    return d == 3 and _on_card(x) and b >= _MIN_B and b * n >= _CELLS_MIN_BN
 
 
 CELLS_FULL_LIST = 1 << 20   # tile pairs: up to here a list holds them all
@@ -183,6 +227,17 @@ def coverage(mix: GaussianMixture, spec: FieldSpec,
     mg, mask, _, _ = masked_kernel(mix, spec, x)
     return torch.where(mask, mg - spec.clamp_threshold,
                        torch.zeros_like(mg)).sum(dim=-1)
+
+
+def value_dense_oracle(mix: GaussianMixture, spec: FieldSpec,
+                       x: torch.Tensor) -> torch.Tensor:
+    """The reference's slow dense sum, with no clamp truncation: every
+    alive Gaussian's v_i g_i, a differential-testing oracle."""
+    P = mix.precisions()
+    delta = x[:, None, :] - mix.positions[None, :, :]
+    quad = torch.einsum("bni,nij,bnj->bn", delta, P, delta)
+    g = torch.exp(-0.5 * quad) * mix.alive[None, :]
+    return g @ mix.values
 
 
 def neighbor_mark(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
@@ -518,6 +573,8 @@ def value(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
           presorted: bool = False, need_dx: bool = True) -> torch.Tensor:
     """u(x): (B, vdim). ``presorted`` promises x ascends in coordinate 0
     (an untrue promise only loosens the tile mask, never correctness)."""
+    if _use_sparse(x):
+        return sparse.value_sparse(mix, spec, x)
     if not need_dx and _use_cells(x, mix.capacity, mix.d):
         return _cells_value_jac(mix, spec, x, 0, presorted=presorted)[0]
     if _use_kernel(x):
@@ -528,6 +585,8 @@ def value(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
 def value_and_jac(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
                   presorted: bool = False, need_dx: bool = True):
     """(u(x), du/dx): shapes (B, vdim) and (B, vdim, d)."""
+    if _use_sparse(x):
+        return sparse.value_and_jac_sparse(mix, spec, x)
     if not need_dx and _use_cells(x, mix.capacity, mix.d):
         return _cells_value_jac(mix, spec, x, mix.d, presorted=presorted)
     if _use_kernel(x):
@@ -646,6 +705,9 @@ def two_head_grads(params, alive, spec: FieldSpec, x: torch.Tensor,
     coordinate 0 on the card. On the dense path the two gradients are two
     autograd pullbacks of one forward."""
     cap = params["positions"].shape[0]
+    if _use_sparse(x):
+        return sparse.two_head_grads_sparse(params, alive, spec, x, head1,
+                                            head2)
     if _use_cells(x, cap, spec.d):
         return two_head_grads_cells(params, alive, spec, x, head1, head2)
     if _use_kernel(x):

@@ -22,10 +22,12 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import pickle
 import shutil
 import sys
 import tempfile
 import time
+import traceback
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,6 +36,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 COLLECTIVE_TIMEOUT_S = 900.0   # a collective that waits longer fails the run
+GRACE_S = 10.0   # after a rank fails, how long the others get to exit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,9 +150,27 @@ def build_kernels():
                      gsr_banded.SOURCE, rk4_fused.SOURCE)
 
 
+def _record_error(tmp, rank, exc, caught):
+    """Write this rank's error record (rank, the monotonic time it was
+    caught, type, message, formatted traceback) into the launch's
+    directory; written whole through a rename, so :func:`launch` never
+    reads half a record."""
+    rec = {"rank": rank, "caught": caught, "type": type(exc).__name__,
+           "message": str(exc),
+           "traceback": "".join(traceback.format_exception(exc))}
+    path = os.path.join(tmp, f"error{rank}.pkl")
+    with open(path + ".part", "wb") as fh:
+        pickle.dump(rec, fh)
+    os.replace(path + ".part", path)
+
+
 def _worker(rank, fn, args, shape, devices, backend, tmp, threads):
     """One rank: join the process group, build the mesh, run
-    ``fn(mesh, *args)`` and save what it returns for :func:`launch`."""
+    ``fn(mesh, *args)`` and save what it returns for :func:`launch`.
+
+    A rank that raises records its error before it leaves the process
+    group: leaving closes its transport pairs, so a peer that waits in a
+    collective fails next, and its record carries a later time."""
     if threads:
         torch.set_num_threads(threads)
     if rank:
@@ -158,17 +179,55 @@ def _worker(rank, fn, args, shape, devices, backend, tmp, threads):
     device = torch.device(devices[rank])
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(
-        backend, init_method="file://" + os.path.join(tmp, "rendezvous"),
-        world_size=n_batch * n_gauss, rank=rank,
-        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     try:
+        dist.init_process_group(
+            backend, init_method="file://" + os.path.join(tmp, "rendezvous"),
+            world_size=n_batch * n_gauss, rank=rank,
+            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
         out = fn(_make_mesh(shape, rank, device, backend), *args)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    except BaseException as exc:
+        _record_error(tmp, rank, exc, time.monotonic())
+        raise
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _first_error(tmp, n):
+    """The earliest-caught of the ranks' error records, or None where no
+    rank left one (a rank killed by a signal, for example)."""
+    recs = []
+    for r in range(n):
+        path = os.path.join(tmp, f"error{r}.pkl")
+        if os.path.exists(path):
+            with open(path, "rb") as fh:
+                recs.append(pickle.load(fh))
+    return min(recs, key=lambda rec: rec["caught"]) if recs else None
+
+
+def _join(ctx, deadline, tmp, n) -> bool:
+    """``ctx.join`` until ``deadline``. Where a rank failed, the others get
+    ``GRACE_S`` seconds to exit and are then killed, and the error raised
+    is the earliest rank's own: ``ctx.join`` raises for whichever failed
+    process it reads first, often a peer whose collective broke when the
+    failing rank left. Its own exception stands only where no rank left
+    a record (a segfault)."""
+    try:
+        return ctx.join(None if deadline is None else
+                        max(0.0, deadline - time.monotonic()),
+                        grace_period=GRACE_S)
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+        rec = _first_error(tmp, n)
+        if rec is None:
+            raise
+        proc = ctx.processes[rec["rank"]]
+        raise mp.ProcessRaisedException(
+            f"\n\n-- Rank {rec['rank']} terminated with the following "
+            f"error ({rec['type']}: {rec['message']}):\n"
+            f"{rec['traceback']}", rec["rank"], proc.pid) from exc
 
 
 def launch(fn, mesh_shape, args=(), device="cuda",
@@ -186,7 +245,9 @@ def launch(fn, mesh_shape, args=(), device="cuda",
     through a file store in a temporary directory; a collective that waits
     more than ``COLLECTIVE_TIMEOUT_S`` seconds fails; a rank that fails
     ends every rank and raises here; past ``timeout`` seconds (None: no
-    limit) the ranks are killed and TimeoutError raised. ``threads`` sets
+    limit) the ranks are killed and TimeoutError raised. The error raised
+    for a failed run is that of the rank that failed first (each rank
+    records its error and the time it caught it, ``_join``). ``threads`` sets
     each rank's ``torch.set_num_threads`` (CPU ranks default to an equal
     share of the launching process's ``torch.get_num_threads()``)."""
     n_batch, n_gauss = mesh_shape
@@ -213,8 +274,7 @@ def launch(fn, mesh_shape, args=(), device="cuda",
                            backend, tmp, threads),
             nprocs=n, join=False, start_method="spawn")
         deadline = None if timeout is None else time.monotonic() + timeout
-        while not ctx.join(None if deadline is None else
-                           max(0.0, deadline - time.monotonic())):
+        while not _join(ctx, deadline, tmp, n):
             if deadline is not None and time.monotonic() >= deadline:
                 for p in ctx.processes:
                     if p.is_alive():

@@ -6,6 +6,9 @@ backtrace leaves the advance domain (2D vorticity is materially
 conserved). The projection's data loss is evaluated at the ORIGINAL sample
 positions, as in the reference.
 
+``advected_vorticity_2d_rk1`` is the reference's one-step backtrace,
+kept as in the JAX package; no solver path calls it.
+
 3D: the RK4 backtrace carries the deformation gradient dpsi of the flow
 map; the vorticity is pulled back through it, omega = (dpsi)^{-1} omega_b,
 and the helicity target is hel = v_b . omega_b.
@@ -52,6 +55,19 @@ def advected_vorticity_2d(vel_mix: GaussianMixture, spec: FieldSpec,
                               need_dx=False), x, -dt)
     _, dv = field.value_and_jac(vel_mix, spec, bk_x, presorted=presorted,
                                 need_dx=False)
+    return _finish_2d(bk_x, dv, adv_lo, adv_hi)
+
+
+@torch.no_grad()
+def advected_vorticity_2d_rk1(vel_mix: GaussianMixture, spec: FieldSpec,
+                              x: torch.Tensor, dt, adv_lo,
+                              adv_hi) -> torch.Tensor:
+    """The reference's alternative "rk1-backtrace" scheme, which no run
+    takes by default: the one-step backtrace x - u(x) dt, then the
+    curl there, as ``advected_vorticity_2d``."""
+    v = field.value(vel_mix, spec, x, need_dx=False)
+    bk_x = x - v * dt
+    _, dv = field.value_and_jac(vel_mix, spec, bk_x)
     return _finish_2d(bk_x, dv, adv_lo, adv_hi)
 
 

@@ -18,6 +18,7 @@ from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.models.mixture import GaussianMixture, mixture_of
 from gaussian_fluids_torch.ops import field
 from gaussian_fluids_torch.solver import losses, optim
+from gaussian_fluids_torch.utils import profiling
 
 FIT_LRS_2D = {"positions": 1.6e-3, "scalings": 5e-2, "rotations": 5e-2,
               "values": 5e-3}
@@ -92,4 +93,6 @@ def fit_velocity_with_gradient(mix: GaussianMixture, spec: FieldSpec,
                   f"divergence constraint: {a[4]:.6f}")
             print("time:", time.time() - st)
             st = time.time()
+        if done % log_every == 0:
+            profiling.poll()
     return mix.with_params(carry[0])

@@ -23,6 +23,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from gaussian_fluids_torch.ops import field, spatial
+from gaussian_fluids_torch.utils import profiling
 from gaussian_fluids_torch.utils.grids import sweep_group
 
 
@@ -57,6 +58,7 @@ def run_chunked(carry, dispatch, max_epoch: int, check_iter: int,
         if not all(math.isfinite(float(v)) for v in mh):
             raise FloatingPointError(
                 f"[{tag}] non-finite test metrics after {done} epochs: {mh}")
+        profiling.poll()
         if on_chunk(mh, n):
             print(f"[{tag}] Total epoch:", done)
             return carry, done
@@ -67,15 +69,19 @@ def run_chunked(carry, dispatch, max_epoch: int, check_iter: int,
 
 
 def run_chunk(epoch, chunk_inputs, carry, gen, n: int, hoist: bool = False,
-              tgt: Optional[torch.Tensor] = None):
+              tgt: Optional[torch.Tensor] = None,
+              auxes: Optional[list] = None):
     """n epochs on the inputs ``chunk_inputs`` draws for them, all first
     (the epochs draw nothing), in the JAX package's three target modes:
     per epoch (no targets: each epoch computes its own), hoisted (the
     batches sorted, their exact targets in ``sweep_group`` sweeps), or
     interpolated from ``tgt``, the grid of exact targets computed once a
-    projection or clone. Returns the carry."""
+    projection or clone. Returns the carry; each epoch's aux (its train
+    losses, on the device) is appended to ``auxes`` where one is given."""
     for xs in chunk_inputs(carry, gen, n, hoist, tgt):
-        carry, _ = epoch(carry, xs, presorted=hoist and tgt is None)
+        carry, aux = epoch(carry, xs, presorted=hoist and tgt is None)
+        if auxes is not None:
+            auxes.append(aux)
     return carry
 
 
@@ -96,17 +102,19 @@ class Runner(NamedTuple):
     sample: Optional[Callable] = None
 
     def run_chunk(self, carry, gen, n: int, hoist: bool = False,
-                  tgt: Optional[torch.Tensor] = None):
+                  tgt: Optional[torch.Tensor] = None,
+                  auxes: Optional[list] = None):
         """:func:`run_chunk` on this config's epoch."""
         return run_chunk(self.epoch, self.chunk_inputs, carry, gen, n, hoist,
-                         tgt)
+                         tgt, auxes)
 
 
 def hoist_default(x: torch.Tensor) -> bool:
     """The JAX package's gate of the exact-target hoist, with the card in
-    place of its accelerator: on where the field runs on a kernel (``x``
-    on the card), unless ``GF_HOIST_TARGETS=0``."""
-    return field._use_kernel(x) and \
+    place of its accelerator: on where the field takes the centered
+    kernel path (``field._use_kernel``: by default ``x`` on the card) or
+    the sparse oracle, unless ``GF_HOIST_TARGETS=0``."""
+    return (field._use_kernel(x) or field._use_sparse(x)) and \
         os.environ.get("GF_HOIST_TARGETS", "1") != "0"
 
 

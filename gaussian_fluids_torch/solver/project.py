@@ -22,6 +22,7 @@ interpolated from a grid of exact targets computed once a projection
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, NamedTuple, Optional
 
@@ -456,10 +457,16 @@ def project_3d(mix: GaussianMixture, spec: FieldSpec,
                lrs: Optional[Dict[str, float]] = None,
                batch_size: int = 8192, max_epoch: int = 3000,
                patience: int = 500, check_iter: int = 100,
-               verbose: int = 1, target_grid_res: int = 0):
+               verbose: int = 1, target_grid_res: int = 0,
+               collect_curves: bool = False):
     """3D projection. Returns (new mixture, the last test metrics keyed by
     ``METRIC_NAMES_3D``). ``target_grid_res`` and the hoist as in
-    :func:`project_2d`, the grid res^3 and trilinear."""
+    :func:`project_2d`, the grid res^3 and trilinear. With
+    ``collect_curves`` it returns (new mixture, metrics, curves), the
+    curves of the reference's loss_{frame}.png as the JAX package
+    collects them: per epoch ``train_vor``, ``train_div`` and ``log_lr``
+    (the natural log of the scalings group's lr at the chunk's end), per
+    chunk ``test_vor`` and ``test_div``."""
     if lrs is None:
         lrs = dict(DEFAULT_LRS_3D)
     x_min, x_max, y_min, y_max, z_min, z_max = domain
@@ -488,15 +495,27 @@ def project_3d(mix: GaussianMixture, spec: FieldSpec,
         print(f"[projection] {line(metrics(carry))}")
 
     pats = [Patience(t) for t in PATIENCE_REL_3D]
+    curves = {"train_vor": [], "train_div": [], "log_lr": [],
+              "test_vor": [], "test_div": []}
     st = time.time()
 
     def dispatch(c, n):
-        c = runner.run_chunk(c, gen, n, hoist, tgt)
+        auxes = [] if collect_curves else None
+        c = runner.run_chunk(c, gen, n, hoist, tgt, auxes)
+        if collect_curves:
+            aux = torch.stack(auxes).cpu().numpy()
+            curves["train_vor"].extend(aux[:, 0].tolist())
+            curves["train_div"].extend(aux[:, 1].tolist())
+            lr = float(c[1].groups["scalings"].lr)
+            curves["log_lr"].extend([math.log(lr)] * n)
         return c, metrics(c)
 
     def on_chunk(mh, n):
         nonlocal st
         last.update(zip(METRIC_NAMES_3D, mh))
+        if collect_curves:
+            curves["test_vor"].append(float(mh[0]))
+            curves["test_div"].append(float(mh[2]))
         if verbose:
             print(f"[projection] {line(mh)}, time: {time.time() - st}")
             st = time.time()
@@ -506,4 +525,6 @@ def project_3d(mix: GaussianMixture, spec: FieldSpec,
 
     carry, _ = run_chunked(carry, dispatch, max_epoch, check_iter, on_chunk,
                            "projection")
+    if collect_curves:
+        return mix.with_params(carry[0]), last, curves
     return mix.with_params(carry[0]), last

@@ -4,8 +4,11 @@ as in the JAX package's ``solver/simulate3d.py``. With ``viz`` (the
 default, as there) they write that package's ``.vti`` volumes: the
 obstacle's ``obstacle.obj``, the analytic field's ``velocity_ref``,
 ``vorticity_ref``, ``divergence_ref`` and ``helicity_ref``, and each
-frame's ``vorticity_{n}`` and ``divergence_{n}``. The per-frame loss-curve
-figure (``loss_{n}.png``) is not ported yet. Under a mesh (``--mesh``)
+frame's ``vorticity_{n}`` and ``divergence_{n}``; the single-device frame
+loop also collects its projection's loss curves and draws them as
+``loss_{n}.png`` (``io/viz2d.plot_loss_curves``), where matplotlib is
+present (``viz2d.figures_on``: without it one line says so, and the
+volumes and the curves' collection go on). Under a mesh (``--mesh``)
 the frame loop and the replay run on every rank of it, their epochs and
 steps sharded (``parallel/driver.py``, ``parallel/density.py``); rank 0
 writes the files.
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from gaussian_fluids_torch.config import FieldSpec
-from gaussian_fluids_torch.io import checkpoint, vti
+from gaussian_fluids_torch.io import checkpoint, viz2d, vti
 from gaussian_fluids_torch.models.mixture import GaussianMixture
 from gaussian_fluids_torch.ops import field, gsr_banded, interp
 from gaussian_fluids_torch.ops.advect import rk4_pos_stages
@@ -34,6 +37,7 @@ from gaussian_fluids_torch.solver.clone import clone_velocity_field
 from gaussian_fluids_torch.solver.fit import fit_velocity_with_gradient
 from gaussian_fluids_torch.solver.project import ProjectWeights, project_3d
 from gaussian_fluids_torch.solver.simulate2d import _generator
+from gaussian_fluids_torch.utils import profiling
 from gaussian_fluids_torch.utils.grids import grid_nodes, grid_points_3d
 
 FIT_LRS_3D = {"positions": 1e-3, "scalings": 1e-3, "rotations": 1e-3,
@@ -135,10 +139,12 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
     checkpoint per frame (``target_grid_res`` > 0: the clone's and the
     projection's cached-target grids, ``--target_grid``) and, with
     ``viz``, the start frame's and every frame's vorticity and divergence
-    volumes. Returns (mix, spec, frames), ``frames`` holding per frame its
-    number, alive count, seconds per phase (clone, advect, project, the
-    volumes, the save) and the last test metrics of the clone and
-    projection phases. ``mesh``: as ``simulate2d.advance_2d``'s; rank 0
+    volumes, and on one device the projection's loss curves (drawn as
+    ``loss_{n}.png`` where matplotlib is present). Returns (mix, spec,
+    frames), ``frames`` holding per frame its number, alive count, seconds
+    per phase (clone, advect, project, the volumes and curves, the save),
+    the last test metrics of the clone and projection phases, and the
+    curves (None without them). ``mesh``: as ``simulate2d.advance_2d``'s; rank 0
     writes the volumes and checkpoints."""
     if mesh is not None:
         from gaussian_fluids_torch.parallel import driver
@@ -159,6 +165,9 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
         gen, test_gen = mesh.generator(seed + start_frame), gen
     xnv, ynv, znv = test_res or scene.visualize_res
     test_x = grid_points_3d(*domain, xnv, ynv, znv)
+    # the loss curves, as the JAX package: with viz, on one device only
+    curves_on = viz and mesh is None
+    draw = curves_on and viz2d.figures_on(True, "the loss_{n}.png curves")
     if viz and writer:
         _write_frame_vti(out_dir, str(start_frame), mix, spec, scene,
                          viz_res)
@@ -184,13 +193,18 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
         fta = time.perf_counter()
         w = ProjectWeights(vor=1.0, div=1.0, aniso=10.0, vol=10.0,
                            delta_pos=0.0, hel=1.0, val_reg=0.0)
+        curves = None
         if mesh is None:
-            new_mix, proj_m = project_3d(
+            new_mix, proj_m, *rest = project_3d(
                 new_mix, spec, mix, dt, domain=domain, test_x=test_x,
                 gen=gen, scene_name=init_cond, weights=w,
                 boundary_lambda=boundary_lambda, batch_size=batch_size,
                 max_epoch=max_epoch, verbose=verbose,
-                target_grid_res=target_grid_res)
+                target_grid_res=target_grid_res, collect_curves=curves_on)
+            curves = rest[0] if rest else None
+            if draw:
+                viz2d.plot_loss_curves(
+                    curves, os.path.join(out_dir, f"loss_{cnt}.png"))
         else:
             new_mix, proj_m = driver.project_3d_sharded(
                 new_mix, spec, mix, dt, mesh=mesh, domain=domain,
@@ -222,7 +236,8 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
                        "advect_seconds": fta - ftc,
                        "project_seconds": ft1 - fta,
                        "viz_seconds": ft2 - ft1, "save_seconds": ft3 - ft2,
-                       "clone": clone_m, "project": proj_m})
+                       "clone": clone_m, "project": proj_m,
+                       "curves": curves})
         cnt += 1
         t += dt
     return mix, spec, frames
@@ -561,6 +576,7 @@ def advance_density(init_cond: str, out_dir: str, dt: float,
         path = os.path.join(out_dir, f"gaussian_velocity_{frame}.pt")
         if not os.path.exists(path):
             break
+        profiling.poll()
         mix, spec = checkpoint.load_checkpoint(path, device=device)
         # the banded kernel's window needs x-slabs; its culling, y-cells
         mix = mix.slab_sorted(spec.clamp_threshold)

@@ -34,11 +34,13 @@ def runs(tmp_path_factory):
                max_epoch=FRAME_EPOCHS, viz=False, verbose=0,
                test_res=(50, 50))
     initialize2d.main(["--device", "cpu", "--init_cond", "taylor_green",
-                       "--dir", tdir, "--max_epoch", str(FIT_EPOCHS)])
+                       "--dir", tdir, "--max_epoch", str(FIT_EPOCHS),
+                       "--no_viz"])
     # the entry point's test grid is the scene's 200x200; keep it
     out = advance2d.main(["--device", "cpu", "--init_cond", "taylor_green",
                           "--dir", tdir, "--dt", ".001", "--last_time",
-                          ".001", "--max_epoch", str(FRAME_EPOCHS)])
+                          ".001", "--max_epoch", str(FRAME_EPOCHS),
+                          "--no_viz"])
     return jdir, tdir, out
 
 
@@ -118,7 +120,7 @@ def test_same_checkpoint_same_field_in_both_packages(runs, package):
 
 
 def test_entry_point_flags(capsys, monkeypatch):
-    """--profile is refused; --mesh parses as the JAX CLI's and is refused
+    """--profile is accepted; --mesh parses as the JAX CLI's and is refused
     with --target_grid and beyond the visible cards; --target_grid
     reaches advance_2d, and initialize2d accepts it without using it, as
     the JAX CLI does."""
@@ -127,8 +129,7 @@ def test_entry_point_flags(capsys, monkeypatch):
     with pytest.raises(SystemExit):
         initialize2d.main(["--help"])
     assert "--no_viz" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        advance2d.main(["--device", "cpu", "--profile", "/tmp/p"])
+    assert tcli.parse_args_2d(["--profile", "/tmp/p"]).profile == "/tmp/p"
     for text in ("4x2", "8", "1x1"):
         assert tcli.parse_mesh(text) == jcli.parse_mesh(text)
     for bad in ("4x2x1", "ax2", "0x2", "-1"):
@@ -166,9 +167,10 @@ def test_parsers_give_the_jax_defaults(dim):
                                  "leapfrog")
 
 
-def test_density_entry_point_flags(monkeypatch):
+def test_density_entry_point_flags(monkeypatch, tmp_path):
     """``-m gaussian_fluids_torch.advance_density3d`` hands the replay its
-    flags, and refuses the flags the port has not got."""
+    flags, traces it under ``--profile``, and refuses a mesh beyond the
+    visible cards."""
     from gaussian_fluids_torch import advance_density3d
     seen = {}
     monkeypatch.setattr(advance_density3d, "advance_density",
@@ -183,8 +185,8 @@ def test_density_entry_point_flags(monkeypatch):
     advance_density3d.main([])
     assert seen["kw"]["res_multiplier"] == 4
     assert seen["kw"]["device"] == "cuda:0"
-    with pytest.raises(SystemExit):
-        advance_density3d.main(["--device", "cpu", "--profile", "/tmp/p"])
+    advance_density3d.main(["--device", "cpu", "--profile", str(tmp_path)])
+    assert (tmp_path / "trace.json").exists()
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="GPUs"):
         advance_density3d.main(["--mesh", "1x2"])

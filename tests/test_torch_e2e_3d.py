@@ -106,7 +106,7 @@ def test_same_3d_checkpoint_same_field_in_both_packages(runs, package):
 
 
 def test_3d_entry_point_flags(capsys, monkeypatch):
-    """--profile is refused; --mesh parses as the JAX CLI's and is refused
+    """--profile is accepted; --mesh parses as the JAX CLI's and is refused
     with --target_grid and beyond the visible cards; --target_grid
     reaches advance_3d, and initialize3d accepts it without using it, as
     the JAX CLI does."""
@@ -116,8 +116,7 @@ def test_3d_entry_point_flags(capsys, monkeypatch):
         initialize3d.main(["--help"])
     out = capsys.readouterr().out
     assert "--boundary" in out and "--no_viz" in out
-    with pytest.raises(SystemExit):
-        advance3d.main(["--device", "cpu", "--profile", "/tmp/p"])
+    assert tcli.parse_args_3d(["--profile", "/tmp/p"]).profile == "/tmp/p"
     assert tcli.parse_args_3d(["--mesh", "8"]).mesh == \
         jcli.parse_mesh("8") == (8, 1)
     with pytest.raises(ValueError, match="target_grid"):

@@ -148,7 +148,7 @@ def test_karman_entry_points_and_resume(tmp_path, monkeypatch):
     monkeypatch.setitem(treg._VISUALIZE_RES, "karman", (50, 20))
     full, resumed = str(tmp_path / "full"), str(tmp_path / "resumed")
     common = ["--device", "cpu", "--init_cond", "karman", "--max_epoch",
-              "20"]
+              "20", "--no_viz"]
     mix, spec = initialize2d.main(common + ["--dir", full])
     assert mix.n_alive() == 240
     os.makedirs(resumed)

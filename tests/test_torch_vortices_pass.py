@@ -224,7 +224,7 @@ def test_entry_points_run(name, tmp_path, monkeypatch):
     monkeypatch.setitem(treg._PARTICLE_COUNT, name, (12, 12))
     monkeypatch.setitem(treg._VISUALIZE_RES, name, (16, 16))
     common = ["--device", "cpu", "--init_cond", name, "--dir",
-              str(tmp_path), "--max_epoch", "10"]
+              str(tmp_path), "--max_epoch", "10", "--no_viz"]
     mix, _ = initialize2d.main(common)
     assert mix.n_alive() == 144
     mix, _, frames = advance2d.main(common + ["--dt", ".01",

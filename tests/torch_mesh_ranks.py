@@ -358,6 +358,13 @@ def failing_rank(mesh):
     collectives.broadcast(torch.zeros(1), mesh, src=1)
 
 
+def failing_rank_0(mesh):
+    """Rank 0 raises while rank 1 waits in a broadcast from it."""
+    if mesh.rank == 0:
+        raise FloatingPointError("rank 0 failed")
+    collectives.broadcast(torch.zeros(1), mesh, src=0)
+
+
 def sleeping_rank(mesh, seconds):
     import time
     time.sleep(seconds)
