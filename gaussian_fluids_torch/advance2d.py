@@ -28,8 +28,8 @@ def main(argv=None):
     if args.mesh:
         shape = mesh_from_shape(args.mesh, args.target_grid, args.device)
         # each rank traces itself, the launching process nothing
-        rank_args = (run, kwargs) + ((args.profile,) if args.profile else ())
-        return launch(_rank_main, shape, rank_args, device=args.device)[0]
+        return launch(_rank_main, shape, (run, kwargs, args.profile),
+                      device=args.device)[0]
     with maybe_trace(args.profile, args.device):
         return advance_2d(*run, **kwargs, device=args.device)
 

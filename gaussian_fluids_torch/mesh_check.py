@@ -33,6 +33,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -56,7 +57,9 @@ FIT_EPOCHS = FRAME_EPOCHS = 100
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    # one write a line: lines from the smoke's threads never interleave
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 def all_launches():
@@ -300,14 +303,28 @@ def compare(got, want):
     return rep
 
 
-def check_epochs(layouts, device, card, ckpt=None, shared=False):
-    """The epochs and density checks: the single-device references on
-    ``device``, then one launch of the layouts' ranks (NCCL, one GPU a
-    rank; or ``shared``: gloo, every rank on ``device``) running every
-    layout. Emits one ``mesh_epoch`` and one ``mesh_density`` line a
-    layout; returns the ranks' launches by kernel, summed over ranks and
-    layouts, per path ({"leapfrog_2d", "ring_collide", "density"})."""
+def launch_ranks(layouts, device, ckpt=None, shared=False):
+    """One launch of the layouts' ranks (NCCL, one GPU a rank; or
+    ``shared``: gloo, every rank on ``device``) running every layout
+    (:func:`rank_check`): (what each rank returned, the launch's wall
+    seconds). The launching process launches no kernel, so this may run
+    beside other work."""
     from gaussian_fluids_torch.parallel.mesh import launch
+    t0 = time.perf_counter()
+    by_rank = launch(rank_check, layouts[0], (tuple(layouts), ckpt),
+                     device=device, shared_device=shared,
+                     timeout=RANK_TIMEOUT)
+    return by_rank, time.perf_counter() - t0
+
+
+def check_epochs(layouts, device, card, ckpt=None, shared=False,
+                 ranks=None):
+    """The epochs and density checks: the single-device references on
+    ``device`` against the ranks' results, ``ranks`` (of a
+    :func:`launch_ranks` made beforehand) or one launch made here. Emits
+    one ``mesh_epoch`` and one ``mesh_density`` line a layout; returns
+    the ranks' launches by kernel, summed over ranks and layouts, per path
+    ({"leapfrog_2d", "ring_collide", "density"})."""
     from gaussian_fluids_torch.solver.simulate3d import advected_density
 
     single = {}
@@ -334,11 +351,7 @@ def check_epochs(layouts, device, card, ckpt=None, shared=False):
         for k, v in launches.items():
             totals[path][k] = totals[path].get(k, 0) + v
 
-    t0 = time.perf_counter()
-    by_rank = launch(rank_check, layouts[0], (tuple(layouts), ckpt),
-                     device=device, shared_device=shared,
-                     timeout=RANK_TIMEOUT)
-    wall = time.perf_counter() - t0
+    by_rank, wall = ranks or launch_ranks(layouts, device, ckpt, shared)
     backend = (f"gloo, every rank on {device}" if shared else
                "nccl, one GPU a rank")
     for layout in layouts:
@@ -394,14 +407,11 @@ def check_epochs(layouts, device, card, ckpt=None, shared=False):
     return totals
 
 
-def cli_frame(start, single, out_dir, mesh, card, epochs):
+def cli_frame_run(start, out_dir, mesh, epochs):
     """One Leapfrog-2D frame through ``advance2d --mesh mesh`` from the
-    checkpoint ``start`` against the single-device frame ``single``:
-    finite test metrics, one checkpoint a frame, the same Gaussian count,
-    the field within MESH_FIELD_TOL."""
+    checkpoint ``start``: (its frames, wall seconds). The launching
+    process launches no kernel, so this may run beside other work."""
     from gaussian_fluids_torch import advance2d
-    from gaussian_fluids_torch.io import checkpoint
-    from gaussian_fluids_torch.ops import field
 
     os.makedirs(out_dir)
     shutil.copy(start, os.path.join(out_dir, "gaussian_velocity_0.pt"))
@@ -410,7 +420,18 @@ def cli_frame(start, single, out_dir, mesh, card, epochs):
         ["--init_cond", "leapfrog", "--dir", out_dir, "--dt", ".025",
          "--last_time", ".025", "--max_epoch", str(epochs), "--mesh",
          mesh, "--no_viz"])
-    wall = time.perf_counter() - t0
+    return frames, time.perf_counter() - t0
+
+
+def cli_frame(start, single, out_dir, mesh, card, epochs, ran=None):
+    """The frame of :func:`cli_frame_run` (``ran``, or run here) against
+    the single-device frame ``single``: finite test metrics, one
+    checkpoint a frame, the same Gaussian count, the field within
+    MESH_FIELD_TOL."""
+    from gaussian_fluids_torch.io import checkpoint
+    from gaussian_fluids_torch.ops import field
+
+    frames, wall = ran or cli_frame_run(start, out_dir, mesh, epochs)
     f = frames[0]
     vals = list(f["clone"].values()) + list(f["project"].values())
     if len(frames) != 1 or not f["project"] or \
@@ -441,7 +462,8 @@ def cli_frame(start, single, out_dir, mesh, card, epochs):
 def cli_replay(start, single_dir, out_dir, mesh, card):
     """One 128^3 replay step of the Ring-Collide checkpoint ``start``
     through ``advance_density3d --mesh mesh`` against the single-device
-    step's volumes in ``single_dir`` (within DENSITY_TOL)."""
+    step's volumes in ``single_dir`` (within DENSITY_TOL). The launching
+    process launches no kernel, so this may run beside other work."""
     from gaussian_fluids_torch import advance_density3d
     from gaussian_fluids_torch.io import vti
 

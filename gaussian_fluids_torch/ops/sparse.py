@@ -24,8 +24,10 @@ guards (the radius fit, and the pair list within ``pair_capacity``) are
 read on the host, one synchronisation a call; a call that fails one falls
 back as a whole, as the JAX package's ``lax.cond`` does: to the centered
 path on the card (the centered kernels), to the chunked dense sweep on the
-CPU. ``fallbacks()`` counts those calls. The list itself is built at its
-exact length (the JAX package pads it to the capacity, a static shape).
+CPU. ``fallbacks()`` counts those calls. The list is built at its exact
+length, and only once its length is known to be within the capacity (the
+JAX package pads it to the capacity, a static shape), so an overflowing
+list never takes memory.
 
 The grid has one pad-cell ring; queries up to one cell outside the domain
 see their neighbours, farther ones clip into the (empty) pad ring. Plain
@@ -130,9 +132,10 @@ class _GatherRows(torch.autograd.Function):
                                      axis=0), None, None, None)
 
 
-def _pairs(mu, in_dom, x, spec: FieldSpec):
+def _pairs(mu, in_dom, x, spec: FieldSpec, cap: int):
     """(q, gid, per-query pair counts, total): the pair list of ``x``
-    against the Gaussians at ``mu``, ordered by query."""
+    against the Gaussians at ``mu``, ordered by query. Where ``total``
+    exceeds ``cap`` the list is not built: (None, None, None, total)."""
     d = spec.d
     dims, _ = grid_dims(spec)
     n_cells = 1
@@ -155,6 +158,8 @@ def _pairs(mu, in_dom, x, spec: FieldSpec):
     counts = cnt[nbr_id]                                # (B * 3^d,)
     starts = torch.cumsum(counts, 0) - counts
     total = int(counts.sum())
+    if total > cap:
+        return None, None, None, total
     loc = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev),
                                   counts, output_size=total)
     within = torch.arange(total, device=dev) - starts[loc]
@@ -228,7 +233,7 @@ def _sparse_value_jac(params, alive, spec: FieldSpec, x: torch.Tensor,
                                  spec.clamp_threshold)
         r_ok = bool(torch.where(in_dom, r <= min(h), True).all())
         q, gid, per_q, total = _pairs(mu.detach(), in_dom, x.detach(),
-                                      spec) if r_ok else (None,) * 4
+                                      spec, cap) if r_ok else (None,) * 4
     if not r_ok or total > cap:
         _fallbacks[0] += 1
         return (*_fallback(mixture_of(params, alive), spec, x, need_jac),

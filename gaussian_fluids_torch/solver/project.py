@@ -460,11 +460,11 @@ def project_3d(mix: GaussianMixture, spec: FieldSpec,
                verbose: int = 1, target_grid_res: int = 0,
                collect_curves: bool = False):
     """3D projection. Returns (new mixture, the last test metrics keyed by
-    ``METRIC_NAMES_3D``). ``target_grid_res`` and the hoist as in
-    :func:`project_2d`, the grid res^3 and trilinear. With
-    ``collect_curves`` it returns (new mixture, metrics, curves), the
-    curves of the reference's loss_{frame}.png as the JAX package
-    collects them: per epoch ``train_vor``, ``train_div`` and ``log_lr``
+    ``METRIC_NAMES_3D``, curves). ``target_grid_res`` and the hoist as in
+    :func:`project_2d`, the grid res^3 and trilinear. The curves are None,
+    or with ``collect_curves`` those of the reference's loss_{frame}.png
+    as the JAX package collects them: per epoch ``train_vor``,
+    ``train_div`` and ``log_lr``
     (the natural log of the scalings group's lr at the chunk's end), per
     chunk ``test_vor`` and ``test_div``."""
     if lrs is None:
@@ -525,6 +525,5 @@ def project_3d(mix: GaussianMixture, spec: FieldSpec,
 
     carry, _ = run_chunked(carry, dispatch, max_epoch, check_iter, on_chunk,
                            "projection")
-    if collect_curves:
-        return mix.with_params(carry[0]), last, curves
-    return mix.with_params(carry[0]), last
+    return mix.with_params(carry[0]), last, (curves if collect_curves
+                                             else None)

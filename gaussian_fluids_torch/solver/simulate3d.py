@@ -195,13 +195,12 @@ def advance_3d(init_cond: str, out_dir: str, dt: float, last_time: float,
                            delta_pos=0.0, hel=1.0, val_reg=0.0)
         curves = None
         if mesh is None:
-            new_mix, proj_m, *rest = project_3d(
+            new_mix, proj_m, curves = project_3d(
                 new_mix, spec, mix, dt, domain=domain, test_x=test_x,
                 gen=gen, scene_name=init_cond, weights=w,
                 boundary_lambda=boundary_lambda, batch_size=batch_size,
                 max_epoch=max_epoch, verbose=verbose,
                 target_grid_res=target_grid_res, collect_curves=curves_on)
-            curves = rest[0] if rest else None
             if draw:
                 viz2d.plot_loss_curves(
                     curves, os.path.join(out_dir, f"loss_{cnt}.png"))

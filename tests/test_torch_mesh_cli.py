@@ -166,7 +166,7 @@ def test_advance_density3d_mesh_launches_its_ranks(tmp_path, monkeypatch):
          "2x1"]) == "rank 0"
     assert seen["a"] == (advance_density3d._rank_main, (2, 1),
                          (("ring_collide", "D", 0.02),
-                          {"res_multiplier": 1, "start_frame": 0}))
+                          {"res_multiplier": 1, "start_frame": 0}, None))
     assert seen["k"] == {"device": "cpu"}
     monkeypatch.undo()
 

@@ -105,6 +105,27 @@ def test_guards_fall_back_and_count(guard, env, monkeypatch):
     assert tsp.fallbacks() == 2, guard
 
 
+def test_overflow_builds_no_list(monkeypatch):
+    """The overflow guard is read from the pair counts alone: no tensor of
+    the list's length is made (the list's first, ``repeat_interleave``,
+    would raise) before the call falls back."""
+    monkeypatch.setenv("GF_SPARSE_CELLS", "2")
+    monkeypatch.setenv("GF_SPARSE_HEADROOM", "1e-6")
+    jm, js, x = _case(2)
+    tm, ts = to_torch(jm, js)
+    xt = torch.as_tensor(x)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an overflowing pair list was built")
+
+    monkeypatch.setattr(torch, "repeat_interleave", refuse)
+    tsp.reset_fallbacks()
+    v, j = tsp.value_and_jac_sparse(tm, ts, xt)
+    assert tsp.fallbacks() == 1
+    dv, dj = tfield.value_and_jac_dense(tm, ts, xt)
+    assert torch.equal(v, dv) and torch.equal(j, dj)
+
+
 def test_chunked_equals_unchunked(monkeypatch):
     jm, js, x = _case(3)
     tm, ts = to_torch(jm, js)

@@ -272,7 +272,7 @@ def test_grid_mode_runs_end_to_end(monkeypatch):
     calls.clear()
     m3, s3, _ = ring_collide_state("cpu", seed=6, side=5)
     tx3 = grid_points_3d(0, 1, 0, 1, 0, 1, 4, 4, 4)
-    _, last = tproj.project_3d(
+    _, last, _ = tproj.project_3d(
         m3, s3, m3, 0.02, domain=(0, 1, 0, 1, 0, 1), test_x=tx3,
         gen=torch.Generator().manual_seed(1), scene_name="ring_collide",
         batch_size=128, max_epoch=4, check_iter=2, verbose=0,
