@@ -179,6 +179,29 @@ Phases, each printing one JSON line with its wall seconds:
                 data: the file's encoding is checked); and the card's busy
                 share over a 128^3 step
                 (torch.profiler)
+  analysis      the port's run analyzers (``gaussian_fluids_torch.scripts.
+                analyze_*``) in this process on the card: leapfrog2d,
+                karman2d, vortices_pass2d, ring3d and rc_tg128_ab on the
+                run directories above, density3d on the replay's 128^3
+                volumes; ring3d on the committed Ring-Collide checkpoint 0
+                of the JAX run, its row held against the JAX analyzer's
+                (runs_r2_evidence/analyze_ring3d_rc.txt) within one unit of
+                each printed digit; row 1's launches by shape on this path
+                and its ms at the 2D analyzers' grids (B = 25,600 at
+                Leapfrog-2D, 25,000 at Karman-2D) at every split against
+                the plain version
+  spatial_key   GF_SPATIAL_KEY=morton on the fitted Ring-Collide mixture
+                (frame 1, Morton-sorted) and 8192 seeded points: the cells
+                path (row 5, the queries sorted by the key inside) and the
+                centered path (row 1, presorted by the key) against the
+                default order after the inverse permutation (TOL); the
+                live tile fraction in both orders
+  epoch_roofline  the projection epoch's modelled FLOPs and bytes
+                (``gaussian_fluids_torch.utils.roofline``) over the walls
+                already measured: the seeded Ring-Collide epoch at the
+                hoist phase's four walls, the Leapfrog-2D frame's
+                projection over its seconds; mfu_fp32_pct and hbm_pct, the
+                card's name and power limit; no extra epoch
   obstacle3d    ring_with_obstacle (40^3 = 64,000 Gaussians, capacity
                 75,776, B=8192, the boundary batch box + mesh 2 x 8192)
                 through initialize3d (100 fit epochs) and one frame of
@@ -271,6 +294,7 @@ without a CUDA device the script exits non-zero before printing results.
 
 import contextlib
 import importlib
+import io
 import json
 import math
 import os
@@ -286,6 +310,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+# the bound model: per-pair operation counts, a launch's bound at the
+# card's peaks
+from gaussian_fluids_torch.utils.roofline import (
+    OPS_BANDED_SUPPORT, OPS_BANDED_WINDOW, OPS_GEOMETRY, OPS_SUPPORT,
+    kernel_bound, pair_ops)
+
 INIT_EPOCHS = 100      # 2D; the entry point's default is 10000
 ADVANCE_EPOCHS = 100   # 2D, per phase and frame; the default is 20000
 INIT3D_EPOCHS = 100    # the 3D entry point's default is 500
@@ -294,38 +324,6 @@ TIMED_LAUNCHES = 30
 TOL = 1e-4   # relative to the largest reference entry: f32 sums in another
 #              order and FMA contraction on the card
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): f32 outside the
-# tensor cores and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-
-# Operations per query-Gaussian pair, counted from csrc/gsr_tile.cuh (an
-# FMA counts 2, exp and a compare 1 each): every pair of a live tile pays
-# the centered geometry; pairs inside the support (g >= c) pay the
-# accumulation too. d = vdim = 2 as counted for the first slice; d = vdim =
-# 3 with njac = 3 and the value cotangents read (the 3D main path's
-# variants: the projection's helicity head reads the value).
-OPS_GEOMETRY = {2: 15, 3: 27}
-OPS_SUPPORT = {(2, "fwd"): 17, (2, "bwd_dn"): 74, (2, "bwd_dn2"): 126,
-               (3, "fwd"): 34, (3, "bwd_dn"): 136, (3, "bwd_dn2"): 272}
-# The banded kernel (csrc/gsr_banded.cu, d = vdim = 3): a pair's geometry
-# is dx (3), the direct quadratic form (6 terms of a multiply and an FMA:
-# 18) and the cut compare (1); a pair inside the support also pays
-# -quad/2, the exp and the support compare (3), then g - c and 3 FMAs (7).
-OPS_BANDED_WINDOW, OPS_BANDED_SUPPORT = 22, 10
-# The last three kernels, counted the same way from csrc/gsr_tile.cuh
-# (pair_cotangents, pair_dx) and csrc/rk4_fused.cu. dL/dx, per pair in the
-# support with njac = d: the value and Jacobian cotangents against v
-# (VDIM (1 + d) FMAs), gg (d FMAs), gquad and gpd (2 + d), dx_k (2 + 2 d
-# each) and the sums. The triple backward's data tiles pay the dual
-# backward's count, its boundary tiles the value-only backward's: s1 (2
-# VDIM), gquad (2), dv (1 + 2 VDIM), dmu (3 d), the precisions and the bias
-# (3 d + 4 per off-diagonal + 1). The fused RK4 kernel: every pair of
-# every stage pays the geometry; in the support a stage pays g - c and
-# VDIM FMAs (1 + 2 VDIM), the endpoint's Jacobian stage the forward's.
-OPS_SUPPORT.update({(2, "bwd_dx"): 36, (3, "bwd_dx"): 65,
-                    (2, "bwd_dn_val"): 28, (3, "bwd_dn_val"): 46,
-                    (2, "rk4_stage"): 5, (3, "rk4_stage"): 7})
 KARMAN_INIT_EPOCHS = 100     # fit and the zero-dt projection; default 10000
 KARMAN_ADVANCE_EPOCHS = 100  # per phase; the default is 20000
 KARMAN_DT = 0.01             # the 2D CLI's default
@@ -472,29 +470,11 @@ def ptxas_summary(log):
     return out
 
 
-def pair_ops(geometry, support_ops, walked_pairs, support_pairs):
-    """(ops the inputs need, ops of the pairs the kernel walks). Counted on
-    need, only a pair inside the support (g >= c) does work: its geometry
-    and its accumulation; a kernel pays at least the geometry of every
-    pair it walks. Every row's bound is the first, so a kernel that culls
-    better than its walk can never read faster than its bound."""
-    return ((geometry + support_ops) * support_pairs,
-            geometry * walked_pairs + support_ops * support_pairs)
-
-
-def _bound(ops, nbytes):
-    """(ms, 'operations' | 'bytes'): the larger of ops over the f32 peak
-    and bytes over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), \
-        "operations" if t_ops >= t_bytes else "bytes"
-
-
 def _entry(name, route_src, errs, ms, plain_ms, ops, nbytes, walked_pairs,
            support_pairs, note=NO_LIBRARY):
     """The summary line of one kernel: ``ops`` is ``pair_ops``'s (need,
     walked) pair; the bound is on need, the walked bound beside it."""
-    bound_ms, bound_by = _bound(ops[0], nbytes)
+    bound_ms, bound_by = kernel_bound(ops[0], nbytes)
     return {
         "name": name, "route": "cuda", "source": SOURCES[route_src],
         "replaces": REPLACES[name.split("[")[0]],
@@ -505,7 +485,7 @@ def _entry(name, route_src, errs, ms, plain_ms, ops, nbytes, walked_pairs,
         "library_ms": None, "library_note": note, "ops": ops[0],
         "bytes": nbytes, "support_pairs": support_pairs,
         "walked_pairs": walked_pairs, "walked_ops": ops[1],
-        "walked_bound_ms": _bound(ops[1], nbytes)[0],
+        "walked_bound_ms": kernel_bound(ops[1], nbytes)[0],
     }
 
 
@@ -1402,7 +1382,7 @@ def run_2d(tmp):
     pts = grid_points_2d(-5, 5, -5, 5, 64, 64)
     emit({"phase": "check", "seconds": time.perf_counter() - t0,
           **check_field(mix, spec, pts, f64=True)})
-    return launches, by_shape
+    return launches, by_shape, frames[0]["project_seconds"]
 
 
 def _shape_counts(fwd_shapes):
@@ -2122,7 +2102,7 @@ def kernel_phase_density(device):
     shapes = {"B": B, "N": N, "band": band, "band_of": N // gb.TN,
               "order": "slab-major", "window_rows": band * gb.TN,
               "window_pairs": window_pairs,
-              "window_bound_ms": _bound(pair_ops(
+              "window_bound_ms": kernel_bound(pair_ops(
                   OPS_BANDED_WINDOW, OPS_BANDED_SUPPORT, window_pairs,
                   support_pairs)[1], nbytes)[0],
               "support_pairs": support_pairs, "plane_x": float(xs[plane]),
@@ -3289,6 +3269,223 @@ def mesh_error(card):
             "launches": MESH_ERROR_LAUNCHES, "own_error": own}
 
 
+ANALYZERS_2D_GRIDS = {"leapfrog_2d": 160, "karman_2d": (250, 100)}
+RC_REFERENCE = "runs_r2_evidence/analyze_ring3d_rc.txt"
+RC_FRAME0 = "runs_r2_evidence/ckpts/output_3d_ring_collide/" \
+    "gaussian_velocity_0.pt"
+_NUMBER = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?")
+
+
+def _analyzer(name, args):
+    """``gaussian_fluids_torch.scripts.analyze_{name}.main(args)`` on the
+    card, its table captured: (rows, text). Raises on a non-zero return,
+    on no row, or on a number that is not finite."""
+    mod = importlib.import_module(
+        f"gaussian_fluids_torch.scripts.analyze_{name}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(args)
+    text = buf.getvalue()
+    rows = [ln for ln in text.splitlines() if ln.strip()[:1].isdigit()]
+    if rc != 0 or not rows or re.search(r"\b(nan|inf)\b", text.lower()):
+        raise AssertionError(f"analyze_{name} {args}: rc {rc}\n{text}")
+    return rows, text
+
+
+def _digit_unit(tok):
+    mant, _, exp = tok.lower().partition("e")
+    decimals = len(mant.split(".")[1]) if "." in mant else 0
+    return 10.0 ** (int(exp or 0) - decimals)
+
+
+def _rc_reference_row():
+    """The JAX run's frame-0 row of ``analyze_ring3d_rc.txt``: {column:
+    printed token}."""
+    with open(RC_REFERENCE) as fh:
+        lines = fh.read().splitlines()
+    head = next(ln for ln in lines if ln.split()[:1] == ["frame"])
+    row = next(ln for ln in lines if ln.split()[:1] == ["0"])
+    return dict(zip(head.split(), row.split()))
+
+
+def analysis_phase(tmp, device):
+    """The port's run analyzers on the card, in this process, on the run
+    directories the smoke wrote (Leapfrog-2D, Karman-2D, vortices_pass,
+    Ring-Collide frames, the replay's 128^3 volumes) and on the committed
+    Ring-Collide checkpoint 0 of the JAX run, whose row must reproduce the
+    JAX analyzer's within one unit of each printed digit; row 1's
+    launches by shape on this path, and its ms at the 2D analyzers'
+    grids, which no earlier phase times."""
+    from gaussian_fluids_torch.io import checkpoint
+    from gaussian_fluids_torch.ops import field, gsr_cells
+    from gaussian_fluids_torch.ops import gsr_centered as gc
+
+    t0 = time.perf_counter()
+    ring = os.path.join(tmp, "3d", "ring_collide")
+    runs = {"leapfrog2d": [os.path.join(tmp, "2d"), "1"],
+            "karman2d": [os.path.join(tmp, "karman"), "1"],
+            "vortices_pass2d": [os.path.join(tmp, "vortices_pass"),
+                                "vortices_pass", "1"],
+            "ring3d": [ring, "1"],
+            "rc_tg128_ab": [ring, ring, "1"],
+            "density3d": [ring]}
+    torch.cuda.synchronize()
+    gc.reset_launches()
+    gsr_cells.reset_launches()
+    tables = {}
+    with env_set("GF_DT", str(KARMAN_DT)):
+        for name, args in runs.items():
+            tables[name] = _analyzer(name, args)[0]
+    # the committed JAX run's checkpoint 0, alone in a directory
+    frame0 = os.path.join(tmp, "committed_rc0")
+    os.makedirs(frame0)
+    os.symlink(os.path.abspath(RC_FRAME0),
+               os.path.join(frame0, "gaussian_velocity_0.pt"))
+    rows, text = _analyzer("ring3d", [frame0, "1"])
+    torch.cuda.synchronize()
+    launches = {**dict(gc.launches), **dict(gsr_cells.launches)}
+    shapes = _shape_counts(gc.fwd_shapes)
+    seconds = time.perf_counter() - t0
+    head = next(ln for ln in text.splitlines()
+                if ln.split()[:1] == ["frame"]).split()
+    got = dict(zip(head, rows[0].split()))
+    want = _rc_reference_row()
+    misses = {k: (got.get(k), w) for k, w in want.items()
+              if got.get(k) is None
+              or abs(float(got[k]) - float(w)) > _digit_unit(w) * 1.0001}
+    if misses:
+        raise AssertionError(f"analyze_ring3d on {RC_FRAME0}: {misses}")
+    # row 1 at the 2D analyzers' grids (their only kernel), timed
+    shapes_timed = {}
+    for tag, sub in (("leapfrog_2d", "2d"), ("karman_2d", "karman")):
+        mix, spec = checkpoint.load_checkpoint(
+            os.path.join(tmp, sub, "gaussian_velocity_1.pt"), device=device)
+        x = _analyzer_grid_2d(tag, spec, device)
+        x_p, _, _, mu_p, pp_p, v_p, tmask, rad = field._centered_prep(
+            mix, spec, x, gc.TB, gc.TN, presorted=False)
+        shapes_timed[tag] = fwd_shape_entry(
+            (tmask, x_p, mu_p.T.contiguous(), pp_p.T.contiguous(),
+             v_p.contiguous()), rad, spec.clamp_threshold)
+        shapes_timed[tag]["launches_analysis"] = shapes.get(
+            f"d=2,B={shapes_timed[tag]['B']},N={shapes_timed[tag]['N']}", 0)
+    emit({"phase": "analysis", "seconds": seconds,
+          "timing_seconds": time.perf_counter() - t0 - seconds,
+          "rows": {k: len(v) for k, v in tables.items()},
+          "tables": tables, "committed_rc_frame0": {
+              "got": got, "jax": want, "within_one_digit": True},
+          "launches": launches, "gsr_fwd_launches_by_shape": shapes,
+          "gsr_fwd_at_analyzer_grids": shapes_timed})
+    return launches, shapes, shapes_timed
+
+
+def _analyzer_grid_2d(tag, spec, device):
+    """The 2D analyzer's evaluation points, as its script builds them:
+    Leapfrog-2D's 160^2 grid over the checkpoint's padded domain, Karman's
+    250 x 100 over the scaled visualize domain."""
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    if tag == "karman_2d":
+        sc = get_scene_2d("karman")
+        x0, x1, y0, y1 = np.asarray(sc.visualize_domain) * sc.scaling_factor
+        nx, ny = ANALYZERS_2D_GRIDS[tag]
+    else:
+        (x0, y0), (x1, y1) = spec.lo, spec.hi
+        nx = ny = ANALYZERS_2D_GRIDS[tag]
+    xs = np.linspace(x0 + 1e-3, x1 - 1e-3, nx)
+    ys = np.linspace(y0 + 1e-3, y1 - 1e-3, ny)
+    pts = np.stack(np.meshgrid(xs, ys, indexing="xy"), -1).reshape(-1, 2)
+    return torch.as_tensor(pts.astype(np.float32), device=device)
+
+
+def spatial_key_phase(device, rmix, rspec, n_queries=8192):
+    """GF_SPATIAL_KEY=morton on the fitted Ring-Collide state: the
+    mixture Morton-sorted (``spatially_sorted``) and a seeded batch of
+    8192 points, through ``value_and_jac`` on the cells path (row 5: the
+    queries sorted by the key inside) and on the centered path (row 1:
+    the queries presorted by the key), each against the default order
+    after the inverse permutation (TOL); the live tile fraction in both
+    orders (data for the slab-major question, not a decision)."""
+    from gaussian_fluids_torch.ops import field, gsr_cells, spatial
+    from gaussian_fluids_torch.ops import gsr_centered as gc
+
+    t0 = time.perf_counter()
+    x = torch.as_tensor(np.random.RandomState(17).uniform(
+        0, 1, (n_queries, 3)).astype(np.float32), device=device)
+    lo, hi = rspec.lo, rspec.hi
+
+    def run():
+        mix = rmix.spatially_sorted()
+        xs, inv = spatial.sort_queries(x, lo, hi)
+        with torch.no_grad():
+            cells = field.value_and_jac(mix, rspec, x, need_dx=False)
+            cent = field.value_and_jac(mix, rspec, xs, presorted=True)
+        cent = tuple(t[inv] for t in cent)
+        tm = field._cells_prep(mix, rspec, xs)[2]
+        return cells, cent, float(tm.float().mean())
+
+    torch.cuda.synchronize()
+    gc.reset_launches()
+    gsr_cells.reset_launches()
+    want_cells, want_cent, frac_x = run()
+    with env_set("GF_SPATIAL_KEY", "morton"):
+        got_cells, got_cent, frac_m = run()
+    torch.cuda.synchronize()
+    launches = {**dict(gc.launches), **dict(gsr_cells.launches)}
+    overflows = gsr_cells.overflows()
+    errs = {"cells": compare("spatial_key cells", got_cells, want_cells,
+                             TOL),
+            "centered": compare("spatial_key centered", got_cent,
+                                want_cent, TOL)}
+    if not launches.get("gsr_fwd") or not launches.get("cells_fwd"):
+        raise AssertionError(f"spatial_key: launches {launches}")
+    emit({"phase": "spatial_key", "seconds": time.perf_counter() - t0,
+          "B": n_queries, "N": rmix.capacity,
+          "max_rel_err": {k: e[1] for k, e in errs.items()},
+          "tolerance": TOL,
+          "live_tile_fraction": {"x": frac_x, "morton": frac_m},
+          "launches": launches, "cells_overflows": overflows})
+    return launches
+
+
+def epoch_roofline(card, walls, proj_2d, device):
+    """The projection epoch's modelled FLOPs and bytes (``utils/roofline``)
+    against the walls earlier phases measured, no extra epoch: the seeded
+    Ring-Collide epoch (B = 8192) at hoist_ab's four walls, and the
+    Leapfrog-2D frame's projection over its seconds. The pairs are those
+    the inputs need (``measured_support_density`` on one batch)."""
+    from gaussian_fluids_torch.scenes import get_scene_2d
+    from gaussian_fluids_torch.utils import roofline
+    from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
+
+    t0 = time.perf_counter()
+    mix, spec, x = ring_collide_state(device)
+    n = mix.n_alive()
+    dens = roofline.measured_support_density(mix, spec, x, chunk=1024)
+    cost = roofline.projection_epoch_cost_3d(x.shape[0], n, dens)
+    rc = {"B": x.shape[0], "N": n, "support_density": dens,
+          "tile_density": roofline.measured_tile_density(mix, spec, x),
+          "flops": cost.flops, "bytes": cost.hbm_bytes, "runs": []}
+    for w in walls:
+        u = cost.utilization(1e3 / w["wall_ms_per_epoch"])
+        rc["runs"].append({**w, **u})
+    mix2, spec2, seconds, epochs = proj_2d
+    sc = get_scene_2d("leapfrog")
+    dom = torch.tensor(sc.advance_domain, device=device) * sc.scaling_factor
+    x2 = dom[0::2] + torch.rand(
+        (512, 2), generator=torch.Generator(device=device).manual_seed(3),
+        device=device) * (dom[1::2] - dom[0::2])
+    n2 = mix2.n_alive()
+    dens2 = roofline.measured_support_density(mix2, spec2, x2)
+    cost2 = roofline.projection_epoch_cost_2d(512, n2, dens2)
+    lf = {"B": 512, "N": n2, "support_density": dens2,
+          "tile_density": roofline.measured_tile_density(mix2, spec2, x2),
+          "flops": cost2.flops, "bytes": cost2.hbm_bytes,
+          "epochs": epochs, "seconds": seconds,
+          **cost2.utilization(epochs / seconds)}
+    emit({"phase": "epoch_roofline", "seconds": time.perf_counter() - t0,
+          "card": card, "peaks": roofline.PEAKS["h100"],
+          "ring_collide": rc, "leapfrog_2d": lf})
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3359,7 +3556,8 @@ def main():
     try:
         tee = _Tee(sys.stdout)
         with contextlib.redirect_stdout(tee):
-            launches_2d, shapes_2d = run_2d(os.path.join(tmp, "2d"))
+            launches_2d, shapes_2d, proj_seconds_2d = run_2d(
+                os.path.join(tmp, "2d"))
         figures_2d(tmp, device, tee.lines)
         profile_phase(tmp)
         kmix, kspec, launches_karman, shapes_karman, rk4_shapes = \
@@ -3427,6 +3625,11 @@ def main():
         launches_density = run_density(ring)
         check_density(ring, device)
         launches_512 = density_512(ring, device)
+        launches_an, shapes_an, timed_an = analysis_phase(tmp, device)
+        launches_key = spatial_key_phase(device, rmix, rspec)
+        epoch_roofline(card, walls, checkpoint.load_checkpoint(
+            os.path.join(tmp, "2d", "gaussian_velocity_1.pt"),
+            device=device) + (proj_seconds_2d, ADVANCE_EPOCHS), device)
         # the mesh ranks and the entry points' --mesh runs spend their time
         # starting processes and in gloo's host staging: they run beside
         # two single-process phases that time no kernel
@@ -3506,6 +3709,22 @@ def main():
             s["launches"] += n
     for s in stats_c2.values():
         s["launches_mesh"] = {}
+    # the analyzers' path (row 1 at d = 2 and 3) and the Morton check's
+    # (rows 1 and 5 at d = 3), each counted from 0 over its phase
+    an = {d: sum(c for k, c in shapes_an.items() if k.startswith(f"d={d},"))
+          for d in (2, 3)}
+    stats["gsr_fwd"]["launches_analysis"] = an[2]
+    stats["gsr_fwd"]["analysis_launches_by_shape"] = {
+        k: c for k, c in shapes_an.items() if k.startswith("d=2,")}
+    stats["gsr_fwd"]["analyzer_grids"] = timed_an
+    stats["gsr_fwd"]["launches"] += an[2]
+    rc_fwd = stats3["gsr_fwd[d=3]"]
+    rc_fwd.update(launches_analysis=an[3], analysis_launches_by_shape={
+        k: c for k, c in shapes_an.items() if k.startswith("d=3,")},
+        launches_spatial_key=launches_key["gsr_fwd"])
+    rc_fwd["launches"] += an[3] + launches_key["gsr_fwd"]
+    stats3["cells_fwd"]["launches_spatial_key"] = launches_key["cells_fwd"]
+    stats3["cells_fwd"]["launches"] += launches_key["cells_fwd"]
     missing = [n for n, s in {**stats, **stats3, **stats_d, **stats_r,
                               **stats_c2}.items() if s["launches"] == 0]
     if missing:

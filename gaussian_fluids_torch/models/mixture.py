@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict
 
 import numpy as np
@@ -25,9 +26,10 @@ from gaussian_fluids_torch.ops.rotations import precision_matrix
 
 PAD_BUCKET = 512  # capacities are multiples of this (kernel tile divisors)
 
-# Capacity ladder growth factor, the JAX package's default: each crossing
-# adds ~25% headroom, so a run re-buckets O(log N) times.
-_PAD_GROWTH = 1.25
+# Capacity ladder growth factor, read at import as the JAX package reads
+# it: each crossing adds ~25% headroom by default, so a run re-buckets
+# O(log N) times; GF_PAD_GROWTH=1 gives arithmetic 512-buckets.
+_PAD_GROWTH = float(os.environ.get("GF_PAD_GROWTH", "1.25"))
 
 PARAM_KEYS = ("positions", "scalings", "rotations", "values")
 
@@ -147,11 +149,24 @@ class GaussianMixture:
                                self.alive[order])
 
     def spatially_sorted(self) -> "GaussianMixture":
-        """Reorder by coordinate 0, dead rows last, in 2D and 3D alike (the
-        JAX package's production key; its Morton key is opt-in and not
-        ported). Order is semantically irrelevant, but the tile mask only
-        culls well when Gaussian tiles are thin x-slabs."""
-        return self.x_sorted()
+        """Reorder by the spatial key (``ops/spatial.sort_key``), dead rows
+        last: coordinate 0, or under ``GF_SPATIAL_KEY=morton`` in 3D the
+        Morton key over the live rows' own bounds. Order is semantically
+        irrelevant, but the tile mask culls only where tiles are compact.
+        The density replay re-sorts its checkpoints (``slab_sorted``)
+        whatever this order is."""
+        from gaussian_fluids_torch.ops import spatial
+        if not spatial.morton_on(self.d):
+            return self.x_sorted()
+        live = self.alive[:, None]
+        lo = torch.where(live, self.positions, float("inf")).amin(dim=0)
+        hi = torch.where(live, self.positions, -float("inf")).amax(dim=0)
+        # no live row: the JAX package's nan_to_num bounds (0, 1)
+        lo = torch.where(torch.isinf(lo), 0.0, lo)
+        hi = torch.where(torch.isinf(hi), 1.0, hi)
+        key = spatial.morton_key(self.positions, lo, hi)
+        key = torch.where(self.alive, key, 1 << 30)
+        return self._reordered(torch.argsort(key, stable=True))
 
     def x_sorted(self) -> "GaussianMixture":
         """Reorder by coordinate 0, dead rows last, whatever the dimension

@@ -106,14 +106,24 @@ def _use_sparse(x: torch.Tensor) -> bool:
 def _use_cells(x: torch.Tensor, n: int, d: int) -> bool:
     """The JAX package's cells dispatch, with the card in place of its
     TPU test: ``cells`` at any d, on or off the card; in ``auto`` 3D
-    on the card with B >= 256 and B*N >= 2^26; never in another mode."""
+    on the card with B >= 256 and B*N >= 2^26, unless ``GF_CELLS=0``;
+    never in another mode."""
     mode = _mode()
     if mode == "cells":
         return True
     if mode != "auto":
         return False
     b = x.shape[0]
-    return d == 3 and _on_card(x) and b >= _MIN_B and b * n >= _CELLS_MIN_BN
+    return (d == 3 and _on_card(x) and b >= _MIN_B and b * n >= _CELLS_MIN_BN
+            and os.environ.get("GF_CELLS", "1") == "1")
+
+
+def _sparse_tiles() -> bool:
+    """The centered path's tile mask and query sort; ``GF_SPARSE=0`` turns
+    both off, as in the JAX package: the queries stay in the caller's
+    order and every tile pair is live (the kernels' per-pair box test,
+    a pure skip, stays)."""
+    return os.environ.get("GF_SPARSE", "1") != "0"
 
 
 CELLS_FULL_LIST = 1 << 20   # tile pairs: up to here a list holds them all
@@ -362,11 +372,14 @@ def _centered_prep(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
     """Sort (unless presorted), pad, pack, and build the tile mask.
     Returns (x_p, b, inv | None, mu_p, pp_p, v_p, tmask, rad): ``rad`` the
     rows' dilated radii of the forward's box test (``row_radius``, from
-    the mask's own radii)."""
+    the mask's own radii). The sort is along coordinate 0 whatever the
+    spatial key, as the JAX package's; under ``GF_SPARSE=0`` there is no
+    sort and the mask is all ones (``_sparse_tiles``)."""
     _check_queries(mix, x)
     b = x.shape[0]
     inv = None
-    if not presorted:
+    tiles = _sparse_tiles()
+    if tiles and not presorted:
         order = torch.argsort(x[:, 0], stable=True)
         inv = torch.argsort(order)
         x = x[order]
@@ -374,7 +387,11 @@ def _centered_prep(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
     mu_p, pp_p, v_p = _padded_param_rows(mix, spec, tn)
     with torch.no_grad():
         support = _row_support(mix, spec, tn)
-        tmask = _tile_mask_of(mix, spec, x_p, b, tb, tn, support)
+        if tiles:
+            tmask = _tile_mask_of(mix, spec, x_p, b, tb, tn, support)
+        else:
+            tmask = torch.ones((x_p.shape[0] // tb, mu_p.shape[0] // tn),
+                               dtype=torch.int32, device=x_p.device)
         rad = _dilated(*support)
     return x_p, b, inv, mu_p, pp_p, v_p, tmask, rad
 
@@ -454,7 +471,7 @@ def _cells_value_jac(mix: GaussianMixture, spec: FieldSpec,
     d, vdim = mix.d, mix.vdim
     inv = None
     if not presorted:
-        x, inv = spatial.sort_queries(x)
+        x, inv = spatial.sort_queries(x, spec.lo, spec.hi)
     x_p, b, tmask, lists, rad = _cells_prep(mix, spec, x)
     mu_p, pp_p, v_p = _padded_param_rows(mix, spec, gsr_cells.TN)
     out = gsr_cells.fused_gsr_cells(

@@ -38,7 +38,7 @@ from gaussian_fluids_torch.config import FieldSpec
 from gaussian_fluids_torch.models.mixture import (PARAM_KEYS,
                                                   GaussianMixture,
                                                   mixture_of)
-from gaussian_fluids_torch.ops import field, spatial
+from gaussian_fluids_torch.ops import field
 from gaussian_fluids_torch.ops.advect import rk4_pos_stages
 from gaussian_fluids_torch.parallel.collectives import (
     gather_rows, global_masked_mean, pcgrad_sharded, pmean_b, pmean_b_dict,
@@ -47,8 +47,7 @@ from gaussian_fluids_torch.scenes import get_scene_2d
 from gaussian_fluids_torch.solver import covector, losses, optim
 from gaussian_fluids_torch.solver.fit import grads_of
 from gaussian_fluids_torch.solver.project import (ProjectWeights,
-                                                  _scaled_box, _sorted_by_key,
-                                                  _sorted_by_x)
+                                                  _scaled_box, _sorted_by_x)
 
 
 # ---- shards ----
@@ -193,7 +192,7 @@ def _clone_epoch(spec: FieldSpec, mesh):
 
     def epoch(params, opt_state, alive, stop, old, x):
         if field._use_kernel(x):
-            x = x[torch.argsort(spatial.sort_key(x), stable=True)]
+            x = _sorted_by_x(x)[0]
         with torch.no_grad():
             ref = psum_g_many(*field.value_and_jac(
                 old, spec, x, presorted=True, need_dx=False), mesh=mesh)
@@ -357,8 +356,8 @@ def _project_epoch_3d(spec: FieldSpec, mesh, boundary_lambda: float,
 
     def epoch(params, opt_state, alive, old, dt, data, bnd=None):
         if field._use_kernel(data):
-            data = _sorted_by_key(data)[0]
-            bnd = _sorted_by_key(*bnd) if bnd is not None else None
+            data = _sorted_by_x(data)[0]
+            bnd = _sorted_by_x(*bnd) if bnd is not None else None
         ref_vor, ref_hel = covector_target_3d(old, spec, data, dt, mesh)
 
         def head_vorhel(val, jac):

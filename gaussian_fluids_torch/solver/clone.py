@@ -194,7 +194,7 @@ def _clone_runner(spec: FieldSpec, batch_size: int = 512, lo=None, hi=None,
         params, opt_state, alive, stop, old_mix = carry
         x, *ref = xs if isinstance(xs, tuple) else (xs,)
         if field._use_kernel(x) and not presorted:
-            o = torch.argsort(spatial.sort_key(x), stable=True)
+            o = torch.argsort(spatial.sort_key(x, lo, hi), stable=True)
             x, ref = x[o], [r[o] for r in ref]
         if not ref:
             with torch.no_grad():
@@ -216,7 +216,7 @@ def _clone_runner(spec: FieldSpec, batch_size: int = 512, lo=None, hi=None,
                     for x, o in zip(xs, outs)]
         if not hoist:
             return xs
-        x = sorted_batches(torch.stack(xs))
+        x = sorted_batches(torch.stack(xs), lo_t, hi_t)
         with torch.no_grad():
             rv, rj = swept(lambda c: field.value_and_jac(
                 carry[4], spec, c, presorted=True, need_dx=False), x)

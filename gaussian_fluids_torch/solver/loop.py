@@ -118,13 +118,14 @@ def hoist_default(x: torch.Tensor) -> bool:
         os.environ.get("GF_HOIST_TARGETS", "1") != "0"
 
 
-def sorted_batches(data: torch.Tensor) -> torch.Tensor:
-    """(n, B, d) batches, each sorted by ``spatial.sort_key`` stably: the
-    order the epoch's own stable sort gives each batch alone. As the
-    epochs, this sorts only where the field runs on a kernel."""
+def sorted_batches(data: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """(n, B, d) batches, each sorted by ``spatial.sort_key`` over the
+    lattice bounds (lo, hi) stably: the order the epoch's own stable sort
+    gives each batch alone. As the epochs, this sorts only where the
+    field runs on a kernel."""
     if not field._use_kernel(data):
         return data
-    o = torch.argsort(spatial.sort_key(data), dim=1, stable=True)
+    o = torch.argsort(spatial.sort_key(data, lo, hi), dim=1, stable=True)
     return torch.gather(data, 1, o[..., None].expand_as(data))
 
 

@@ -304,8 +304,10 @@ def project_2d(mix: GaussianMixture, spec: FieldSpec,
 # 3D
 # --------------------------------------------------------------------------
 
-def _sorted_by_key(pts, *rest):
-    o = torch.argsort(spatial.sort_key(pts), stable=True)
+def _sorted_by_key(pts, *rest, lo=None, hi=None):
+    """``pts`` and the rows of ``rest`` in ``spatial.sort_key`` order over
+    the lattice bounds (lo, hi)."""
+    o = torch.argsort(spatial.sort_key(pts, lo, hi), stable=True)
     return (pts[o],) + tuple(r[o] for r in rest)
 
 
@@ -340,7 +342,7 @@ def _runner_3d(spec: FieldSpec, scene_name: Optional[str],
     def boundary_term(m, bnd, sorting):
         if bnd is None:
             return torch.zeros((), device=m.device)
-        bd, bn = _sorted_by_key(*bnd) if sorting else bnd
+        bd, bn = _sorted_by_key(*bnd, lo=lo, hi=hi) if sorting else bnd
         return losses.boundary_freeslip_loss(
             field.value(m, spec, bd, presorted=True, need_dx=False), bn)
 
@@ -352,7 +354,8 @@ def _runner_3d(spec: FieldSpec, scene_name: Optional[str],
         sorting = field._use_kernel(data)
         if sorting and not presorted:
             data, *r = _sorted_by_key(data, *(() if ref_vor is None
-                                               else (ref_vor, ref_hel)))
+                                               else (ref_vor, ref_hel)),
+                                      lo=lo, hi=hi)
             if r:
                 ref_vor, ref_hel = r
         if ref_vor is None:
@@ -395,7 +398,7 @@ def _runner_3d(spec: FieldSpec, scene_name: Optional[str],
                     for x, r in zip(draws, refs)]
         if not hoist:
             return draws
-        data = sorted_batches(torch.stack([x[0] for x in draws]))
+        data = sorted_batches(torch.stack([x[0] for x in draws]), lo, hi)
         with torch.no_grad():
             vor, hel = swept(lambda c: covector.advected_vorticity_3d(
                 old_mix, spec, c, dt, presorted=True), data)

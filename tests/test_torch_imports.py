@@ -30,6 +30,11 @@ def _sources():
 # run without it prints one line and draws nothing (io/viz2d.py)
 ALLOWED_IN_FUNCTIONS = {"matplotlib"}
 
+# the run analyzers, one per JAX script of the same name
+ANALYZERS = ("leapfrog2d", "taylor_green2d", "taylor_vortex2d",
+             "vortices_pass2d", "karman2d", "ring3d", "rc_tg128_ab",
+             "density3d")
+
 
 def _imports(path):
     """(root module, whether inside a function body) of each import."""
@@ -80,7 +85,11 @@ def test_guard_sees_the_whole_package():
             "gaussian_fluids_torch/ops/sparse.py",
             "gaussian_fluids_torch/solver/sampling.py",
             "gaussian_fluids_torch/io/viz2d.py",
-            "gaussian_fluids_torch/utils/profiling.py"} <= rel
+            "gaussian_fluids_torch/utils/profiling.py",
+            "gaussian_fluids_torch/utils/roofline.py",
+            "gaussian_fluids_torch/scripts/_runs.py"} <= rel
+    for name in ANALYZERS:
+        assert f"gaussian_fluids_torch/scripts/analyze_{name}.py" in rel
     for src in ("gsr_centered.cu", "gsr_cells.cu", "gsr_banded.cu",
                 "rk4_fused.cu", "gsr_tile.cuh"):
         assert os.path.exists(os.path.join(PKG, "csrc", src))
@@ -109,7 +118,10 @@ def test_importing_the_port_loads_no_jax():
             "gaussian_fluids_torch.ops.sparse, "
             "gaussian_fluids_torch.solver.sampling, "
             "gaussian_fluids_torch.io.viz2d, "
-            "gaussian_fluids_torch.utils.profiling\n"
+            "gaussian_fluids_torch.utils.profiling, "
+            "gaussian_fluids_torch.utils.roofline, "
+            + ", ".join(f"gaussian_fluids_torch.scripts.analyze_{name}"
+                        for name in ANALYZERS) + "\n"
             "bad = [m for m in ('jax', 'gaussian_fluids_tpu', 'matplotlib')"
             " if m in sys.modules]\n"
             "assert not bad, bad")
