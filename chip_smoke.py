@@ -260,6 +260,15 @@ Phases, each printing one JSON line with its wall seconds:
                 Ring-Collide's checkpoint 0 against density3d's step
                 (``DENSITY_TOL``);
                 both again at --mesh 2x1 where two GPUs are visible
+  production    ``gaussian_fluids_torch.scripts.production``'s chain on
+                the Leapfrog-2D run of ``advance``: one more frame at 100
+                epochs through ``Chain.advance`` (``--start_frame 1`` and
+                the remaining horizon, in a child process on the card),
+                then a step that fails on purpose, whose ``FAILED rc=``
+                and ``[tail]`` lines ``chain.log`` must hold; the failure
+                of any other step fails the phase; the run's
+                ``report_runs`` line. It runs alone: its children launch
+                kernels in processes of their own
 Launches are counted per path: each path's counts are set to 0 just
 before it and read just after; the 2D lines of the kernel summary carry
 the Leapfrog-2D path's launches, the d=3 and cells lines the 3D path's,
@@ -3486,6 +3495,43 @@ def epoch_roofline(card, walls, proj_2d, device):
           "ring_collide": rc, "leapfrog_2d": lf})
 
 
+def production_phase(run_dir):
+    """The production chain on the smoke's Leapfrog-2D run: one resumed
+    frame through ``Chain.advance`` and one step that fails on purpose."""
+    from gaussian_fluids_torch.scripts import production, report_runs
+
+    t0 = time.perf_counter()
+    logdir = os.path.join(os.path.dirname(run_dir), "production_log")
+    chain = production.Chain(logdir)
+    k = production.last_frame(run_dir)
+    chain.advance("lf_advance", run_dir, .025, (k + 1) * .025,
+                  production.entry("advance2d", "--init_cond", "leapfrog",
+                                   "--dir", run_dir, "--dt", .025,
+                                   "--max_epoch", ADVANCE_EPOCHS))
+    t1 = time.perf_counter()
+    chain.run("must_fail", [sys.executable, "-c",
+                            "print('production: failing on purpose'); "
+                            "raise SystemExit(3)"])
+    with open(os.path.join(logdir, "chain.log")) as fh:
+        log = fh.read().splitlines()
+    frames = [ln for ln in open(os.path.join(logdir, "lf_advance.log"))
+              if ln.startswith("[frame ")]
+    want = [f"--- lf_advance resuming from frame {k} (remaining t=0.025, "
+            f"to frame {k + 1})",
+            "=== must_fail FAILED rc=3",
+            "    [must_fail tail] production: failing on purpose"]
+    missing = [w for w in want if not any(ln.startswith(w) for ln in log)]
+    if (chain.failed != ["must_fail"] or missing
+            or production.last_frame(run_dir) != k + 1 or len(frames) != 1):
+        raise AssertionError(f"production: failed {chain.failed}, missing "
+                             f"{missing}, frames {frames}\n" + "\n".join(log))
+    line = report_runs.report(run_dir)
+    print(line, flush=True)
+    emit({"phase": "production", "seconds": time.perf_counter() - t0,
+          "resumed_frame_seconds": t1 - t0, "frame_line": frames[0].strip(),
+          "chain_log": log, "report_runs": line})
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3644,6 +3690,7 @@ def main():
         emit({"phase": "mesh", "seconds": time.perf_counter() - t0,
               "beside": ["obstacle3d", "replay_vs_jax"],
               "after_them_seconds": time.perf_counter() - t1})
+        production_phase(os.path.join(tmp, "2d"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

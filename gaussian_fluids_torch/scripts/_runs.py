@@ -47,11 +47,14 @@ def frames(run_dir: str) -> dict:
     return dict(sorted(out.items()))
 
 
-def frame_seconds(all_frames: dict, keep) -> np.ndarray:
+def frame_seconds(all_frames: dict, keep, consecutive: bool = True
+                  ) -> np.ndarray:
     """Seconds between consecutive frames' checkpoint mtimes, those for
     which ``keep(delta)`` holds (the scripts drop a restored copy's shared
-    mtime and a restart of the run, each at its own thresholds)."""
+    mtime and a restart of the run, each at its own thresholds);
+    ``consecutive=False`` also takes the delta across a gap in the frame
+    numbers, as ``report_runs`` does."""
     ns = sorted(all_frames)
     dts = [os.path.getmtime(all_frames[b]) - os.path.getmtime(all_frames[a])
-           for a, b in zip(ns, ns[1:]) if b == a + 1]
+           for a, b in zip(ns, ns[1:]) if b == a + 1 or not consecutive]
     return np.asarray([d for d in dts if keep(d)])

@@ -87,7 +87,9 @@ def test_guard_sees_the_whole_package():
             "gaussian_fluids_torch/io/viz2d.py",
             "gaussian_fluids_torch/utils/profiling.py",
             "gaussian_fluids_torch/utils/roofline.py",
-            "gaussian_fluids_torch/scripts/_runs.py"} <= rel
+            "gaussian_fluids_torch/scripts/_runs.py",
+            "gaussian_fluids_torch/scripts/production.py",
+            "gaussian_fluids_torch/scripts/report_runs.py"} <= rel
     for name in ANALYZERS:
         assert f"gaussian_fluids_torch/scripts/analyze_{name}.py" in rel
     for src in ("gsr_centered.cu", "gsr_cells.cu", "gsr_banded.cu",
@@ -120,6 +122,8 @@ def test_importing_the_port_loads_no_jax():
             "gaussian_fluids_torch.io.viz2d, "
             "gaussian_fluids_torch.utils.profiling, "
             "gaussian_fluids_torch.utils.roofline, "
+            "gaussian_fluids_torch.scripts.production, "
+            "gaussian_fluids_torch.scripts.report_runs, "
             + ", ".join(f"gaussian_fluids_torch.scripts.analyze_{name}"
                         for name in ANALYZERS) + "\n"
             "bad = [m for m in ('jax', 'gaussian_fluids_tpu', 'matplotlib')"
