@@ -1,0 +1,8 @@
+"""A density step's FLOPs on need against the f32 peak over the window's
+time per step."""
+
+from portbench import readers
+
+
+def read(s):
+    return readers.mfu_pct(s)
