@@ -58,6 +58,7 @@ from gaussian_fluids_torch.models.mixture import (GaussianMixture,
 from gaussian_fluids_torch.ops import (gsr_banded, gsr_cells, gsr_centered,
                                        rk4_fused, sparse, spatial)
 from gaussian_fluids_torch.ops import rotations as rotations_ops
+from gaussian_fluids_torch.utils import profiling
 from gaussian_fluids_torch.utils.grids import default_chunk
 
 _INF = float("inf")
@@ -437,10 +438,12 @@ def value_centered(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor,
 def _cells_lists(tmask: torch.Tensor, cap: int):
     """(rows, cols, gtiles, qtiles, ok): the work lists of the mask and of
     its transpose, ok an int32 flag that both fit."""
-    m = tmask.bool()
-    rows, cols, okf = spatial.flat_work_list(m, cap)
-    gtiles, qtiles, okb = spatial.flat_work_list(m.T, cap)
-    return rows, cols, gtiles, qtiles, (okf & okb).to(torch.int32)
+    with profiling.span("gf.field.work_lists"):
+        m = tmask.bool()
+        rows, cols, okf = spatial.flat_work_list(m, cap,
+                                                 count_as="cells_live_tiles")
+        gtiles, qtiles, okb = spatial.flat_work_list(m.T, cap)
+        return rows, cols, gtiles, qtiles, (okf & okb).to(torch.int32)
 
 
 def _cells_prep(mix: GaussianMixture, spec: FieldSpec, x: torch.Tensor):
@@ -560,7 +563,8 @@ def value_banded_prepped(prep, x: torch.Tensor, band: int,
         x = x[order]
     x_p = _pad_axis(x, tb).contiguous()
     band = min(band, prep["nlo"].shape[0])
-    jlo, ok = band_window(x_p, b, prep["nlo"], prep["nhi"], band, tb)
+    with profiling.span("gf.replay.band_window"):
+        jlo, ok = band_window(x_p, b, prep["nlo"], prep["nhi"], band, tb)
     out = gsr_banded.gsr_value_banded(
         jlo, ok, x_p, prep["muT"], prep["ppT"], prep["v"], prep["rad"],
         prep["lo"], prep["hi"], prep["clamp"], band, nvalid=b)[:b]

@@ -19,10 +19,12 @@ kernels walk (ops/gsr_cells.py).
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from gaussian_fluids_torch.utils import profiling
 
 
 def _spread3(v: torch.Tensor) -> torch.Tensor:
@@ -112,7 +114,8 @@ def sort_key_np(x) -> np.ndarray:
             | (_spread3(t[..., 2]) << 2)).numpy()
 
 
-def flat_work_list(mask: torch.Tensor, cap: int):
+def flat_work_list(mask: torch.Tensor, cap: int,
+                   count_as: Optional[str] = None):
     """Compact a (R, C) boolean tile mask into a flat work list of length
     ``cap``. Returns (rows, cols, ok):
 
@@ -126,10 +129,14 @@ def flat_work_list(mask: torch.Tensor, cap: int):
         items are missing and the caller must sweep the whole mask.
 
     Within a row's run, live items come first in ascending column order,
-    so a walker may stop at the first -1."""
+    so a walker may stop at the first -1. ``count_as`` names the counter
+    (``profiling.count``) that takes the rows' live counts against the
+    mask's R x C tiles."""
     r, c = mask.shape
     dev = mask.device
     cnt = mask.sum(dim=1)
+    if count_as is not None:
+        profiling.count(count_as, cnt, r * c)
     cnt1 = cnt.clamp(min=1)                  # keep-alive for empty rows
     total = cnt1.sum()
     starts = torch.cat([torch.zeros((1,), dtype=cnt1.dtype, device=dev),

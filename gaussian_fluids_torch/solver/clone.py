@@ -25,6 +25,7 @@ from gaussian_fluids_torch.solver.fit import grads_of, uniform_batch
 from gaussian_fluids_torch.solver.loop import (Patience, Runner,
                                                hoist_default, run_chunked,
                                                sorted_batches, swept)
+from gaussian_fluids_torch.utils import profiling
 from gaussian_fluids_torch.utils.grids import default_chunk
 
 PATIENCE_REL_CLONE = (1e-3, 1e-3)          # (val, grad)
@@ -208,7 +209,9 @@ def _clone_runner(spec: FieldSpec, batch_size: int = 512, lo=None, hi=None,
 
     def chunk_inputs(carry, gen, n, hoist=False, tgt=None):
         lo_t, hi_t = bounds(gen.device)
-        xs = [uniform_batch(gen, batch_size, lo_t, hi_t) for _ in range(n)]
+        with profiling.span("gf.chunk.draws"):
+            xs = [uniform_batch(gen, batch_size, lo_t, hi_t)
+                  for _ in range(n)]
         if tgt is not None:
             box = tuple(v for k in range(d) for v in (lo_t[k], hi_t[k]))
             outs = [interp.multi_channel_interp(tgt, x, box) for x in xs]
@@ -300,12 +303,15 @@ def clone_velocity_field(old_mix: GaussianMixture, spec: FieldSpec, *,
              stop, old_padded)
     tgt = runner.target_grid_fn(old_padded) if tg else None
     hoist = hoist_default(test_x) and tgt is None
-    test_ref = runner.test_ref_fn(old_padded, test_x)
+    with profiling.span("gf.test.targets"):
+        test_ref = runner.test_ref_fn(old_padded, test_x)
     names = ("loss", "loss_grad", "loss_aniso", "loss_vol")
     last = {}
 
     def metrics(c):
-        return runner.test_fn(c[0], c[2], c[3], test_x, test_ref).tolist()
+        with profiling.span("gf.test"):
+            return runner.test_fn(c[0], c[2], c[3], test_x,
+                                  test_ref).tolist()
 
     if verbose:
         lv, lg, la, lvl = metrics(carry)

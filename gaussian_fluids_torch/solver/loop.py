@@ -79,7 +79,8 @@ def run_chunk(epoch, chunk_inputs, carry, gen, n: int, hoist: bool = False,
     projection or clone. Returns the carry; each epoch's aux (its train
     losses, on the device) is appended to ``auxes`` where one is given."""
     for xs in chunk_inputs(carry, gen, n, hoist, tgt):
-        carry, aux = epoch(carry, xs, presorted=hoist and tgt is None)
+        with profiling.span("gf.epoch"):
+            carry, aux = epoch(carry, xs, presorted=hoist and tgt is None)
         if auxes is not None:
             auxes.append(aux)
     return carry
@@ -125,8 +126,9 @@ def sorted_batches(data: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     field runs on a kernel."""
     if not field._use_kernel(data):
         return data
-    o = torch.argsort(spatial.sort_key(data, lo, hi), dim=1, stable=True)
-    return torch.gather(data, 1, o[..., None].expand_as(data))
+    with profiling.span("gf.chunk.sort"):
+        o = torch.argsort(spatial.sort_key(data, lo, hi), dim=1, stable=True)
+        return torch.gather(data, 1, o[..., None].expand_as(data))
 
 
 def swept(fn, data: torch.Tensor):
@@ -135,8 +137,9 @@ def swept(fn, data: torch.Tensor):
     hoist's few large target sweeps. ``fn(points) -> tensor or tuple``."""
     n, b, d = data.shape
     g = sweep_group(n, b)
-    outs = [fn(c) for c in data.reshape(n // g, g * b, d)]
-    if isinstance(outs[0], torch.Tensor):
-        return torch.cat(outs).reshape((n, b) + outs[0].shape[1:])
-    return tuple(torch.cat(o).reshape((n, b) + o[0].shape[1:])
-                 for o in zip(*outs))
+    with profiling.span("gf.chunk.targets"):
+        outs = [fn(c) for c in data.reshape(n // g, g * b, d)]
+        if isinstance(outs[0], torch.Tensor):
+            return torch.cat(outs).reshape((n, b) + outs[0].shape[1:])
+        return tuple(torch.cat(o).reshape((n, b) + o[0].shape[1:])
+                     for o in zip(*outs))

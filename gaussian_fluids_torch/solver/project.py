@@ -38,6 +38,7 @@ from gaussian_fluids_torch.solver.fit import grads_of, uniform_batch
 from gaussian_fluids_torch.solver.loop import (Patience, Runner,
                                                hoist_default, run_chunked,
                                                sorted_batches, swept)
+from gaussian_fluids_torch.utils import profiling
 from gaussian_fluids_torch.utils.grids import default_chunk, grid_nodes
 
 TEST_CHUNK = 4096
@@ -135,12 +136,14 @@ def _runner_2d(spec: FieldSpec, scene_name: str, w: ProjectWeights,
         # the order is irrelevant and the sort pure overhead
         sorting = field._use_kernel(data)
         if sorting and not presorted:
-            data, *r = _sorted_by_x(data, *(() if ref_vor is None
-                                             else (ref_vor,)))
+            with profiling.span("gf.epoch.sort"):
+                data, *r = _sorted_by_x(data, *(() if ref_vor is None
+                                                 else (ref_vor,)))
             ref_vor = r[0] if r else None
         if ref_vor is None:
-            ref_vor = covector.advected_vorticity_2d(
-                old_mix, spec, data, dt, lo, hi, presorted=True)
+            with profiling.span("gf.epoch.targets"):
+                ref_vor = covector.advected_vorticity_2d(
+                    old_mix, spec, data, dt, lo, hi, presorted=True)
 
         def head_vor(val, jac):
             return w.vor * losses.vorticity_loss_2d(jac, ref_vor)
@@ -149,8 +152,9 @@ def _runner_2d(spec: FieldSpec, scene_name: str, w: ProjectWeights,
             return w.div * losses.divergence_loss(jac)
 
         # both heads are jac-only: the kernel skips the value cotangents
-        (l_vor, l_div), (g_vor, g_div) = field.two_head_grads(
-            params, alive, spec, data, head_vor, head_div)
+        with profiling.span("gf.epoch.heads"):
+            (l_vor, l_div), (g_vor, g_div) = field.two_head_grads(
+                params, alive, spec, data, head_vor, head_div)
 
         def rest(p):
             total = (w.aniso * losses.aniso_loss(p["scalings"], alive)
@@ -160,18 +164,23 @@ def _runner_2d(spec: FieldSpec, scene_name: str, w: ProjectWeights,
             bc = boundary_terms(mixture_of(p, alive), b1, b2, sorting)
             return total + boundary_lambda * bc, bc
 
-        l_rest, bc, g_rest = grads_of(rest, params)
-        g_data = losses.pcgrad_combine(g_vor, g_div)
-        grads = {k: g_rest[k] + g_data[k] for k in params}
-        loss_tot = l_vor + l_div + l_rest
-        params, opt_state = optim.step(opt_state, params, grads, loss_tot)
+        with profiling.span("gf.epoch.rest"):
+            l_rest, bc, g_rest = grads_of(rest, params)
+        with profiling.span("gf.epoch.pcgrad"):
+            g_data = losses.pcgrad_combine(g_vor, g_div)
+            grads = {k: g_rest[k] + g_data[k] for k in params}
+            loss_tot = l_vor + l_div + l_rest
+        with profiling.span("gf.epoch.adam"):
+            params, opt_state = optim.step(opt_state, params, grads,
+                                           loss_tot)
         carry = (params, opt_state, alive, positions_org, old_mix, adv, dt)
         return carry, torch.stack([l_vor, l_div, bc])
 
     def chunk_inputs(carry, gen, n, hoist=False, tgt=None):
         old_mix, adv, dt = carry[4:7]
         lo, hi = _scaled_box(adv, sf)
-        draws = [sample(gen, adv) for _ in range(n)]
+        with profiling.span("gf.chunk.draws"):
+            draws = [sample(gen, adv) for _ in range(n)]
         if tgt is not None:
             return [(d, interp.bilinear_interp(
                 tgt, d, (lo[0], hi[0], lo[1], hi[1])), b1, b2)
@@ -265,12 +274,14 @@ def project_2d(mix: GaussianMixture, spec: FieldSpec,
              mix.positions.detach(), old_mix, adv, float(dt))
     tgt = runner.target_grid_fn(old_mix, adv, float(dt)) if tg else None
     hoist = hoist_default(test_x) and tgt is None
-    test_ref = runner.test_ref_fn(old_mix, test_x, adv, float(dt))
+    with profiling.span("gf.test.targets"):
+        test_ref = runner.test_ref_fn(old_mix, test_x, adv, float(dt))
     last = {}
 
     def metrics(c):
-        return runner.test_fn(c[0], c[2], c[3], c[5], test_x, test_ref,
-                              gen).tolist()
+        with profiling.span("gf.test"):
+            return runner.test_fn(c[0], c[2], c[3], c[5], test_x, test_ref,
+                                  gen).tolist()
 
     def line(mh):
         return ", ".join(f"{k}: {v}" for k, v in zip(METRIC_NAMES, mh))
@@ -353,14 +364,16 @@ def _runner_3d(spec: FieldSpec, scene_name: Optional[str],
         # the order is irrelevant and the sort pure overhead
         sorting = field._use_kernel(data)
         if sorting and not presorted:
-            data, *r = _sorted_by_key(data, *(() if ref_vor is None
-                                               else (ref_vor, ref_hel)),
-                                      lo=lo, hi=hi)
+            with profiling.span("gf.epoch.sort"):
+                data, *r = _sorted_by_key(data, *(() if ref_vor is None
+                                                   else (ref_vor, ref_hel)),
+                                          lo=lo, hi=hi)
             if r:
                 ref_vor, ref_hel = r
         if ref_vor is None:
-            ref_vor, ref_hel = covector.advected_vorticity_3d(
-                old_mix, spec, data, dt, presorted=True)
+            with profiling.span("gf.epoch.targets"):
+                ref_vor, ref_hel = covector.advected_vorticity_3d(
+                    old_mix, spec, data, dt, presorted=True)
 
         # helicity accumulates into the vorticity PCGrad bucket
         def head_vorhel(val, jac):
@@ -370,8 +383,9 @@ def _runner_3d(spec: FieldSpec, scene_name: Optional[str],
         def head_div(val, jac):
             return w.div * losses.divergence_loss(jac)
 
-        (l_vorhel, l_div), (g_vor, g_div) = field.two_head_grads(
-            params, alive, spec, data, head_vorhel, head_div)
+        with profiling.span("gf.epoch.heads"):
+            (l_vorhel, l_div), (g_vor, g_div) = field.two_head_grads(
+                params, alive, spec, data, head_vorhel, head_div)
 
         def rest(p):
             total = (w.aniso * losses.aniso_loss(p["scalings"], alive)
@@ -380,17 +394,22 @@ def _runner_3d(spec: FieldSpec, scene_name: Optional[str],
             bc = boundary_term(mixture_of(p, alive), bnd, sorting)
             return total + boundary_lambda * bc, bc
 
-        l_rest, bc, g_rest = grads_of(rest, params)
-        g_data = losses.pcgrad_combine(g_vor, g_div)
-        grads = {k: g_rest[k] + g_data[k] for k in params}
-        loss_tot = l_vorhel + l_div + l_rest
-        params, opt_state = optim.step(opt_state, params, grads, loss_tot)
+        with profiling.span("gf.epoch.rest"):
+            l_rest, bc, g_rest = grads_of(rest, params)
+        with profiling.span("gf.epoch.pcgrad"):
+            g_data = losses.pcgrad_combine(g_vor, g_div)
+            grads = {k: g_rest[k] + g_data[k] for k in params}
+            loss_tot = l_vorhel + l_div + l_rest
+        with profiling.span("gf.epoch.adam"):
+            params, opt_state = optim.step(opt_state, params, grads,
+                                           loss_tot)
         carry = (params, opt_state, alive, old_mix, dt)
         return carry, torch.stack([l_vorhel, l_div, bc])
 
     def chunk_inputs(carry, gen, n, hoist=False, tgt=None):
         old_mix, dt = carry[3], carry[4]
-        draws = [sample(gen) for _ in range(n)]
+        with profiling.span("gf.chunk.draws"):
+            draws = [sample(gen) for _ in range(n)]
         if tgt is not None:
             refs = [interp.multi_channel_interp(tgt, x[0], domain6)
                     for x in draws]
@@ -485,11 +504,14 @@ def project_3d(mix: GaussianMixture, spec: FieldSpec,
              old_mix, float(dt))
     tgt = runner.target_grid_fn(old_mix, float(dt)) if tg else None
     hoist = hoist_default(test_x) and tgt is None
-    test_ref = runner.test_ref_fn(old_mix, test_x, float(dt))
+    with profiling.span("gf.test.targets"):
+        test_ref = runner.test_ref_fn(old_mix, test_x, float(dt))
     last = {}
 
     def metrics(c):
-        return runner.test_fn(c[0], c[2], test_x, test_ref, gen).tolist()
+        with profiling.span("gf.test"):
+            return runner.test_fn(c[0], c[2], test_x, test_ref,
+                                  gen).tolist()
 
     def line(mh):
         return ", ".join(f"{k}: {v}" for k, v in zip(METRIC_NAMES_3D, mh))

@@ -313,8 +313,12 @@ def _stage_velocity(mix: GaussianMixture, spec: FieldSpec, band):
     in row blocks on the CPU."""
     if mix.device.type == "cuda":
         prep = field.banded_prep(mix, spec)
-        return lambda q: field.value_banded_prepped(prep, q, band,
-                                                    presorted=True)
+
+        def banded(q):
+            with profiling.span("gf.replay.banded"):
+                return field.value_banded_prepped(prep, q, band,
+                                                  presorted=True)
+        return banded
     rows = max(1, _DENSE_PAIRS // mix.capacity)
     return lambda q: torch.cat([
         field.value(mix, spec, q[s:s + rows], need_dx=False)
@@ -355,8 +359,11 @@ def advected_density(density: torch.Tensor, mix: GaussianMixture,
     density = density.to(dev)
     outs = []
     for xc in xcs:
-        bk = torch.minimum(torch.maximum(rk4_pos_stages(f, xc, -dt), lo), hi)
-        outs.append(interp.trilinear_interp(density, bk, domain))
+        with profiling.span("gf.replay.chunk"):
+            bk = torch.minimum(torch.maximum(rk4_pos_stages(f, xc, -dt), lo),
+                               hi)
+            with profiling.span("gf.replay.trilinear"):
+                outs.append(interp.trilinear_interp(density, bk, domain))
     return torch.cat(outs)[:n].reshape(xn, yn, zn)
 
 
