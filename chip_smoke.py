@@ -42,7 +42,11 @@ Phases, each printing one JSON line with its wall seconds:
                 sufficient band's output, bitwise; the window's tiles
                 tested against the tiles walked per query tile, and the
                 rows the warps walk; then the same chunk on the mixture
-                x-sorted, with its own band, timed beside it
+                x-sorted, with its own band, timed beside it; then the
+                replay's chunk as four stage launches (each tile on its
+                own window, the last one sampling the 512^3 ring density)
+                against the eager chain it replaces: the largest gap
+                (bitwise: 0), both timed, the launches' bounds
   kernels_2d_rest  the dL/dx kernel, the triple-cotangent backward and the
                 fused RK4 backtrace at Karman-2D shapes (B=512, N=24,576,
                 the seeded Karman state; the triple backward over 512 data
@@ -172,8 +176,10 @@ Phases, each printing one JSON line with its wall seconds:
                 banded kernel against the dense plain backtrace in float64 on
                 frame 1's mixture, and the density sampled there
   density512    one advected_density step of one density at the production
-                512^3 grid on frame 1's mixture, timed (fails on a guard
-                failure), with the banded kernel's device ms of such a step;
+                512^3 grid on frame 1's mixture, timed (fails where a query
+                tile swept the whole axis: banded_swept_tiles over a second
+                step, bitwise the first), with the banded kernel's device
+                ms of such a step on the host's windows;
                 one timed write of its .vti as the replay writes it
                 (transposed on the card, copied, written as appended raw
                 data: the file's encoding is checked); and the card's busy
@@ -2041,6 +2047,75 @@ def _x_sorted_chunk(mix, spec, x, plain):
             **_banded_culling(x, B, prep, jlo, ok, band, gb.TB, gb.TN)}
 
 
+def _stage_chunk(mix, spec, prep, x, band, domain):
+    """The replay's chunk as four stage launches of the banded kernel (each
+    query tile on its own window; the last launch clamps and samples the
+    512^3 ring density into the volume) against the eager chain it
+    replaces (the kernel on the host's window through rk4_pos_stages, the
+    clamp, trilinear_interp): the largest gap (0 when bitwise), both timed
+    (device ms of the enqueued work), and the four launches' bounds, each
+    stage's walk counted on its own points."""
+    from gaussian_fluids_torch.ops import field, gsr_banded as gb, interp
+    from gaussian_fluids_torch.ops.advect import rk4_pos_stages
+    from gaussian_fluids_torch.scenes import get_scene_3d
+    from gaussian_fluids_torch.solver.simulate3d import (_banded_rk4_chunk,
+                                                         _stage_velocity)
+
+    r = get_scene_3d("ring_collide").info["ring1"]
+    dens = interp.seed_ring_density((512,) * 3, domain, r.center, r.normal,
+                                    r.radius, r.thickness, device=x.device)
+    B, clamp = x.shape[0], spec.clamp_threshold
+    out = torch.empty(B, device=x.device)
+    stages = []
+    real = gb.gsr_value_banded
+
+    def keep(*args, **kwargs):
+        stages.append(args[2])
+        return real(*args, **kwargs)
+    fused = lambda: _banded_rk4_chunk(  # noqa: E731
+        prep, x, -DENSITY_DT, band, dens, domain, out, 0)
+    gb.gsr_value_banded = keep
+    try:
+        fused()
+    finally:
+        gb.gsr_value_banded = real
+    got = out.clone()
+    lo, hi = (torch.tensor(domain[i::2], dtype=torch.float32,
+                           device=x.device) for i in (0, 1))
+    f = _stage_velocity(mix, spec, band)
+    eager = lambda: interp.trilinear_interp(  # noqa: E731
+        dens, torch.minimum(torch.maximum(
+            rk4_pos_stages(f, x, -DENSITY_DT), lo), hi), domain)
+    want = eager()
+    gap = float((got - want).abs().max())
+    if gap > TOL * max(float(want.abs().max()), 1e-30):
+        raise AssertionError(f"the stage launches' chunk is {gap} off the "
+                             f"eager chain")
+    torch.cuda.synchronize()
+    ms, eager_ms = time_ms(fused, 10), time_ms(eager, 10)
+    need = walked = 0.0
+    walked_pairs = 0
+    for xs in stages:
+        jlo, ok = field.band_window(xs, B, prep["nlo"], prep["nhi"], band,
+                                    gb.TB)
+        cull = _banded_culling(xs, B, prep, jlo, ok, band, gb.TB, gb.TN)
+        support = sum(int((mgv > 0).sum()) for _, mgv in gb.window_weights(
+            jlo, ok, xs, prep["muT"], prep["ppT"], clamp, band))
+        ops = pair_ops(OPS_BANDED_WINDOW, OPS_BANDED_SUPPORT,
+                       cull["walked_pairs"], support)
+        # the stage's points in and out, x0 and the running sum, the
+        # mixture's rows; the last stage's eight gathers and its volume
+        nbytes = 4 * (4 * x.numel() + prep["muT"].numel()
+                      + prep["ppT"].numel() + prep["v"].numel() + 9 * B)
+        need += kernel_bound(ops[0], nbytes)[0]
+        walked += kernel_bound(ops[1], nbytes)[0]
+        walked_pairs += cull["walked_pairs"]
+    return {"launches": len(stages), "ms": ms, "eager_chain_ms": eager_ms,
+            "max_abs_gap_vs_eager": gap, "bitwise_equal": gap == 0.0,
+            "bound_ms": need, "walked_bound_ms": walked,
+            "walked_pairs": walked_pairs, "density": "ring1 at 512^3"}
+
+
 def kernel_phase_density(device):
     """The banded value kernel at the replay's production shapes: one
     262,144-node chunk (the 512^3 grid's x-plane nearest 0.5) against the
@@ -2121,7 +2196,9 @@ def kernel_phase_density(device):
               "full_sweep_tiles_walked_per_query_tile_mean":
                   cull_sweep["tiles_walked_per_query_tile_mean"],
               "full_sweep_bitwise_equal": True,
-              "x_sorted": _x_sorted_chunk(mix, spec, x, plain)}
+              "x_sorted": _x_sorted_chunk(mix, spec, x, plain),
+              "rk4_stage_chunk": _stage_chunk(mix, spec, prep, x, band,
+                                              tuple(domain))}
     entry.update(shapes)
     return {"gsr_value_banded": entry}, shapes
 
@@ -2246,6 +2323,7 @@ def density_512(d, device):
     from gaussian_fluids_torch.scenes import get_scene_3d
     from gaussian_fluids_torch.solver.simulate3d import (
         DENSITY_CHUNK, _grid_chunks_device, _suggest_band, advected_density)
+    from gaussian_fluids_torch.utils import profiling
 
     mix, spec = checkpoint.load_checkpoint(
         os.path.join(d, "gaussian_velocity_1.pt"), device=device)
@@ -2260,14 +2338,24 @@ def density_512(d, device):
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     before = _volume_stats(dens.cpu().numpy())
-    n0, g0 = gsr_banded.launches["gsr_value_banded"], \
-        gsr_banded.guard_failures()
+    n0 = gsr_banded.launches["gsr_value_banded"]
     t0 = time.perf_counter()
     out = advected_density(dens, mix, spec, domain, DENSITY_DT, (512,) * 3)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = gsr_banded.launches["gsr_value_banded"] - n0
-    guard = gsr_banded.guard_failures() - g0
+
+    def swept(m):
+        """Query tiles of one step that swept the whole axis: each stage
+        launch takes its tiles' own windows, so no launch fails a guard."""
+        with profiling.counting() as rec:
+            again = advected_density(dens, m, spec, domain, DENSITY_DT,
+                                     (512,) * 3)
+        return rec.sums("banded_swept_tiles")[0], again
+    guard, again = swept(mix)
+    if not torch.equal(again, out):
+        raise AssertionError("512^3 density: a second step differs")
+    del again
     # the banded kernel's share: its launches of one step, timed alone
     chunks, _ = _grid_chunks_device(tuple(domain), (512,) * 3,
                                     DENSITY_CHUNK, device)
@@ -2296,21 +2384,20 @@ def density_512(d, device):
           "x_sorted_banded_ms_per_step": kernels_ms(xmix)}
     for name, m in (("x_sorted", xmix), ("x_sorted", xmix),
                     ("slab_major", mix)):
-        g1 = gsr_banded.guard_failures()
         t0 = time.perf_counter()
         other = advected_density(dens, m, spec, domain, DENSITY_DT,
                                  (512,) * 3)
         torch.cuda.synchronize()
         ab[name + "_seconds"].append(time.perf_counter() - t0)
-        if gsr_banded.guard_failures() != g1:
-            raise AssertionError(f"512^3 density, {name}: guard failure")
         ab[name + "_max_abs_diff"] = float((other - out).abs().max())
         del other
+    ab["x_sorted_swept_tiles"] = swept(xmix)[0]
     host = out.cpu().numpy()
     after = _volume_stats(host)
     if not after["finite"] or after["max"] > 1 + 1e-5 or after["mass"] <= 0 \
             or guard:
-        raise AssertionError(f"512^3 density: {after}, guard {guard}")
+        raise AssertionError(f"512^3 density: {after}, swept tiles "
+                             f"{guard}")
     # the replay writes each 512^3 density as .vti on a background thread,
     # transposed on the card and copied first; time one such copy and
     # write (and the file's size) to set beside the step's seconds
@@ -2339,7 +2426,7 @@ def density_512(d, device):
           "vti_encoding": encoding,
           "grid": [512] * 3, "chunks": -(-512 ** 3 // DENSITY_CHUNK),
           "band": _suggest_band(mix, spec, DENSITY_DT),
-          "launches": launches, "guard_failures": guard,
+          "launches": launches, "swept_tiles": guard,
           "before": before, "after": after,
           "profile_128": {k: prof[k] for k in (
               "wall_ms_per_epoch", "ms_per_epoch", "device_ms_per_epoch",

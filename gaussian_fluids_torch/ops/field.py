@@ -515,19 +515,10 @@ def band_window(x_p: torch.Tensor, b: int, nlo, nhi, band: int, tb: int):
     ``x_p`` (``b`` real rows) the first Gaussian tile whose x-range meets
     the tile's, clipped into [0, nnt - band]; ``ok`` (int32, shape (1,))
     is 1 iff every tile that meets a query tile lies in its window — the
-    JAX package's band guard (``field.value_banded``)."""
-    nbt, nnt = x_p.shape[0] // tb, nlo.shape[0]
-    xb = x_p[:, 0].reshape(nbt, tb)
-    valid = (torch.arange(x_p.shape[0], device=x_p.device) < b) \
-        .reshape(nbt, tb)
-    blo = torch.where(valid, xb, _INF).amin(dim=1)
-    bhi = torch.where(valid, xb, -_INF).amax(dim=1)
-    meet = ((bhi[:, None] >= nlo[None, :])
-            & (blo[:, None] <= nhi[None, :])).to(torch.int32)
-    jlo = meet.argmax(dim=1).clamp(0, nnt - band)
-    jhi = nnt - 1 - meet.flip(1).argmax(dim=1)
-    covered = ((meet.amax(dim=1) == 0) | (jhi < jlo + band)).all()
-    return jlo.to(torch.int32), covered.to(torch.int32).reshape(1)
+    JAX package's band guard (``field.value_banded``), over the tiles of
+    ``gsr_banded.tile_windows``."""
+    jlo, covered = gsr_banded.tile_windows(x_p, b, nlo, nhi, band, tb)
+    return jlo, covered.all().to(torch.int32).reshape(1)
 
 
 def banded_prep(mix: GaussianMixture, spec: FieldSpec):

@@ -308,9 +308,11 @@ _DENSE_PAIRS = 1 << 22
 
 
 def _stage_velocity(mix: GaussianMixture, spec: FieldSpec, band):
-    """f(points) -> velocities for the RK4 stages of a density step: the
-    banded kernel on the card (points presorted along x), the dense field
-    in row blocks on the CPU."""
+    """f(points) -> velocities for the RK4 stages of a density step where
+    the stages are composed on the host (the CPU step, the sharded step,
+    whose stages meet in a sum over ranks, and the multi-frame re-trace):
+    the banded kernel on the card (points presorted along x, the host's
+    window), the dense field in row blocks on the CPU."""
     if mix.device.type == "cuda":
         prep = field.banded_prep(mix, spec)
 
@@ -325,6 +327,26 @@ def _stage_velocity(mix: GaussianMixture, spec: FieldSpec, band):
         for s in range(0, q.shape[0], rows)])
 
 
+def _banded_rk4_chunk(prep, xc: torch.Tensor, dt: float, band: int,
+                      density: torch.Tensor, domain, out: torch.Tensor,
+                      offset: int) -> None:
+    """One chunk of ``advected_density`` on the banded kernel: the RK4
+    backtrace of ``xc`` by ``dt`` as four launches, each a whole stage on
+    its tiles' own windows (``gsr_banded.RK4Stage``), the last one
+    clamping and sampling ``density`` into ``out`` from node ``offset``.
+    Each stage's points are a fresh buffer."""
+    total = torch.empty_like(xc)
+    x = xc
+    for k in range(4):
+        stage = gsr_banded.RK4Stage(k, dt, xc, total, density, domain, out,
+                                    offset)
+        with profiling.span("gf.replay.banded"):
+            x = gsr_banded.gsr_value_banded(
+                None, None, x, prep["muT"], prep["ppT"], prep["v"],
+                prep["rad"], prep["lo"], prep["hi"], prep["clamp"], band,
+                nvalid=xc.shape[0], rk4=stage)
+
+
 @torch.no_grad()
 def advected_density(density: torch.Tensor, mix: GaussianMixture,
                      spec: FieldSpec, domain, dt, grid_shape,
@@ -334,23 +356,37 @@ def advected_density(density: torch.Tensor, mix: GaussianMixture,
     velocity field, clamp to the domain, and trilinearly sample the old
     density (reference 3D/advance_density.py:52-59).
 
-    On the card the stages go through the banded value kernel
-    (``field.value_banded``): grid chunks are x-sorted, so each query tile
-    visits only a window of Gaussian tiles; ``band`` is ``_suggest_band``'s
-    when None, and ``mix`` must be slab-major (``slab_sorted``) or
-    x-sorted. On the CPU the dense field
-    runs on the JAX package's N-bounded chunk. Every chunk is dispatched
-    before anything is read back; the result stays on the device."""
+    On the card a chunk is four launches of the banded value kernel
+    (``_banded_rk4_chunk``): grid chunks are x-sorted, so each query tile
+    visits only a window of Gaussian tiles, which it finds itself;
+    ``band`` is ``_suggest_band``'s when None, and ``mix`` must be
+    slab-major (``slab_sorted``) or x-sorted; the chunk is rounded up to
+    whole query tiles. The kernel does the stages' arithmetic, the clamp
+    and the sample as the eager chain does them, bit for bit. On the CPU
+    the dense field runs on the JAX package's N-bounded chunk. Every chunk
+    is dispatched before anything is read back; the result stays on the
+    device."""
     xn, yn, zn = grid_shape
     dev = mix.device
     if dev.type == "cuda":
         if band is None:
             band = _suggest_band(mix, spec, dt, chunk=chunk)
-    else:
-        # the JAX package's N-bounded CPU chunk, floored to a power of two
-        # so it stays stable while the capacity drifts over a replay
-        cap_chunk = max(4096, (1 << 29) // max(mix.capacity, 1))
-        chunk = min(chunk, 1 << (cap_chunk.bit_length() - 1))
+        prep = field.banded_prep(mix, spec)
+        band = min(band, prep["nlo"].shape[0])
+        chunk = -(-chunk // gsr_banded.TB) * gsr_banded.TB
+        xcs, n = _grid_chunks_device(tuple(domain), tuple(grid_shape), chunk,
+                                     dev)
+        density = density.to(dev).contiguous()
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+        for i, xc in enumerate(xcs):
+            with profiling.span("gf.replay.chunk"):
+                _banded_rk4_chunk(prep, xc, -float(dt), band, density,
+                                  tuple(domain), out, i * chunk)
+        return out.reshape(xn, yn, zn)
+    # the JAX package's N-bounded CPU chunk, floored to a power of two so
+    # it stays stable while the capacity drifts over a replay
+    cap_chunk = max(4096, (1 << 29) // max(mix.capacity, 1))
+    chunk = min(chunk, 1 << (cap_chunk.bit_length() - 1))
     f = _stage_velocity(mix, spec, band)
     lo = torch.tensor(domain[0::2], dtype=torch.float32, device=dev)
     hi = torch.tensor(domain[1::2], dtype=torch.float32, device=dev)

@@ -201,6 +201,12 @@ def count(name: str, value: torch.Tensor, total: int) -> None:
         rec.items.append((name, tuple(_stack()), value, int(total)))
 
 
+def counters_on() -> bool:
+    """Whether a ``counting()`` scope is open: for a counter whose value
+    the work would not compute otherwise."""
+    return _counts is not None
+
+
 def _fallback_counts() -> Dict[str, int]:
     from gaussian_fluids_torch.ops import gsr_banded, gsr_cells
     return {"cells_overflows": sum(gsr_cells.overflows().values()),

@@ -15,9 +15,11 @@ N = 24,576), each bitwise repeatable — the wrappers' refusals, the
 field through the kernels, query gradients (also through
 ``fused_gsr_centered`` itself) and the fused projection
 heads through the kernels, one fit, clone and projection epoch, 2D and
-3D, through the kernels against the dense path in float64, and the
+3D, through the kernels against the dense path in float64, the
 replay's RK4 backtrace through the banded kernel against the dense one
-in float64. Skips without a GPU. Imports neither JAX nor the JAX package, so it runs on the card's
+in float64, and the replay's chunk as four stage launches of the banded
+kernel (each query tile on its own window) against the eager chain,
+bitwise. Skips without a GPU. Imports neither JAX nor the JAX package, so it runs on the card's
 machine:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -735,6 +737,106 @@ def test_density_backtrace_through_kernel_matches_dense_f64(cuda_device):
     assert tb.launches["gsr_value_banded"] == 4
     assert float((got.double() - want).abs().max()) <= 1e-5
     assert float((want - x.double()).abs().max()) > 1e-4   # it moved
+
+
+def _eager_density(mix, spec, density, domain, dt, grid, chunk, band):
+    """``advected_density``'s chunk loop as the eager chain the stage
+    launches replace: the banded kernel on the host's window
+    (``_stage_velocity``) through ``rk4_pos_stages``, the clamp and
+    ``trilinear_interp``."""
+    from gaussian_fluids_torch.ops import interp
+    dev = density.device
+    f = tsim._stage_velocity(mix, spec, band)
+    lo = torch.tensor(domain[0::2], dtype=torch.float32, device=dev)
+    hi = torch.tensor(domain[1::2], dtype=torch.float32, device=dev)
+    xcs, n = tsim._grid_chunks_device(tuple(domain), tuple(grid), chunk, dev)
+    return torch.cat([interp.trilinear_interp(density, torch.minimum(
+        torch.maximum(tsim.rk4_pos_stages(f, xc, -dt), lo), hi), domain)
+        for xc in xcs])[:n].reshape(grid)
+
+
+@pytest.mark.parametrize("band", ["suggested", 1])
+def test_density_step_stage_kernel_is_the_eager_chain(cuda_device, band):
+    """``advected_density`` on the card (four stage launches a chunk, each
+    query tile on its own window, the last launch clamping and sampling
+    into the volume) against the eager chain on a 48^3 grid in chunks of
+    16,384 (the last one padded) at Ring-Collide width: bitwise, with the
+    suggested band and with band 1, where tiles sweep the whole axis
+    (``banded_swept_tiles``) and the host's guard fails."""
+    from gaussian_fluids_torch.utils import profiling
+    mix, spec, _ = ring_collide_state(cuda_device, seed=93)
+    mix = mix.slab_sorted(spec.clamp_threshold)
+    grid, chunk, dt = (48, 48, 48), 16384, 0.1
+    domain = (0.0, 1.0, 0.0, 1.0, 0.0, 1.0)
+    band = tsim._suggest_band(mix, spec, dt, chunk=chunk) \
+        if band == "suggested" else band
+    dens = torch.rand(grid, generator=torch.Generator().manual_seed(94)) \
+        .to(cuda_device)
+    tb.reset_launches()
+    with profiling.counting() as rec:
+        got = tsim.advected_density(dens, mix, spec, domain, dt, grid,
+                                    chunk=chunk, band=band)
+    chunks = -(-48 ** 3 // chunk)
+    assert tb.launches["gsr_value_banded"] == 4 * chunks
+    assert rec.fallbacks["banded_guard_failures"] == 0
+    swept, tiles, calls = rec.sums("banded_swept_tiles", "gf.replay.banded")
+    assert (tiles, calls) == (4 * chunks * chunk // tb.TB, 4 * chunks)
+    assert (swept == 0) == (band != 1)
+    want = _eager_density(mix, spec, dens, domain, dt, grid, chunk, band)
+    assert torch.equal(got, want)
+    assert float((got - dens).abs().max()) > 1e-2   # it moved
+
+
+def test_density_plane_chunk_stage_kernel_is_the_eager_chain(cuda_device):
+    """One production chunk (the 262,144 nodes of a 512^2 plane) at
+    Ring-Collide width through the four stage launches against the eager
+    chain, bitwise; the stage launches' points are fresh tensors."""
+    from gaussian_fluids_torch.ops import interp
+    mix, spec, prep, band = _banded(cuda_device, seed=95)
+    x = _plane(cuda_device, 0.4985)
+    domain = (0.0, 1.0, 0.0, 1.0, 0.0, 1.0)
+    dens = torch.rand((128,) * 3, generator=torch.Generator().manual_seed(
+        96)).to(cuda_device)
+    out = torch.full((x.shape[0],), float("nan"), device=cuda_device)
+    seen = []
+    real = tb.gsr_value_banded
+
+    def spy(*args, **kwargs):
+        seen.append(args[2])
+        return real(*args, **kwargs)
+    tb.gsr_value_banded = spy
+    try:
+        tb.reset_launches()
+        tsim._banded_rk4_chunk(prep, x, -0.1, band, dens, domain, out, 0)
+    finally:
+        tb.gsr_value_banded = real
+    assert tb.launches["gsr_value_banded"] == 4
+    assert len({t.data_ptr() for t in seen}) == 4 and seen[0] is x
+    bk = tsim.rk4_pos_stages(tsim._stage_velocity(mix, spec, band), x, -0.1)
+    lo, hi = (torch.tensor(domain[i::2], device=cuda_device) for i in (0, 1))
+    want = interp.trilinear_interp(dens, torch.minimum(torch.maximum(bk, lo),
+                                                       hi), domain)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("band", ["suggested", 1])
+def test_banded_own_window_is_bitwise(cuda_device, band):
+    """The kernel's own window (``jlo`` None) on a production chunk moved
+    as a stage moves it: bitwise the host window's sums, with the
+    suggested band (every tile covered) and band 1 (the host sweeps every
+    tile, the tiles sweep on their own)."""
+    mix, spec, prep, sband = _banded(cuda_device, seed=97)
+    band = sband if band == "suggested" else band
+    x = _plane(cuda_device, 0.61)
+    u = tf.value_banded_prepped(prep, x, sband, presorted=True)
+    x = (x - 0.05 * u).contiguous()
+    host, ok = _banded_call(prep, x, band)
+    own = tb.gsr_value_banded(None, None, x, prep["muT"], prep["ppT"],
+                              prep["v"], prep["rad"], prep["lo"], prep["hi"],
+                              prep["clamp"], band)
+    assert ok == (band != 1)
+    assert float(host.abs().max()) > 0
+    assert torch.equal(own, host)
 
 
 # ---- the last three kernels: dL/dx, the triple backward, fused RK4 ----

@@ -12,6 +12,7 @@ Tolerances, stated at each check: f32 sums taken in another order give
 trilinear sample per step.
 """
 
+import functools
 import os
 
 import jax.numpy as jnp
@@ -171,6 +172,183 @@ def test_x_sorted_matches():
     for k in ("positions", "scalings", "rotations", "values", "alive"):
         np.testing.assert_array_equal(getattr(got, k).numpy(),
                                       np.asarray(getattr(want, k)))
+
+
+# ---- the replay's chunk as four stage launches (the kernel's plain twin) ----
+
+_STAGE_GRID, _STAGE_CHUNK, _STAGE_DT = (8, 16, 16), 512, 0.1
+_UNIT = (0.0, 1.0, 0.0, 1.0, 0.0, 1.0)
+# bands on the 16^3 state's 72 tiles: every tile covered (the suggested
+# band), half the tiles of a stage swept, every tile swept
+_STAGE_BANDS = {"covering": None, "mixed": 24, "band_1": 1}
+
+
+@functools.lru_cache(maxsize=1)
+def _stage_state():
+    """A slab-major Ring-Collide-like state (16^3 Gaussians, capacity 4608,
+    72 tiles of the kernel's TN), the replay's chunks of an (8, 16, 16)
+    grid over its unit cube (4 chunks of 512 nodes, 4 query tiles each)
+    and a seeded density."""
+    from gaussian_fluids_torch.utils.seeded_state import ring_collide_state
+    mix, spec, _ = ring_collide_state(torch.device("cpu"), seed=4, side=16,
+                                      n_queries=64)
+    mix = mix.slab_sorted(spec.clamp_threshold)
+    xcs, n = tsim._grid_chunks_device(_UNIT, _STAGE_GRID, _STAGE_CHUNK,
+                                      torch.device("cpu"))
+    dens = torch.rand(_STAGE_GRID, generator=torch.Generator().manual_seed(3))
+    band = tsim._suggest_band(mix, spec, _STAGE_DT, chunk=_STAGE_CHUNK)
+    return mix, spec, tf.banded_prep(mix, spec), xcs, n, dens, band
+
+
+def _eager_step(prep, xcs, n, dens, band):
+    """The chain the stage launches replace: four host-windowed banded
+    evaluations (``value_banded_prepped``) through ``rk4_pos_stages``, the
+    clamp and ``trilinear_interp``."""
+    lo, hi = torch.tensor(_UNIT[0::2]), torch.tensor(_UNIT[1::2])
+    outs = []
+    for xc in xcs:
+        bk = tsim.rk4_pos_stages(
+            lambda q: tf.value_banded_prepped(prep, q, band, presorted=True),
+            xc, -_STAGE_DT)
+        outs.append(tinterp.trilinear_interp(
+            dens, torch.minimum(torch.maximum(bk, lo), hi), _UNIT))
+    return torch.cat(outs)[:n]
+
+
+@pytest.mark.parametrize("case", list(_STAGE_BANDS))
+def test_stage_twin_is_the_eager_chain(case):
+    """The card's chunk (``_banded_rk4_chunk``: four stage launches, each
+    tile on its own window, the last one clamping and sampling into the
+    volume) through the plain twin against the eager chain: bitwise where
+    every tile is covered, within 1e-6 of the largest value where tiles
+    sweep the axis; ``banded_swept_tiles`` counts those tiles, four
+    stages of four chunks of four tiles."""
+    from gaussian_fluids_torch.utils import profiling
+    mix, spec, prep, xcs, n, dens, band = _stage_state()
+    band = _STAGE_BANDS[case] or band
+    out = torch.full((n,), float("nan"))
+    tb.reset_launches()
+    with profiling.counting() as rec:
+        for i, xc in enumerate(xcs):
+            tsim._banded_rk4_chunk(prep, xc, -_STAGE_DT, band, dens, _UNIT,
+                                   out, i * _STAGE_CHUNK)
+    want = _eager_step(prep, xcs, n, dens, band)
+    swept, tiles, calls = rec.sums("banded_swept_tiles")
+    assert (tiles, calls) == (4 * len(xcs) * 4, 4 * len(xcs))
+    assert tb.launches["gsr_value_banded"] == 0   # the CPU runs the twin
+    if case == "covering":
+        assert swept == 0
+        assert torch.equal(out, want)
+    else:
+        assert swept == tiles if case == "band_1" else 0 < swept < tiles
+        close(out, want.numpy(), 1e-6)
+    assert float((out - dens.reshape(-1)).abs().max()) > 1e-3   # it moved
+
+
+def test_stage_launches_leave_their_points():
+    """Each stage's points are a fresh tensor and the launch's ``x`` is
+    left as it was (a probe may keep it); the running sum is the eager
+    chain's v + 2 v1 + 2 v2 + v3 before the last stage adds v3."""
+    mix, spec, prep, xcs, n, dens, band = _stage_state()
+    xc = xcs[1]
+    f = lambda q: tf.value_banded_prepped(prep, q, band,  # noqa: E731
+                                          presorted=True)
+    total = torch.empty_like(xc)
+    x, vs = xc, []
+    for k in range(3):
+        before = x.clone()
+        nxt = tb.gsr_value_banded(
+            None, None, x, prep["muT"], prep["ppT"], prep["v"], prep["rad"],
+            prep["lo"], prep["hi"], prep["clamp"], band,
+            rk4=tb.RK4Stage(k, -_STAGE_DT, xc, total))
+        vs.append(f(x))
+        assert nxt.data_ptr() not in (x.data_ptr(), xc.data_ptr())
+        assert torch.equal(x, before)
+        dt = -_STAGE_DT * (0.5 if k < 2 else 1.0)
+        assert torch.equal(nxt, xc + dt * vs[-1])
+        x = nxt
+    assert torch.equal(total, vs[0] + 2.0 * vs[1] + 2.0 * vs[2])
+
+
+def test_tile_windows_follow_the_rule():
+    """``tile_windows`` against its rule written out tile by tile over
+    moved, x-sorted points whose padded rows lie far off (they must not
+    widen the last tile's range), and ``field.band_window`` as its
+    reduction: the same starts, its guard the conjunction."""
+    mix, spec, prep, xcs, n, dens, band = _stage_state()
+    rng = np.random.RandomState(5)
+    x = torch.cat(xcs)
+    x = x + torch.as_tensor(rng.uniform(-0.02, 0.02, x.shape)
+                            .astype(np.float32))
+    x = x[torch.argsort(x[:, 0], stable=True)]
+    b = x.shape[0] - 60
+    x[b:] = 100.0
+    nlo, nhi = prep["nlo"].numpy(), prep["nhi"].numpy()
+    nnt = nlo.shape[0]
+    for w in (1, 8, 24, band, nnt):
+        jlo, covered = tb.tile_windows(x, b, prep["nlo"], prep["nhi"], w)
+        for i in range(x.shape[0] // tb.TB):
+            xs = x[i * tb.TB:min((i + 1) * tb.TB, b), 0].numpy()
+            meet = np.flatnonzero((nhi >= xs.min()) & (nlo <= xs.max()))
+            start = min(max(int(meet[0]) if meet.size else 0, 0), nnt - w)
+            assert int(jlo[i]) == start
+            assert bool(covered[i]) == (not meet.size
+                                        or int(meet[-1]) < start + w)
+        hjlo, ok = tf.band_window(x, b, prep["nlo"], prep["nhi"], w, tb.TB)
+        assert torch.equal(hjlo, jlo) and int(ok) == int(covered.all())
+
+
+@pytest.mark.parametrize("band", [24, None])
+def test_own_window_sums_match_the_host_window(band):
+    """The sums on each tile's own window (``jlo`` None) against the
+    host's window (``field.band_window``) on the first stage's points:
+    bitwise where the host's guard holds (the suggested band), within
+    1e-6 of the largest value where it fails and the host sweeps every
+    tile (band 24 on the first two chunks: the first chunk's tiles are
+    covered, the second's are not)."""
+    mix, spec, prep, xcs, n, dens, sband = _stage_state()
+    band = band or sband
+    x = torch.cat(xcs[:2])
+    args = (x, prep["muT"], prep["ppT"], prep["v"], prep["rad"], prep["lo"],
+            prep["hi"], prep["clamp"], band)
+    jlo, ok = tf.band_window(x, x.shape[0], prep["nlo"], prep["nhi"], band,
+                             tb.TB)
+    host = tb.gsr_value_banded(jlo, ok, *args)
+    own = tb.gsr_value_banded(None, None, *args)
+    covered = tb.tile_windows(x, x.shape[0], prep["nlo"], prep["nhi"],
+                              band)[1]
+    assert bool(covered.all()) == bool(int(ok)) and bool(covered[0])
+    assert float(host.abs().max()) > 0
+    if int(ok):
+        assert torch.equal(own, host)
+    else:
+        close(own, host.numpy(), 1e-6)
+
+
+def test_stage_wrapper_refuses():
+    """A stage on the host's window, a stage at vdim 2, points of another
+    shape, a half-given window, and a last stage without its density."""
+    mix, spec, prep, xcs, n, dens, band = _stage_state()
+    x = xcs[0]
+    total = torch.empty_like(x)
+    args = (prep["muT"], prep["ppT"], prep["v"], prep["rad"], prep["lo"],
+            prep["hi"], prep["clamp"], band)
+    jlo, ok = tf.band_window(x, x.shape[0], prep["nlo"], prep["nhi"], band,
+                             tb.TB)
+    st = tb.RK4Stage(0, -0.1, x, total)
+    with pytest.raises(ValueError):
+        tb.gsr_value_banded(jlo, ok, x, *args, rk4=st)
+    with pytest.raises(ValueError):
+        tb.gsr_value_banded(None, None, x, prep["muT"], prep["ppT"],
+                            prep["v"][:, :2].contiguous(), *args[3:],
+                            rk4=st)
+    with pytest.raises(ValueError):
+        tb.gsr_value_banded(None, None, x, *args,
+                            rk4=st._replace(x0=x[:256]))
+    with pytest.raises(ValueError):
+        tb.gsr_value_banded(jlo, None, x, *args)
+    with pytest.raises(ValueError):
+        tb.gsr_value_banded(None, None, x, *args, rk4=st._replace(k=3))
 
 
 # ---- sampling, seeding, files ----
