@@ -3,8 +3,10 @@
 2D: backtrace x through the old velocity by -dt with RK4; the target
 vorticity at x is curl u_old at the backtraced point, zeroed where the
 backtrace leaves the advance domain (2D vorticity is materially
-conserved). The projection's data loss is evaluated at the ORIGINAL sample
-positions, as in the reference.
+conserved); under ``profiling.counting()`` the counter
+``covector_outside`` takes those zeroed points against the batch. The
+projection's data loss is evaluated at the ORIGINAL sample positions, as
+in the reference.
 
 ``advected_vorticity_2d_rk1`` is the reference's one-step backtrace,
 kept as in the JAX package; no solver path calls it.
@@ -32,12 +34,15 @@ from gaussian_fluids_torch.ops import field
 from gaussian_fluids_torch.ops.advect import (rk4_deformation_stages,
                                               rk4_pos_stages)
 from gaussian_fluids_torch.solver import losses
+from gaussian_fluids_torch.utils import profiling
 
 
 def _finish_2d(bk_x, dv, adv_lo, adv_hi) -> torch.Tensor:
     """Curl at the backtraced points, zeroed outside [adv_lo, adv_hi]."""
     vor = losses.curl2d(dv)
     inside = ((bk_x >= adv_lo) & (bk_x <= adv_hi)).all(dim=-1)
+    if profiling.counters_on():
+        profiling.count("covector_outside", ~inside, inside.shape[0])
     return torch.where(inside, vor, torch.zeros_like(vor))
 
 

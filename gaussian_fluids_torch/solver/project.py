@@ -117,15 +117,17 @@ def _runner_2d(spec: FieldSpec, scene_name: str, w: ProjectWeights,
         """(c1 + c2) Dirichlet and flux boundary losses (0 if none)."""
         bc = torch.zeros((), device=m.device)
         if b1 is not None:
-            bd, bval = _sorted_by_x(*b1) if sorting else b1
-            bc = bc + losses.boundary_dirichlet_loss(
-                field.value(m, spec, bd, presorted=True, need_dx=False),
-                bval)
+            with profiling.span("gf.boundary.dirichlet"):
+                bd, bval = _sorted_by_x(*b1) if sorting else b1
+                bc = bc + losses.boundary_dirichlet_loss(
+                    field.value(m, spec, bd, presorted=True, need_dx=False),
+                    bval)
         if b2 is not None:
-            bd, bn, bnr = _sorted_by_x(*b2) if sorting else b2
-            bc = bc + losses.boundary_flux_loss(
-                field.value(m, spec, bd, presorted=True, need_dx=False), bn,
-                bnr)
+            with profiling.span("gf.boundary.flux"):
+                bd, bn, bnr = _sorted_by_x(*b2) if sorting else b2
+                bc = bc + losses.boundary_flux_loss(
+                    field.value(m, spec, bd, presorted=True, need_dx=False),
+                    bn, bnr)
         return bc
 
     def epoch(carry, xs, presorted=False):
